@@ -7,29 +7,43 @@ Phases, each printing one JSON line:
 
 1. device: needs ``torch.cuda.is_available()`` (else it exits 1 and prints
    no result); turns TF32 off for float32 products and convolutions.
-2. build: compiles ``msmd_tpu_torch/csrc/*.cu`` with ``nvcc``, one process
-   per source, all started together.
+2. build: compiles every ``msmd_tpu_torch/csrc/*.cu`` with ``nvcc``, one
+   process per source, all started together.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the same CUDA tensors at the flagship shapes of the main path, and
-   timed with CUDA events beside its bound (``msmd_tpu_torch/measure.py``:
-   the larger of bytes over 3.35 TB/s and operations over the peak rate of
+   the same CUDA tensors at the flagship shapes of its path, and timed
+   with CUDA events beside its bound (``msmd_tpu_torch/measure.py``: the
+   larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type on an H100 SXM, 989 TFLOP/s bf16 or 67 TFLOP/s f32).
-   - decoder stack: Be = 96 (batch 48, two CFG entries), lq = 111,
+   - decoder stack (K1): Be = 96 (batch 48, two CFG entries), lq = 111,
      8 x 512 layers, bf16 pack; max |err| / max |plain| <= 2e-2.
-   - FLAME decode: N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32, no TF32).
-4. main path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
+   - batch-1 sampler scan (K3): two CFG entries, lq = 111, the same
+     layers, 500 steps; gated at max |err| / max |plain| <= 2e-2 over all
+     500 steps and over the last 10 (t = 10..1), and timed over all 500.
+     The gates read the denoiser because they end at t = 1, where
+     x_0 = target; over the first steps (t = 500..491) the output is
+     almost all x_T and z, which both sides share, and a wrong decoder
+     would read well below the gate.
+   - batch-1 sampler step (K4): one step at t = 1; the same gate.
+   - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
+     no TF32).
+4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
-   (2 windows) with 48 repetitions and cfg_scale 1.15, then every frame
-   decoded to vertices through the FLAME kernel on a synthetic 5023-vertex
-   FLAME. Launch counts are set to 0 just before it and read just after:
-   the decoder kernel must have run 2 x 500 times, the FLAME kernel once
-   per window. A warm-up window runs first, so the timed run holds no
-   one-time set-up.
+   (2 windows) with 48 repetitions, cfg_scale 1.15 and the dynamic
+   threshold, then every frame decoded to vertices through the FLAME
+   kernel on a synthetic 5023-vertex FLAME. K1 must have run 2 x 500
+   times, K5 once per window.
+5. batch1: the same model at batch 1 without a dynamic threshold on the
+   same audio, each window through K5: K3 must have run once per window,
+   K1 never, K5 once per window; then one window of
+   ``sample(..., ret_traj=True)``, which must run K4 500 times, and the
+   difference of its x_0 from K3's on the same noise (printed, not gated).
 
-The line before the last is the per-kernel summary
-``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
+Launch counts are set to 0 just before each path is driven and read just
+after; each path runs a warm-up window first, so the timed run holds no
+one-time set-up. The line before the last is the per-kernel summary
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+Any failed phase exits non-zero.
 """
 
 from __future__ import annotations
@@ -41,6 +55,8 @@ import sys
 import time
 
 AUDIO_SECONDS = 8.0
+GATE = 2e-2  # max |err| / max |plain| at bf16
+SCAN_GATED_STEPS = 10
 
 
 def emit(obj) -> None:
@@ -69,7 +85,7 @@ def phase_build():
     from msmd_tpu_torch import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["decoder", "lbs"])
+    logs = _build.build(_build.sources())
     seconds = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -79,16 +95,33 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: every kernel against its plain version at the main path's shapes
+# phase 3: every kernel against its plain version at its path's shapes
 # ---------------------------------------------------------------------------
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _timed_once(fn):
+    """(result, device ms) of one call, from CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
 
 def phase_kernels(dev):
     import torch
 
     from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, bound, cuda_ms, decoder_case, decoder_work,
-                                        lbs_case, lbs_work)
+                                        lbs_case, lbs_work, sampler_case, sampler_work)
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import lbs as kl
+    from msmd_tpu_torch.ops.kernels import sampler as ks
 
     out = {}
     with torch.no_grad():
@@ -96,21 +129,61 @@ def phase_kernels(dev):
         got = kd.fused_decoder_forward(*args)
         want = kd.fused_decoder_forward_plain(*args)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and rel <= 2e-2
+        err, rel = float((got - want).abs().max()), _rel(got, want)
         flops, nbytes = decoder_work(args)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
         out["decoder"] = dict(
             name="fused_decoder_forward", route="cuda", source="msmd_tpu_torch/csrc/decoder.cu",
             replaces="msmd_tpu/ops/pallas/decoder_kernel.py:560",
-            max_abs_err=err, rel_err=rel, tolerance="max|err|/max|plain| <= 2e-2",
+            max_abs_err=err, rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE}",
             ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20),
             plain_ms=cuda_ms(lambda: kd.fused_decoder_forward_plain(*args), 3, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, flops=flops, bytes=nbytes, ok=ok,
+            library_ms=None, flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE,
         )
         del args, got, want
+
+        scan, step, kw = sampler_case(dev)
+        pack, kmem, vmem, motion, emb, sc, z, const = scan
+        n = SCAN_GATED_STEPS
+        tail = (pack, kmem, vmem, motion, emb[-n:], sc[-n:], z[-n:], const)  # t = n..1
+        got = ks.fused_sampler_scan(*tail, **kw)
+        want = ks.fused_sampler_scan_plain(*tail, **kw)
+        torch.cuda.synchronize()
+        err, rel = float((got - want).abs().max()), _rel(got, want)
+        got_full = ks.fused_sampler_scan(*scan, **kw)
+        want_full, plain_ms = _timed_once(lambda: ks.fused_sampler_scan_plain(*scan, **kw))
+        rel_full = _rel(got_full, want_full)
+        flops, nbytes = sampler_work(scan, kw)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        out["scan"] = dict(
+            name="fused_sampler_scan", route="cuda", source="msmd_tpu_torch/csrc/sampler.cu",
+            replaces="msmd_tpu/ops/pallas/decoder_kernel.py:1142",
+            max_abs_err=float((got_full - want_full).abs().max()), rel_err=rel_full,
+            tolerance=f"max|err|/max|plain| <= {GATE} over all {int(z.shape[0])} steps and over t = {n}..1",
+            steps=int(z.shape[0]), max_abs_err_last_steps=err, rel_err_last_steps=rel,
+            ms=cuda_ms(lambda: ks.fused_sampler_scan(*scan, **kw), 3, warmup=1), plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes,
+            ok=bool(torch.isfinite(got_full).all()) and rel_full <= GATE and rel <= GATE,
+        )
+        del got, want, got_full, want_full
+
+        got = ks.fused_sampler_step(*step, **kw)
+        want = ks.fused_sampler_step_plain(*step, **kw)
+        torch.cuda.synchronize()
+        err, rel = float((got - want).abs().max()), _rel(got, want)
+        flops, nbytes = sampler_work(step, kw, step=True)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        out["step"] = dict(
+            name="fused_sampler_step", route="cuda", source="msmd_tpu_torch/csrc/sampler.cu",
+            replaces="msmd_tpu/ops/pallas/decoder_kernel.py:1227",
+            max_abs_err=err, rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE} at t = 1 (x_0 = target)",
+            ms=cuda_ms(lambda: ks.fused_sampler_step(*step, **kw), 20),
+            plain_ms=cuda_ms(lambda: ks.fused_sampler_step_plain(*step, **kw), 3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes,
+            ok=bool(torch.isfinite(got).all()) and rel <= GATE,
+        )
+        del scan, step, got, want
 
         fused, (betas_ext, rt) = lbs_case(dev)
         got = kl.skin_cuda(fused, betas_ext, rt)
@@ -138,38 +211,67 @@ def phase_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path, audio -> guided DDPM -> FLAME vertices
+# phases 4 and 5: the main paths, audio -> guided DDPM -> FLAME vertices
 # ---------------------------------------------------------------------------
 
-def phase_main(dev, smi):
-    import torch
-
-    from msmd_tpu_torch.measure import BATCH, SEED, build_main_path, generate, seeded_audio
+def _reset_counts():
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import lbs as kl
+    from msmd_tpu_torch.ops.kernels import sampler as ks
 
-    model, style, fused = build_main_path(dev)
+    for fn in (kd.fused_decoder_forward, ks.fused_sampler_scan, ks.fused_sampler_step, kl.flame_vertices):
+        fn.launches = 0
+
+
+def _counts():
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    return {"decoder": kd.fused_decoder_forward.launches, "scan": ks.fused_sampler_scan.launches,
+            "step": ks.fused_sampler_step.launches, "lbs": kl.flame_vertices.launches}
+
+
+def _run_path(model, style, fused, reps, dynamic_threshold, gen, dev):
+    """A warm-up window, then the 8 s clip with counts from 0. Returns
+    (coeffs, verts, wall seconds, launch counts, windows)."""
+    import torch
+
+    from msmd_tpu_torch.measure import SEED, generate, seeded_audio
+
     cfg = model.cfg
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    # warm-up window: one-time library and allocator set-up stays out of the timed run
-    generate(model, style, fused, seeded_audio(cfg.n_motions / cfg.fps, SEED + 6), BATCH, gen, dev)
+    generate(model, style, fused, seeded_audio(cfg.n_motions / cfg.fps, SEED + 6), reps, gen, dev,
+             dynamic_threshold=dynamic_threshold)
     torch.cuda.synchronize()
-
     audio = seeded_audio(AUDIO_SECONDS, SEED + 7)
-    n_windows = math.ceil(int(AUDIO_SECONDS * cfg.fps) / cfg.n_motions)
-    kd.fused_decoder_forward.launches = 0
-    kl.flame_vertices.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
-    coeffs, verts = generate(model, style, fused, audio, BATCH, gen, dev)
+    coeffs, verts = generate(model, style, fused, audio, reps, gen, dev, dynamic_threshold=dynamic_threshold)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decoder": kd.fused_decoder_forward.launches, "lbs": kl.flame_vertices.launches}
+    return coeffs, verts, wall, _counts(), math.ceil(int(AUDIO_SECONDS * cfg.fps) / cfg.n_motions)
 
+
+def _finite(*ts) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def phase_main(dev, smi, built):
+    import torch
+
+    from msmd_tpu_torch.measure import BATCH, SEED
+
+    model, style, fused = built
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    coeffs, verts, wall, launches, n_windows = _run_path(model, style, fused, BATCH, (0, 1, 4), gen, dev)
     frames = int(AUDIO_SECONDS * cfg.fps)
     checks = {
         "coeffs_shape": list(coeffs.shape) == [BATCH, frames, cfg.motion_feat_dim],
         "verts_shape": list(verts.shape) == [BATCH * frames, fused.n_verts, 3],
-        "finite": bool(torch.isfinite(coeffs).all()) and bool(torch.isfinite(verts).all()),
+        "finite": _finite(coeffs, verts),
         "decoder_launches": launches["decoder"] == n_windows * cfg.n_diff_steps,
         "lbs_launches": launches["lbs"] == n_windows,
     }
@@ -182,22 +284,81 @@ def phase_main(dev, smi):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not all(checks.values()):
         raise SystemExit(f"chip_smoke: main path checks failed: {checks}")
-    return launches, n_windows
+    return launches
+
+
+def phase_batch1(dev, smi, built):
+    import torch
+
+    from msmd_tpu_torch.measure import CFG_SCALE, SEED, seeded_audio
+    from msmd_tpu_torch.models.diffusion import sample
+
+    model, style, fused = built
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    coeffs, verts, wall, launches, n_windows = _run_path(model, style, fused, 1, None, gen, dev)
+    frames = int(AUDIO_SECONDS * cfg.fps)
+    per_window = wall / n_windows
+
+    # one window with the trajectory (K4 per step), and the same window
+    # through K3 from the same noise
+    with torch.no_grad():
+        feat = model.extract_audio_feature(
+            torch.as_tensor(seeded_audio(cfg.n_motions / cfg.fps, SEED + 9), device=dev)[None])
+        shape = torch.zeros(1, 100, device=dev)
+        m_T = torch.randn(1, cfg.n_motions, cfg.motion_feat_dim, generator=gen, device=dev)
+        noise = torch.randn(cfg.n_diff_steps, 1, cfg.n_motions, cfg.motion_feat_dim, generator=gen, device=dev)
+        kw = dict(motion_at_T=m_T, noise_override=noise, cfg_scale=CFG_SCALE, device=dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        traj, _, _ = sample(model, feat, shape, style, ret_traj=True, **kw)
+        torch.cuda.synchronize()
+        traj_wall = time.perf_counter() - t0
+        traj_launches = _counts()
+        m0, _, _ = sample(model, feat, shape, style, **kw)
+    checks = {
+        "coeffs_shape": list(coeffs.shape) == [1, frames, cfg.motion_feat_dim],
+        "verts_shape": list(verts.shape) == [frames, fused.n_verts, 3],
+        "finite": _finite(coeffs, verts, traj),
+        "scan_launches": launches["scan"] == n_windows,
+        "decoder_launches": launches["decoder"] == 0,
+        "lbs_launches": launches["lbs"] == n_windows,
+        "traj_shape": list(traj.shape) == [cfg.n_diff_steps + 1, 1, cfg.n_motions, cfg.motion_feat_dim],
+        "traj_step_launches": traj_launches["step"] == cfg.n_diff_steps,
+        "traj_no_other_sampler": traj_launches["scan"] == 0 and traj_launches["decoder"] == 0,
+    }
+    emit({"phase": "batch1", "batch": 1, "windows": n_windows, "diff_steps": cfg.n_diff_steps,
+          "coeffs_shape": list(coeffs.shape), "verts_shape": list(verts.shape),
+          "wall_s": wall, "wall_s_per_window": per_window,
+          "real_time_factor": (cfg.n_motions / cfg.fps) / per_window, "launches": launches,
+          "traj_shape": list(traj.shape), "traj_wall_s": traj_wall, "traj_launches": traj_launches,
+          "traj_x0_vs_scan_max_abs": float((traj[0] - m0).abs().max()),
+          "traj_x0_vs_scan_rel": _rel(traj[0], m0),
+          "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: batch-1 checks failed: {checks}")
+    return launches, traj_launches
 
 
 def main() -> int:
     smi = phase_device()
     import torch
 
+    from msmd_tpu_torch.measure import build_main_path
+
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev)
-    launches, _ = phase_main(dev, smi)
+    built = build_main_path(dev)
+    main_launches = phase_main(dev, smi, built)
+    b1_launches, traj_launches = phase_batch1(dev, smi, built)
+    kernels["decoder"]["launches"] = main_launches["decoder"]
+    kernels["lbs"]["launches"] = main_launches["lbs"]
+    kernels["scan"]["launches"] = b1_launches["scan"]
+    kernels["step"]["launches"] = traj_launches["step"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    for k in kernels:
-        kernels[k]["launches"] = launches[k]
-    emit({"kernels": [{key: kernels[k][key] for key in keys} for k in ("decoder", "lbs")]})
+    emit({"kernels": [{key: kernels[k][key] for key in keys} for k in ("decoder", "scan", "step", "lbs")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

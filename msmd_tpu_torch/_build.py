@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>-<hash>.so`` at first use (the hash is
-of the source, so an edited kernel is rebuilt), then loaded with
-``ctypes``. Nothing is built when a module is imported: the CPU tests
+of the source and of the shared headers ``csrc/*.cuh``, so an edited
+kernel is rebuilt), then loaded with ``ctypes``. Nothing is built when a module is imported: the CPU tests
 import every module on machines that have no ``nvcc``.
 """
 
@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -32,9 +32,16 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> List[str]:
+    """The name of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

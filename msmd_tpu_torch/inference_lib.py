@@ -1,5 +1,6 @@
-"""Windowed long-form inference (the port of ``msmd_tpu/inference_lib.py``;
-reference: inference.py:35-75 and 109-183).
+"""Windowed long-form inference and model loading (the port of
+``msmd_tpu/inference_lib.py``; reference: inference.py:35-75, 85-103 and
+109-183).
 
 Audio features of the whole clip are extracted once; fixed
 ``n_motions``-frame windows then slide with stride ``n_motions``, each
@@ -13,13 +14,15 @@ from __future__ import annotations
 
 import math
 import pickle
+from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
 from msmd_tpu_torch.device import resolve_device
-from msmd_tpu_torch.models.diffusion import MSMD, sample
+from msmd_tpu_torch.models.diffusion import MSMD, get_diffusion_model, sample
 
 
 @torch.no_grad()
@@ -90,6 +93,43 @@ def infer_coeffs(
             motion = motion[:, :-n_padding_frames]
         coef_list.append(motion)
     return torch.cat(coef_list, dim=1)
+
+
+def load_model(model_root, model_name: str, iter_num: str, audio_config: Optional[AudioEncoderConfig] = None,
+               device="cuda"):
+    """Load ``args.json`` and a reference checkpoint from the experiment
+    layout ``<root>/DPT/<name>/{args.json, checkpoints/iter_<it>.pt}``
+    (or ``<root>/<name>/...``). The model is built in f32, as the JAX
+    package builds it, and the style encoder is VAE2.
+
+    Returns (model, style_enc, cfg), both modules on ``device`` in eval
+    mode."""
+    from msmd_tpu_torch.interop import (load_flax_params, load_reference_pt, reference_msmd_to_flax,
+                                        reference_style_enc_to_flax)
+    from msmd_tpu_torch.models.style_encoder import get_style_encoder
+
+    dev = resolve_device(device)
+    exp_dir = Path(model_root) / "DPT" / model_name
+    if not exp_dir.exists():
+        exp_dir = Path(model_root) / model_name
+    cfg = MSMDConfig.load_args_json(exp_dir)
+    if audio_config is None and cfg.audio_encoder_config is not None:
+        audio_config = AudioEncoderConfig(
+            **{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.audio_encoder_config.items()})
+    ckpt_path = exp_dir / "checkpoints" / f"iter_{iter_num}.pt"
+    if not ckpt_path.exists():
+        available = sorted(p.name for p in (exp_dir / "checkpoints").glob("iter_*.pt"))
+        raise FileNotFoundError(
+            f"Checkpoint not found: {ckpt_path}"
+            + (f" — available: {available}" if available else " — no iter_*.pt checkpoints in this experiment"))
+    if cfg.style_enc_model_style != "vae2":
+        raise NotImplementedError(f"style encoder {cfg.style_enc_model_style!r}: only 'vae2' is ported")
+    _, model_sd, style_sd, _ = load_reference_pt(ckpt_path)
+    model = get_diffusion_model(cfg, audio_config=audio_config, device=dev)
+    load_flax_params(model, reference_msmd_to_flax(model_sd, cfg))
+    style_enc = get_style_encoder(cfg).to(dev).eval()
+    load_flax_params(style_enc, reference_style_enc_to_flax(style_sd))
+    return model, style_enc, cfg
 
 
 def load_style_clip(expression_code_path, head_rot_path, coef_stats: dict, original_fps: float = 30,

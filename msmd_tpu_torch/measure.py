@@ -1,10 +1,11 @@
-"""Seeded cases, bounds and timing shared by ``chip_smoke.py`` and
-``python -m msmd_tpu_torch.profile``.
+"""Seeded cases, bounds and timing shared by ``chip_smoke.py``,
+``python -m msmd_tpu_torch.profile`` and ``tests/test_torch_cuda.py``.
 
-The cases are the main path's shapes at the flagship configuration:
+The cases are the main paths' shapes at the flagship configuration:
 the decoder stack at batch 48 with two CFG entries (Be = 96, lq = 111,
-8 x 512 layers, FFN 2048) and the FLAME decode of one 4 s window at
-batch 48 (N = 4800 frames, V = 5023). A bound is the least time an H100
+8 x 512 layers, FFN 2048), the batch-1 sampler kernels (E = 2 CFG
+entries, lq = 111, the same layers, 500 steps) and the FLAME decode of
+one 4 s window at batch 48 (N = 4800 frames, V = 5023). A bound is the least time an H100
 SXM could take for the same work: the larger of the bytes that must move
 (each input read once, each output written once) over the memory rate
 and the operations over the peak rate of their type (NVIDIA's data sheet).
@@ -75,6 +76,71 @@ def decoder_work(args):
     return L * per_layer, nbytes
 
 
+def sampler_case(dev, P=10, N=100, F=512, H=8, L=8, FF=2048, T=500, seed=SEED, dtype=torch.bfloat16):
+    """Seeded inputs of the batch-1 sampler kernels, built by the
+    sampler's own ``batch1_sampler_args`` from a denoiser in ``dtype``
+    with random weights and biases, with the two CFG entries that equal scales of
+    ``CFG_SCALE`` keep. Returns (scan_args, step_args, kw) for
+    ``fused_sampler_scan(*scan_args, **kw)`` (T steps) and
+    ``fused_sampler_step(*step_args, **kw)`` (the last of them, t = 1,
+    where the update of the default ``target="sample"`` is x_0 = target
+    (A = 0, B = 1, sigma = 0): there a comparison reads the whole
+    denoiser, where at t = T the shared x_T and z would swamp it)."""
+    from msmd_tpu_torch.config import MSMDConfig
+    from msmd_tpu_torch.models.denoiser import DenoisingNetwork
+    from msmd_tpu_torch.models.diffusion import batch1_sampler_args
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.ops.kernels.decoder import build_vmw
+
+    cfg = MSMDConfig(feature_dim=F, n_heads=H, n_layers=L, mlp_ratio=FF // F, n_motions=N, n_prev_motions=P,
+                     n_diff_steps=T)
+    dn = init_params(DenoisingNetwork(cfg, dtype=dtype), seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    rn = lambda *shape: torch.randn(*shape, generator=g)
+    with torch.no_grad():
+        for name, p in dn.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(rn(*p.shape) * 0.1)
+    dn = dn.to(dev).to(dtype)
+    D, E = cfg.motion_feat_dim, 2
+    stacks = dict(n_entries=E, coefficients=(1.0 - CFG_SCALE, CFG_SCALE),
+                  person_in=rn(E, 1, cfg.shape_feat_dim + cfg.d_style).to(dev),
+                  style_in=rn(1, 1, cfg.d_style).expand(E, 1, cfg.d_style).to(dev),
+                  prev_motion_in=rn(1, P, D).expand(E, P, D).to(dev), indicator_in=None)
+    with torch.no_grad():
+        memory_kv = dn.cache_memory_kv(rn(E, P, F).to(dev), rn(E, N, F).to(dev))
+        a = batch1_sampler_args(dn, cfg, dtype, stacks, memory_kv, N)
+        const = dict(a["const"], vmw=build_vmw(a["vmem"], a["pack"]["wco"], 1 + P + N, out_dtype=torch.float32))
+    ts = torch.arange(T, 0, -1, device=dev)
+    motion_T = rn(N, D).to(dev)
+    z = (rn(T, N, D).to(dev) * (ts > 1).float()[:, None, None]).contiguous()
+    emb, sc = a["emb_table"][ts][:, None].contiguous(), a["sc_tab"][ts][:, None].contiguous()
+    scan = (a["pack"], a["kmem"], a["vmem"], motion_T, emb, sc, z, const)
+    step = (a["pack"], a["kmem"], a["vmem"], motion_T, emb[-1], sc[-1], z[-1], a["const"])
+    return scan, step, a["kw"]
+
+
+def sampler_work(args, kw, step: bool = False):
+    """(flops, bytes) of one call of the sampler scan (``step`` False: all
+    T steps of ``args``) or of one sampler step. Bytes count each input
+    read once and the output written once."""
+    pack, kmem, vmem, motion, emb, sc, z, const = args
+    E, N, D, K, H = kw["n_entries"], kw["n_cur"], kw["d_motion"], kw["num_basis"], kw["n_heads"]
+    T = 1 if step else z.shape[0]
+    L, F, FF = pack["wqkv"].shape[0], pack["wso"].shape[-1], pack["wf1"].shape[-1]
+    Fd, Din = const["wd1"].shape[-1], const["wfp"].shape[0]
+    lq = const["pe_flat"].shape[0] // E
+    R, lm, dh = E * lq, lq - 1, F // H
+    per_layer = (2 * R * F * 3 * F + 2 * R * F * F + 2 * R * F * FF * 2  # QKV, self-out, FFN
+                 + 2 * 2 * E * H * lq * lq * dh  # per-entry self-attention
+                 + 2 * E * F * F + 2 * 2 * E * H * lm * dh  # person rows: wcq, attention
+                 + 2 * (R if step else E) * F * F)  # wco: every row (K4) or the person rows (K3)
+    per_step = L * per_layer + 2 * lm * Din * F + 2 * E * N * F * Fd + 2 * E * N * Fd * (D + K)
+    tensors = list(pack.values()) + list(const.values()) + [kmem, vmem, motion, emb, sc, z]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + motion.numel() * 4
+    return T * per_step, nbytes
+
+
 def lbs_case(dev, N=4800, V=5023, seed=SEED):
     """Seeded FLAME buffers and coefficients; returns (fused, (betas_ext, rt))."""
     from msmd_tpu_torch.models.flame import synthetic_flame
@@ -124,7 +190,7 @@ def seeded_audio(seconds: float, seed: int) -> np.ndarray:
     return (a - a.mean()) / a.std()
 
 
-def generate(model, style, fused, audio, reps, generator, dev):
+def generate(model, style, fused, audio, reps, generator, dev, dynamic_threshold=(0, 1, 4)):
     """``infer_coeffs``, then every window's frames through the FLAME
     kernel (expression and head pose from the motion, zero shape, as
     ``bench.py`` decodes). Returns (coeffs, vertices)."""
@@ -133,7 +199,7 @@ def generate(model, style, fused, audio, reps, generator, dev):
 
     cfg = model.cfg
     coeffs = infer_coeffs(model, audio, torch.zeros(1, 100), style_feats=style, n_repetitions=reps,
-                          cfg_scale=CFG_SCALE, generator=generator, device=dev)
+                          cfg_scale=CFG_SCALE, dynamic_threshold=dynamic_threshold, generator=generator, device=dev)
     verts = []
     for w0 in range(0, coeffs.shape[1], cfg.n_motions):
         m = coeffs[:, w0:w0 + cfg.n_motions].reshape(-1, coeffs.shape[-1]).float()

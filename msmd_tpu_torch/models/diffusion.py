@@ -4,11 +4,30 @@ reference: model.py:73-440).
 
 The sampler stacks the classifier-free-guidance entries on the batch
 axis ([null, +audio, +style], dropping the entries whose mixing
-coefficient is exactly zero), caches the memory K/V once per window, and
-runs t = T..1 as a Python loop. For a bf16 model with the width-1
-alignment band the decoder stack of every step is one call of the
-hand-written decoder kernel (``ops/kernels/decoder.py``); an f32 model
-runs the plain modules, as the JAX f32 path runs the XLA decoder.
+coefficient is exactly zero) and caches the memory K/V once per window.
+It takes the routes of the JAX sampler (``msmd_tpu/models/diffusion.py``
+:495-957), with the same gates:
+
+- the decoder-kernel path (``fused_decoder``: None = on for a bf16 model
+  with the width-1 alignment band, True forces it, False turns it off;
+  the JAX signature's switch, kept for parity. Callers leave it at None:
+  True on an f32 model is a test hook that runs the kernels' f32 plain
+  versions on the CPU, and raises on the card, whose kernels take bf16)
+  at batch 1 without a dynamic threshold, with the learnable PE and no
+  head alpha: the whole window is one call of the sampler kernel K3
+  (``ops/kernels/sampler.py::fused_sampler_scan``), or with ``ret_traj``
+  one call of K4 (``fused_sampler_step``) per step;
+- the decoder-kernel path otherwise: t = T..1 as a Python loop whose
+  decoder stack is one call of K1 (``ops/kernels/decoder.py``) per step;
+- otherwise the same loop through the plain modules, as the JAX f32 path
+  runs the XLA decoder.
+
+The JAX package's ``MSMD_*`` environment switches are not ported; the
+port takes their defaults. For K3 that is padded rows (implicit here: the
+attention kernel masks the ragged edge), the f32 hoisted ``vmw``, concat
+row builds, no merged heads and no block-diagonal self-attention; K4 is
+reached through ``ret_traj`` only. At batch <= 4 all T noise draws are
+taken up front, as the JAX sampler precomputes them.
 """
 
 from __future__ import annotations
@@ -25,6 +44,7 @@ from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.audio import AudioEncoder
 from msmd_tpu_torch.models.denoiser import DenoisingNetwork
 from msmd_tpu_torch.models.layers import Dense, init_params
+from msmd_tpu_torch.ops.kernels import sampler as kernel_sampler
 from msmd_tpu_torch.ops.kernels.decoder import build_vmw, pack_decoder_weights, pack_memory_kv, person_rows
 from msmd_tpu_torch.ops.schedule import DiffusionSchedule
 from msmd_tpu_torch.ops.seq import linear_interpolate, pad_audio
@@ -224,6 +244,72 @@ def _check_model_device(model: nn.Module, dev: torch.device) -> None:
         raise ValueError(f"the model is on {have} but device={dev} was requested; move it with .to(device)")
 
 
+def _ddpm_table(sched: DiffusionSchedule, target: str, flexibility: float) -> np.ndarray:
+    """Per-step [A, B, sigma, 0 x 5] (T+1, 8) f32 with
+    x_{t-1} = A x_t + B target + sigma z for both target modes
+    (``msmd_tpu/models/diffusion.py``:743-755)."""
+    f32 = np.float32
+    t_all = np.arange(sched.num_steps + 1)
+    al, ab = sched.alphas[t_all], sched.alpha_bars[t_all]
+    ab_prev = sched.alpha_bars[np.maximum(t_all - 1, 0)]
+    sig = sched.get_sigmas(t_all, flexibility).astype(f32)
+    denom = np.where(t_all > 0, f32(1.0) - ab, f32(1.0)).astype(f32)
+    if target == "sample":
+        A = (f32(1.0) - ab_prev) * np.sqrt(al) / denom
+        B = (f32(1.0) - al) * np.sqrt(ab_prev) / denom
+    elif target == "noise":
+        A = f32(1.0) / np.sqrt(al)
+        B = -A * (f32(1.0) - al) / np.sqrt(denom)
+    else:
+        raise ValueError(f"Unknown target type: {target}")
+    z = np.zeros_like(A, dtype=f32)
+    return np.stack([A, B, sig] + [z] * 5, axis=1).astype(f32)
+
+
+def batch1_sampler_args(dn: DenoisingNetwork, cfg: MSMDConfig, dtype, stacks: dict, memory_kv, n_motions: int,
+                        flexibility: float = 0.0) -> dict:
+    """What the batch-1 sampler kernels K3 and K4 take, built in f32 as
+    ``msmd_tpu/models/diffusion.py``:693-756 builds it, from ``dn`` (the
+    denoiser with its weights already in ``dtype``) and the CFG stacks of
+    one batch-1 window. Returns dict(pack, kmem, vmem, const, sc_tab
+    (T+1, 8), emb_table (T+1, F) f32, kw) where ``kw`` holds the kernels'
+    static arguments; ``const`` has no ``vmw`` (K3 adds it)."""
+    f32 = torch.float32
+    E, D = stacks["n_entries"], cfg.motion_feat_dim
+    dev = dn.person_proj.weight.device
+    lin = lambda layer, x: x @ layer.weight.to(f32).t() + layer.bias.to(f32)
+    prev_rows = stacks["prev_motion_in"][0].to(f32)
+    if cfg.use_indicator:  # the previous rows carry indicator channel 0
+        prev_rows = torch.cat([prev_rows, torch.zeros(prev_rows.shape[0], 1, dtype=f32, device=dev)], dim=1)
+    ind = stacks["indicator_in"]
+    ind_row = ind[0].to(f32) if ind is not None else torch.ones(n_motions, dtype=f32, device=dev)
+    persons_pre = lin(dn.person_proj, stacks["person_in"][:, 0, :].to(f32))
+    style_e = stacks["style_in"][:, 0, :].to(f32)
+    statics = [lin(m.linear2, torch.nn.functional.gelu(lin(m.linear1, style_e)))
+               for m in dn.static_feature_mapping]
+    kern = lambda layer: layer.weight.detach().t().to(dtype).contiguous()
+    bias = lambda layer: layer.bias.detach().to(f32)[None].contiguous()
+    const = dict(
+        prev_rows=prev_rows.contiguous(), ind_col=ind_row[:, None].contiguous(),
+        wfp=kern(dn.feature_proj), bfp=bias(dn.feature_proj),
+        persons_pre=persons_pre.contiguous(), pe_flat=dn.PE.detach().to(f32)[0].repeat(E, 1).contiguous(),
+        wd1=kern(dn.motion_dec_1), bd1=bias(dn.motion_dec_1),
+        wd2=kern(dn.motion_dec_2), bd2=bias(dn.motion_dec_2),
+        statics_rows=torch.stack([s.repeat_interleave(n_motions, dim=0) for s in statics]).contiguous(),
+        pose_sum_rows=sum(statics)[:, -3:].repeat_interleave(n_motions, dim=0).contiguous(),
+    )
+    sched = DiffusionSchedule.create(cfg.n_diff_steps, cfg.diff_schedule)
+    kmem, vmem = pack_memory_kv(memory_kv, dtype=dtype)
+    return dict(
+        pack=pack_decoder_weights(dn.transformer, dtype=dtype), kmem=kmem, vmem=vmem, const=const,
+        sc_tab=torch.as_tensor(_ddpm_table(sched, cfg.target, flexibility), device=dev),
+        emb_table=dn.precompute_step_emb().to(f32),
+        kw=dict(n_heads=cfg.n_heads, n_entries=E, n_cur=n_motions, d_motion=D, num_basis=cfg.num_of_basis,
+                use_indicator=cfg.use_indicator, sigmoid_alpha=cfg.regularize_alpha == "sigmoid",
+                coefficients=tuple(float(c) for c in stacks["coefficients"])),
+    )
+
+
 @torch.no_grad()
 def sample(
     model: MSMD,
@@ -239,7 +325,9 @@ def sample(
     cfg_scale=1.15,
     flexibility: float = 0.0,
     dynamic_threshold: Optional[Tuple[float, float, float]] = None,
+    ret_traj: bool = False,
     noise_override=None,
+    fused_decoder: Optional[bool] = None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
 ):
@@ -247,11 +335,12 @@ def sample(
 
     ``noise_override``: optional (T, B, n_motions, D) per-step z in place
     of the generator's draws (index 0 is the first step, t = T), so tests
-    can hand both packages the same noise. A bf16 model with the width-1
-    alignment band runs each step's decoder stack through the decoder
-    kernel, at every batch size; any other model runs the plain modules.
+    can hand both packages the same noise. ``fused_decoder`` and the
+    routes it opens are in the module docstring.
 
-    Returns (motion (B, n_motions, D) f32, motion_at_T, audio_feat).
+    Returns (motion (B, n_motions, D) f32, motion_at_T, audio_feat), with
+    the full trajectory (T+1, B, n_motions, D; index t holds x_t) in place
+    of the motion when ``ret_traj``.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -265,31 +354,42 @@ def sample(
     noise_override = _on(noise_override, dev, torch.float32)
     B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
     E = stacks["n_entries"]
+    T = sched.num_steps
+    if fused_decoder is None:
+        fused_decoder = model.dtype == torch.bfloat16 and cfg.align_mask_width == 1
+    elif fused_decoder and cfg.align_mask_width != 1:
+        raise NotImplementedError("the decoder kernel's flat-mask mode (align_mask_width != 1) is not ported")
+    if noise_override is None and B <= 4:
+        noise_override = _randn((T,) + tuple(motion_at_T.shape), generator, dev)
 
     # At bf16, cast the denoiser's weights once for the whole loop (the
     # modules would cast them at every use; same numbers).
     dn = model.denoising_net
     if model.dtype == torch.bfloat16:
         dn = copy.deepcopy(dn).to(torch.bfloat16)
-
     memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
+
+    if (fused_decoder and B == 1 and dynamic_threshold is None and not cfg.no_use_learnable_pe
+            and not model.use_head_alpha):
+        return _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise_override, audio_feat,
+                              flexibility, ret_traj)
+
     fused = None
-    if model.dtype == torch.bfloat16 and cfg.align_mask_width == 1:
+    if fused_decoder:
         lq = 1 + stacks["prev_motion_in"].shape[1] + n_motions
         pack = pack_decoder_weights(dn.transformer, dtype=model.dtype)
         kmem, vmem = pack_memory_kv(memory_kv, dtype=model.dtype)
         fused = dict(pack=pack, kmem=kmem, vmem=vmem, aux=person_rows(B * E, lq, dev),
                      vmw=build_vmw(vmem, pack["wco"], lq, out_dtype=model.dtype))
     step_emb_table = dn.precompute_step_emb()
+    sc_tab = _ddpm_table(sched, cfg.target, flexibility)
 
-    one = np.float32(1.0)
     motion = motion_at_T
-    for i, t in enumerate(range(sched.num_steps, 0, -1)):
+    traj = []
+    for i, t in enumerate(range(T, 0, -1)):
         z = noise_override[i] if noise_override is not None else _randn(motion.shape, generator, dev)
         if t <= 1:
             z = torch.zeros_like(z)
-        alpha, alpha_bar, alpha_bar_prev = sched.alphas[t], sched.alpha_bars[t], sched.alpha_bars[t - 1]
-        sigma = float(sched.get_sigmas(t, flexibility))
 
         motion_in = torch.cat([motion] * E, dim=0)
         step_in = torch.full((B * E,), t, dtype=torch.long, device=dev)
@@ -300,15 +400,42 @@ def sample(
             results = _dynamic_threshold(results, n_motions, dynamic_threshold)
         results = results.reshape((E, B) + results.shape[1:])
         target = _cfg_combine(results, stacks["coefficients"], n_motions).float()
-
-        if cfg.target == "noise":
-            c0 = float(one / np.sqrt(alpha))
-            c1 = float((one - alpha) / np.sqrt(one - alpha_bar))
-            motion = c0 * (motion - c1 * target) + sigma * z
-        elif cfg.target == "sample":
-            c0 = float((one - alpha_bar_prev) * np.sqrt(alpha) / (one - alpha_bar))
-            c1 = float((one - alpha) * np.sqrt(alpha_bar_prev) / (one - alpha_bar))
-            motion = c0 * motion + c1 * target + sigma * z
-        else:
-            raise ValueError(f"Unknown target type: {cfg.target}")
+        A, B_t, sigma = (float(v) for v in sc_tab[t, :3])
+        motion = A * motion + B_t * target + sigma * z
+        if ret_traj:
+            traj.append(motion)
+    if ret_traj:
+        return _trajectory(traj, motion_at_T), motion_at_T, audio_feat
     return motion, motion_at_T, audio_feat
+
+
+def _trajectory(steps, motion_at_T):
+    """Per-step outputs x_{T-1} .. x_0 and x_T -> (T+1, ...) with index t
+    holding x_t (``msmd_tpu/models/diffusion.py``:953-957)."""
+    return torch.stack(steps[::-1] + [motion_at_T])
+
+
+def _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise, audio_feat, flexibility, ret_traj):
+    """The batch-1 window through K3, or through K4 once per step for a
+    trajectory. ``noise`` (T, 1, N, D) is unmasked; the last step's z is 0."""
+    cfg = model.cfg
+    n_motions = motion_at_T.shape[1]
+    a = batch1_sampler_args(dn, cfg, model.dtype, stacks, memory_kv, n_motions, flexibility)
+    T = cfg.n_diff_steps
+    ts = torch.arange(T, 0, -1, device=motion_at_T.device)
+    z = noise[:, 0].float() * (ts > 1).float()[:, None, None]  # (T, N, D), 0 at t = 1
+    m_T = motion_at_T[0].float().contiguous()
+    if not ret_traj:
+        lq = a["const"]["pe_flat"].shape[0] // a["kw"]["n_entries"]
+        const = dict(a["const"], vmw=build_vmw(a["vmem"], a["pack"]["wco"], lq, out_dtype=torch.float32))
+        m0 = kernel_sampler.fused_sampler_scan(
+            a["pack"], a["kmem"], a["vmem"], m_T, a["emb_table"][ts][:, None].contiguous(),
+            a["sc_tab"][ts][:, None].contiguous(), z.contiguous(), const, **a["kw"])
+        return m0[None], motion_at_T, audio_feat
+    m, steps = m_T, []
+    for i, t in enumerate(range(T, 0, -1)):
+        m = kernel_sampler.fused_sampler_step(
+            a["pack"], a["kmem"], a["vmem"], m, a["emb_table"][t][None].contiguous(),
+            a["sc_tab"][t][None].contiguous(), z[i].contiguous(), a["const"], **a["kw"])
+        steps.append(m[None])
+    return _trajectory(steps, motion_at_T), motion_at_T, audio_feat

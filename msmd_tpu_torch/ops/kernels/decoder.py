@@ -113,9 +113,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
 
 
-def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> torch.Tensor:
-    """The decoder stack in plain PyTorch with the kernel's rounding
-    points and formula choices. x (Be, lq, F) -> (Be, lq, F) float32."""
+def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str = "bf16") -> torch.Tensor:
+    """The decoder stack in plain PyTorch with the kernels' rounding points
+    and formula choices. x (Be, lq, F) -> (Be, lq, F) float32.
+
+    ``cross`` is where the identity-band cross output is rounded, as in
+    ``csrc/decoder_common.cuh::CrossMode``: "bf16" (K1) adds bf16(person
+    output @ wco) to a bf16 ``vmw``; "f32" (K3) keeps both in f32; "gather"
+    (K4) takes [bf16(person output) | memory V rows] @ wco over all rows
+    and reads no ``vmw``."""
     Be, lq, F = x.shape
     L = pack["wqkv"].shape[0]
     H, dh = n_heads, F // n_heads
@@ -127,7 +133,7 @@ def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> 
     dot = lambda a, w: rnd(a) @ w.float()
     rows = aux.long()
 
-    def attend(q, k, v, mask_neg=None):
+    def attend(q, k, v):
         # q (.., Lq, dh), k/v (.., Lk, dh), all f32; returns f32 (.., Lq, dh)
         s = rnd(q) @ rnd(k).transpose(-1, -2)
         if fast:
@@ -151,10 +157,16 @@ def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> 
         km = kmem[l].float().reshape(Be, lm, H, dh).transpose(1, 2)
         vm = vmem[l].float().reshape(Be, lm, H, dh).transpose(1, 2)
         person = attend(qh, km, vm).reshape(Be, F)
-        po = dot(person, pack["wco"][l])
-        ca = vmw[l].float().clone()
-        ca[rows] = ca[rows] + rnd(po)
-        ca = ca + pack["bco"][l].float()
+        if cross == "gather":
+            ca = torch.empty(Be, lq, F, dtype=torch.float32, device=x.device)
+            ca[:, 0] = rnd(person)
+            ca[:, 1:] = vmem[l].float().reshape(Be, lm, F)
+            ca = dot(ca.reshape(Be * lq, F), pack["wco"][l]) + pack["bco"][l].float()
+        else:
+            po = dot(person, pack["wco"][l])
+            ca = vmw[l].float().clone()
+            ca[rows] = ca[rows] + (rnd(po) if cross == "bf16" else po)
+            ca = ca + pack["bco"][l].float()
         x = _layernorm(x + ca, ln_s[1], ln_b[1])
 
         h1 = dot(x, pack["wf1"][l]) + pack["bf1"][l].float()
@@ -162,6 +174,12 @@ def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> 
         ff = dot(h1, pack["wf2"][l]) + pack["bf2"][l].float()
         x = _layernorm(x + ff, ln_s[2], ln_b[2])
     return x.reshape(Be, lq, F)
+
+
+def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> torch.Tensor:
+    """K1 in plain PyTorch: ``decoder_layers_plain`` with the bf16 cross
+    output. x (Be, lq, F) -> (Be, lq, F) float32."""
+    return decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads, vmw, cross="bf16")
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Where the time goes on the card: device time by kernel for the decoder
-stack and for one window of the main path.
+stack, for one window of the batch-48 main path and for one window at
+batch 1.
 
     python -m msmd_tpu_torch.profile
 
@@ -8,11 +9,17 @@ Prints JSON lines:
 - ``decoder``: device time per call of each kernel of the decoder stack
   (``csrc/decoder.cu``) at the batch-48 flagship shapes, from
   ``torch.profiler`` over 5 calls.
+- ``sampler``: device time per step of each kernel of the batch-1 sampler
+  scan K3 (``csrc/sampler.cu``) at the flagship shapes, over one 20-step
+  call.
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
   device time by kernel. ``device_busy_share`` is the summed device time
   over the un-profiled wall time; the rest is the card waiting on the host.
+- ``batch1``: one 4 s window at batch 1 without a dynamic threshold (the
+  route through the sampler kernel K3), measured the same way, with the
+  device time of K3's kernels apart from the torch ops around them.
 
 Needs a card, like every number it prints.
 """
@@ -27,14 +34,16 @@ import time
 import torch
 
 _DECODER_KERNELS = ("gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel", "cast_kernel")
+# K3 launches the decoder's sub-kernels and these; at batch 1 K1 does not run
+_SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
 
 
 def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(gemm|self_attn|person_attn|ln|cast|lbs)_kernel(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?",
-                  name)
+    m = re.search(r"(?<![a-z_])(gemm|self_attn|person_attn|ln|cast|lbs|prologue|epilogue|cross_rows)_kernel"
+                  r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
     tmpl = m.group(2) or ", ".join(re.findall(r"L[ib](\d+)E", m.group(3) or ""))
@@ -70,8 +79,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from msmd_tpu_torch.measure import BATCH, SEED, build_main_path, decoder_case, generate, seeded_audio
+    from msmd_tpu_torch.measure import (BATCH, SEED, build_main_path, decoder_case, generate, sampler_case,
+                                        seeded_audio)
     from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import sampler as ks
 
     dev = torch.device("cuda", 0)
     calls = 5
@@ -85,26 +96,40 @@ def main() -> int:
                       "device_time_seen": bool(per_call)}), flush=True)
     del args
 
+    steps = 20
+    with torch.no_grad():
+        scan, _, kw = sampler_case(dev, T=steps)
+        ks.fused_sampler_scan(*scan, **kw)
+        by_kernel = _profile(lambda: ks.fused_sampler_scan(*scan, **kw))
+    per_step = {k: v / steps for k, v in by_kernel.items()}
+    print(json.dumps({"phase": "sampler", "steps": steps, "ms_per_step": per_step,
+                      "total_ms_per_step": sum(per_step.values())}), flush=True)
+    del scan
+
     model, style, fused = build_main_path(dev)
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     audio = seeded_audio(cfg.n_motions / cfg.fps, SEED + 6)
-    generate(model, style, fused, audio, BATCH, gen, dev)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    generate(model, style, fused, audio, BATCH, gen, dev)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = _profile(lambda: generate(model, style, fused, audio, BATCH, gen, dev))
-    busy = sum(by_kernel.values())
-    decoder = sum(v for k, v in by_kernel.items() if k.split("<")[0] in _DECODER_KERNELS)
-    lbs = sum(v for k, v in by_kernel.items() if k.startswith("lbs_kernel"))
-    print(json.dumps({
-        "phase": "main_path", "batch": BATCH, "windows": 1, "diff_steps": cfg.n_diff_steps,
-        "wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
-        "decoder_kernel_ms": decoder, "lbs_kernel_ms": lbs, "other_kernels_ms": busy - decoder - lbs,
-        "top_kernels_ms": dict(list(by_kernel.items())[:25]),
-    }), flush=True)
+    for phase, batch, threshold, family in (("main_path", BATCH, (0, 1, 4), _DECODER_KERNELS),
+                                            ("batch1", 1, None, _SAMPLER_KERNELS)):
+        run = lambda: generate(model, style, fused, audio, batch, gen, dev, dynamic_threshold=threshold)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = _profile(run)
+        busy = sum(by_kernel.values())
+        stack = sum(v for k, v in by_kernel.items() if k.split("<")[0] in family)
+        lbs = sum(v for k, v in by_kernel.items() if k.startswith("lbs_kernel"))
+        name = "decoder_kernel_ms" if phase == "main_path" else "sampler_kernel_ms"
+        print(json.dumps({
+            "phase": phase, "batch": batch, "windows": 1, "diff_steps": cfg.n_diff_steps,
+            "wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+            name: stack, "lbs_kernel_ms": lbs, "other_kernels_ms": busy - stack - lbs,
+            "top_kernels_ms": dict(list(by_kernel.items())[:25]),
+        }), flush=True)
     return 0
 
 

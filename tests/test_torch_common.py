@@ -111,10 +111,15 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
     from msmd_tpu_torch.models.flame import synthetic_flame
     from msmd_tpu_torch.ops.kernels.decoder import fused_decoder_forward
     from msmd_tpu_torch.ops.kernels.lbs import FusedFlame, skin_cuda
+    from msmd_tpu_torch.ops.kernels.sampler import fused_sampler_scan, fused_sampler_step
 
     x = torch.empty(2, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_decoder_forward({}, None, None, x, None, 1, None)
+    for fn in (fused_sampler_scan, fused_sampler_step):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn({}, None, None, torch.empty(8, 67, device="meta"), None, None, None, {}, 1, 2, 8, 67, 2, True,
+               False, (1.0, 1.0))
     fused = FusedFlame(synthetic_flame(n_verts=50, device="cpu"))
     with pytest.raises(ValueError, match="must be on"):
         skin_cuda(fused, torch.zeros(2, fused.n_basis), torch.zeros(2, 60))

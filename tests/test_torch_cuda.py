@@ -5,9 +5,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
-suite.) Tolerances as in ``chip_smoke.py``: the decoder stack at bf16,
-max |err| / max |plain| <= 2e-2 (the same bf16 rounding points, other
-f32 summation orders); the FLAME decode in f32, atol 1e-4.
+suite.) Tolerances as in ``chip_smoke.py``: the decoder stack and the
+batch-1 sampler kernels at bf16, max |err| / max |plain| <= 2e-2 (the
+same bf16 rounding points, other f32 summation orders); the FLAME decode
+in f32, atol 1e-4.
 """
 
 import pytest
@@ -69,3 +70,43 @@ def test_lbs_kernel_matches_plain():
     assert kl.flame_vertices.launches == before + 1 and verts.shape == (4, 5023, 3)
     with pytest.raises(ValueError, match="contiguous"):
         kl.skin_cuda(fused, betas_ext.t().contiguous().t(), rt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", [(4, 11), (10, 100)])
+def test_sampler_kernels_match_plain(P, N):
+    """K3 over a short scan to t = 1 and K4 over its step t = 1, where
+    x_0 = target, at lq = 16 and 111."""
+    from msmd_tpu_torch.measure import sampler_case
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    scan, step, kw = sampler_case(_card(), P=P, N=N, L=2, T=6, seed=2)
+    before = (ks.fused_sampler_scan.launches, ks.fused_sampler_step.launches)
+    with torch.no_grad():
+        got_scan, want_scan = ks.fused_sampler_scan(*scan, **kw), ks.fused_sampler_scan_plain(*scan, **kw)
+        got_step, want_step = ks.fused_sampler_step(*step, **kw), ks.fused_sampler_step_plain(*step, **kw)
+    torch.cuda.synchronize()
+    assert (ks.fused_sampler_scan.launches, ks.fused_sampler_step.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((got_scan, want_scan), (got_step, want_step)):
+        assert got.shape == want.shape == (N, 67) and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_sampler_wrappers_refuse_what_the_kernels_do_not_take():
+    from msmd_tpu_torch.measure import sampler_case
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    scan, step, kw = sampler_case(_card(), P=4, N=11, L=1, T=2)
+    pack, kmem, vmem, motion, emb, sc, z, const = scan
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        ks.fused_sampler_scan({**pack, "wf1": pack["wf1"].float()}, *scan[1:], **kw)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        ks.fused_sampler_scan(pack, kmem, vmem, motion, emb, sc, z, {**const, "vmw": const["vmw"].bfloat16()}, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.fused_sampler_scan(pack, kmem, vmem, motion, emb, sc, z.transpose(1, 2).contiguous().transpose(1, 2),
+                              const, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        ks.fused_sampler_step(*step[:4], emb, *step[5:], **kw)
+    with pytest.raises(ValueError, match="must be on"):
+        ks.fused_sampler_step(step[0], step[1].cpu(), *step[2:], **kw)

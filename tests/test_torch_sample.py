@@ -65,24 +65,40 @@ def test_sample_matches_jax(dtype, dyn):
         assert err.max() / np.abs(want).max() <= (3e-2 if dyn is None else 4e-2), err.max()
 
 
-def test_bf16_sample_takes_the_decoder_kernel_path(monkeypatch):
-    """At bf16 every step's decoder stack goes through the kernel's
-    wrapper, also below batch 5 (where JAX would take its batch-1 mega
-    kernels); at f32 it never does."""
-    calls = []
-    real = tdk.fused_decoder_forward
+@pytest.mark.parametrize("dtype,B,extra,want", [
+    ("bfloat16", 1, {}, {"scan": 1}),
+    ("bfloat16", 1, {"ret_traj": True}, {"step": 4}),
+    ("bfloat16", 1, {"dynamic_threshold": (0, 1, 4)}, {"decoder": 4}),
+    ("bfloat16", 4, {}, {"decoder": 4}),
+    ("float32", 1, {}, {}),
+])
+def test_bf16_sample_takes_the_decoder_kernel_path(monkeypatch, dtype, B, extra, want):
+    """The sampler's routes, as the JAX sampler's gates take them: bf16
+    batch 1 without a dynamic threshold runs the whole window through K3
+    (K4 once per step with ``ret_traj``); batch 1 with a threshold and
+    larger batches run K1 once per step; f32 runs the plain modules."""
+    from msmd_tpu_torch.ops.kernels import sampler as tks
 
-    def spy(*a):
-        calls.append(a[3].shape)
-        return real(*a)
+    calls = {"decoder": 0, "scan": 0, "step": 0}
 
-    monkeypatch.setattr(tdk, "fused_decoder_forward", spy)
-    for dtype, B, want_calls in (("bfloat16", 1, 4), ("float32", 2, 0)):
-        calls.clear()
-        _, _, tm, kw = build_msmd_pair(dtype, seed=7, batch=B)
-        feat, shape, style, *_ = _sample_inputs(8, B, kw)
-        sample(tm, feat, shape, style, device="cpu")
-        assert len(calls) == want_calls
+    def spy(module, name, key):
+        real = getattr(module, name)
+
+        def counted(*a, **k):
+            calls[key] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(module, name, counted)
+
+    spy(tdk, "fused_decoder_forward", "decoder")
+    spy(tks, "fused_sampler_scan", "scan")
+    spy(tks, "fused_sampler_step", "step")
+    _, _, tm, kw = build_msmd_pair(dtype, seed=7, batch=B)
+    feat, shape, style, *_ = _sample_inputs(8, B, kw)
+    out, _, _ = sample(tm, feat, shape, style, device="cpu", **extra)
+    assert calls == {"decoder": 0, "scan": 0, "step": 0, **want}
+    T = kw["n_diff_steps"]
+    assert out.shape == ((T + 1, B, kw["n_motions"], 67) if extra.get("ret_traj") else (B, kw["n_motions"], 67))
 
 
 def test_infer_coeffs_matches_jax():
