@@ -26,6 +26,14 @@ Phases, each printing one JSON line:
    - batch-1 sampler step (K4): one step at t = 1; the same gate.
    - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
      no TF32).
+   - training FFN block (K7), forward and backward: rows 1776 (batch 16 x
+     111), F 512, FFN 2048, bf16, dropout 0.1, a fixed seed; out and each
+     of the seven gradients gated at max |err| / max |plain| <= 2e-2, and
+     the dropout bits of the kernels' device generator equal to the plain
+     generator's with 0 mismatches (both salts, all rows). No one PyTorch
+     call computes K7 (``library_ms`` null); the unfused torch-op chain
+     (F.linear, gelu, dropout, layer_norm, and its autograd backward) is
+     timed beside it as ``chain_ms``.
 4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
@@ -38,6 +46,23 @@ Phases, each printing one JSON line:
    K1 never, K5 once per window; then one window of
    ``sample(..., ret_traj=True)``, which must run K4 500 times, and the
    difference of its x_0 from K3's on the same noise (printed, not gated).
+
+6. train: the default training configuration with ``fused_ffn_train``
+   (MSMD at bf16 over f32 parameters, HuBERT-base, VAE2, batch 16, two
+   clips of 4 s of seeded audio and seeded motion, seeded random weights,
+   constant rate 2e-5), one warm-up step, then ``TRAIN_STEPS`` timed steps
+   on the same batch. Every loss must be finite, every trainable parameter
+   must have moved and every frozen one (conv feature extractor, feature
+   projection, HuBERT layers 0-1) be bit-unchanged. The one exception to
+   the first: the last decoder layer's cross-attention q and k projections
+   feed only the person row, which the motion decoder drops, so the loss
+   does not depend on them (their gradient is exactly 0, in the JAX
+   package too); K7 forward and
+   backward must each have run 16 times per step (8 layers x 2 clips) and
+   K1, K3, K4, K5 never; one ``eval_step`` must run no K7. It prints
+   steps/s, training audio seconds per wall second, the peak memory and
+   the device-busy share of one profiled step, then the same steps with
+   ``fused_ffn_train`` off (steps/s only, not gated).
 
 Launch counts are set to 0 just before each path is driven and read just
 after; each path runs a warm-up window first, so the timed run holds no
@@ -57,6 +82,7 @@ import time
 AUDIO_SECONDS = 8.0
 GATE = 2e-2  # max |err| / max |plain| at bf16
 SCAN_GATED_STEPS = 10
+TRAIN_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -203,6 +229,7 @@ def phase_kernels(dev):
             library_ms=None, flops=flops, bytes=nbytes, ok=ok,
         )
         del got, want
+        out.update(_k7_entries(dev))
     emit({"phase": "kernels", **out})
     bad = [k for k, v in out.items() if not v["ok"]]
     if bad:
@@ -210,26 +237,82 @@ def phase_kernels(dev):
     return out
 
 
+def _k7_entries(dev):
+    """K7 forward and backward against their plain versions, their mask
+    bits against the plain generator, and their times beside their bounds
+    and the unfused torch-op chain's."""
+    import torch
+
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, ffn_train_case, ffn_train_chain
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    args, gbar = ffn_train_case(dev)
+    x, w1, b1, w2, b2, g, b, seed, p = args
+    R, F, FF = x.shape[0], x.shape[1], w1.shape[0]
+    got = [k7.ffn_train_forward(*args)] + list(k7.ffn_train_backward(x, gbar, *args[1:]))
+    want = [k7.ffn_train_forward_plain(*args)] + list(k7.ffn_train_backward_plain(x, gbar, *args[1:]))
+    torch.cuda.synchronize()
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2", "dg", "db")
+    rel = {n: _rel(a.float(), w.float()) for n, a, w in zip(names, got, want)}
+    err = {n: float((a.float() - w.float()).abs().max()) for n, a, w in zip(names, got, want)}
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    mismatches = sum(int((k7.kernel_mask_bits(seed, salt, R, cols) != k7.philox_bits(seed, salt, R, cols, dev)).sum())
+                     for salt, cols in ((1, FF), (2, F)))
+    del got, want
+
+    with torch.enable_grad():
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2, g, b)]
+        chain_out = ffn_train_chain(*leaves, p)
+        chain_fwd_ms = cuda_ms(lambda: ffn_train_chain(*leaves, p), 20)
+        chain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(chain_out, leaves, gbar, retain_graph=True), 20)
+        del chain_out, leaves
+    entries = {}
+    for key, bwd in (("ffn_train_fwd", False), ("ffn_train_bwd", True)):
+        flops, nbytes = k7.ffn_train_work(R, F, FF, bwd)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        if bwd:
+            fn = lambda: k7.ffn_train_backward(x, gbar, *args[1:])
+            plain = lambda: k7.ffn_train_backward_plain(x, gbar, *args[1:])
+            gated = {n: rel[n] for n in names[1:]}
+        else:
+            fn, plain = (lambda: k7.ffn_train_forward(*args)), (lambda: k7.ffn_train_forward_plain(*args))
+            gated = {"out": rel["out"]}
+        entries[key] = dict(
+            name="fused_ffn_ln_train " + ("backward" if bwd else "forward"), route="cuda",
+            source="msmd_tpu_torch/csrc/ffn_train.cu",
+            replaces="msmd_tpu/ops/pallas/ffn_train_kernel.py:" + ("304" if bwd else "261"),
+            max_abs_err=max(err[n] for n in gated), rel_err=gated,
+            tolerance=f"max|err|/max|plain| <= {GATE} for each output; mask bits exact",
+            mask_bit_mismatches=mismatches, rows=R, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library="none: no one call computes it", chain_ms=chain_bwd_ms if bwd else chain_fwd_ms,
+            flops=flops, bytes=nbytes,
+            ok=finite and mismatches == 0 and all(v <= GATE for v in gated.values()),
+        )
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main paths, audio -> guided DDPM -> FLAME vertices
 # ---------------------------------------------------------------------------
 
-def _reset_counts():
+def _counted():
     from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
     from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
-    for fn in (kd.fused_decoder_forward, ks.fused_sampler_scan, ks.fused_sampler_step, kl.flame_vertices):
+    return {"decoder": kd.fused_decoder_forward, "scan": ks.fused_sampler_scan, "step": ks.fused_sampler_step,
+            "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward, "ffn_train_bwd": k7.ffn_train_backward}
+
+
+def _reset_counts():
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def _counts():
-    from msmd_tpu_torch.ops.kernels import decoder as kd
-    from msmd_tpu_torch.ops.kernels import lbs as kl
-    from msmd_tpu_torch.ops.kernels import sampler as ks
-
-    return {"decoder": kd.fused_decoder_forward.launches, "scan": ks.fused_sampler_scan.launches,
-            "step": ks.fused_sampler_step.launches, "lbs": kl.flame_vertices.launches}
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def _run_path(model, style, fused, reps, dynamic_threshold, gen, dev):
@@ -340,6 +423,82 @@ def phase_batch1(dev, smi, built):
     return launches, traj_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the two-clip training step
+# ---------------------------------------------------------------------------
+
+def _train_wall(path, batch, steps):
+    import torch
+
+    from msmd_tpu_torch.measure import run_train_steps
+
+    run_train_steps(path, batch, 1)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = run_train_steps(path, batch, steps)
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0, _counts()
+
+
+def phase_train(dev, smi):
+    import torch
+
+    from msmd_tpu_torch.measure import build_train_path, run_train_steps, train_batch
+    from msmd_tpu_torch.profile import profile_device_ms
+    from msmd_tpu_torch.train.loop import eval_step
+
+    path = build_train_path(dev)
+    cfg, model, style_enc = path["cfg"], path["model"], path["style_enc"]
+    batch = train_batch(cfg, dev)
+    params = [(n, p) for m in (model, style_enc) for n, p in m.named_parameters()]
+    before = {n: p.detach().clone() for n, p in params}
+    losses, wall, launches = _train_wall(path, batch, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in params}
+    unreached = tuple(f"denoising_net.transformer.layers.{cfg.n_layers - 1}.cross_attn.{w}_proj." for w in "qk")
+    trainable = [n for n, p in params if p.requires_grad and not n.startswith(unreached)]
+    frozen = [n for n, p in params if not p.requires_grad]
+    del before
+
+    _reset_counts()
+    eval_metrics = eval_step(cfg, model, style_enc, batch, path["generator"])
+    torch.cuda.synchronize()
+    eval_launches = _counts()
+
+    busy_ms = sum(profile_device_ms(lambda: run_train_steps(path, batch, 1)).values())
+    step_s = wall / TRAIN_STEPS
+    cfg.fused_ffn_train = False  # the same model and batch without K7, for reference
+    _, plain_wall, plain_launches = _train_wall(path, batch, TRAIN_STEPS)
+    cfg.fused_ffn_train = True
+
+    per_step = cfg.n_layers * 2
+    checks = {
+        "finite_losses": all(bool(torch.isfinite(l)) for l in losses) and _finite(*eval_metrics.values()),
+        "trainable_moved": not [n for n in trainable if not moved[n]],
+        "frozen_unchanged": not any(moved[n] for n in frozen) and len(frozen) > 0,
+        "k7_fwd_launches": launches["ffn_train_fwd"] == per_step * TRAIN_STEPS,
+        "k7_bwd_launches": launches["ffn_train_bwd"] == per_step * TRAIN_STEPS,
+        "no_sampling_kernels": all(launches[k] == 0 for k in ("decoder", "scan", "step", "lbs")),
+        "eval_runs_no_k7": eval_launches["ffn_train_fwd"] == 0 and eval_launches["ffn_train_bwd"] == 0,
+        "unfused_runs_no_k7": plain_launches["ffn_train_fwd"] == 0 and plain_launches["ffn_train_bwd"] == 0,
+    }
+    B = batch["motion_0"].shape[0]
+    audio_s = 2 * B * cfg.n_motions / cfg.fps
+    emit({"phase": "train", "batch": B, "clips": 2, "clip_seconds": cfg.n_motions / cfg.fps,
+          "steps": TRAIN_STEPS, "losses": [float(l) for l in losses], "wall_s": wall,
+          "steps_per_s": 1.0 / step_s, "audio_s_per_s": audio_s / step_s, "peak_mem_gb": peak_gb,
+          "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / (step_s * 1e3),
+          "launches": launches, "eval_launches": eval_launches,
+          "trainable_params": len(trainable), "frozen_params": len(frozen),
+          "trainable_not_moved": [n for n in trainable if not moved[n]][:20],
+          "unfused_steps_per_s": TRAIN_STEPS / plain_wall, "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: train checks failed: {checks}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -352,13 +511,19 @@ def main() -> int:
     built = build_main_path(dev)
     main_launches = phase_main(dev, smi, built)
     b1_launches, traj_launches = phase_batch1(dev, smi, built)
+    del built
+    torch.cuda.empty_cache()
+    train_launches = phase_train(dev, smi)
     kernels["decoder"]["launches"] = main_launches["decoder"]
     kernels["lbs"]["launches"] = main_launches["lbs"]
     kernels["scan"]["launches"] = b1_launches["scan"]
     kernels["step"]["launches"] = traj_launches["step"]
+    for k in ("ffn_train_fwd", "ffn_train_bwd"):
+        kernels[k]["launches"] = train_launches[k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: kernels[k][key] for key in keys} for k in ("decoder", "scan", "step", "lbs")]})
+    order = ("decoder", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd")
+    emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

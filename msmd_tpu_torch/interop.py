@@ -22,6 +22,11 @@ torch-named state dicts are mapped to that tree by
 ``reference_msmd_to_flax`` and ``reference_style_enc_to_flax``: the
 port's own copy of ``msmd_tpu/interop/msmd_checkpoint.py:50-101`` and of
 the helpers of ``msmd_tpu/interop/torch_params.py`` it uses.
+
+The way back, for the trainer's checkpoints: ``flax_tree(module)`` gives
+a module's parameters as a Flax tree, and ``flax_to_reference_msmd`` /
+``flax_to_reference_style_enc`` (the copy of ``msmd_checkpoint.py``
+:104-246) give the reference names, buffers included.
 """
 
 from __future__ import annotations
@@ -260,3 +265,168 @@ def reference_style_enc_to_flax(sd: StateDict) -> dict:
         "out_norm": _norm(sd, "output_layers.5"),
         "out_conv_1": _conv1d(sd, "output_layers.7"),
     }
+
+
+# ---------------------------------------------------------------------------
+# export: the port's modules -> the Flax tree -> reference .pt names
+# ---------------------------------------------------------------------------
+
+def flax_tree(module: nn.Module, grads: bool = False) -> dict:
+    """The inverse of ``load_flax_params``: ``module``'s parameters (or,
+    with ``grads``, their ``.grad``; a parameter without one is left out)
+    as a Flax params tree of NumPy arrays in the Flax names and layouts."""
+    tree: dict = {}
+    for full, p in module.named_parameters():
+        value = p.grad if grads else p
+        if value is None:
+            continue
+        parts = full.split(".")
+        owner = module.get_submodule(".".join(parts[:-1])) if len(parts) > 1 else module
+        path, parent = [], module
+        i = 0
+        while i < len(parts) - 1:
+            child = getattr(parent, parts[i])
+            if isinstance(child, nn.ModuleList):
+                path.append(f"{parts[i]}_{parts[i + 1]}")
+                parent = child[int(parts[i + 1])]
+                i += 2
+            else:
+                path.append(parts[i])
+                parent = child
+                i += 1
+        arr = value.detach().float().cpu().numpy()
+        leaf = parts[-1]
+        if leaf == "weight" and isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+            leaf = "scale"
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        elif leaf == "weight" and isinstance(owner, nn.Conv1d):
+            leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 1, 0))
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
+
+
+def _lin_out(sd: StateDict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _conv_out(sd: StateDict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).transpose(2, 1, 0))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _norm_out(sd: StateDict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _mha_out(sd: StateDict, prefix: str, p: dict) -> None:
+    names = ("q_proj", "k_proj", "v_proj")
+    sd[f"{prefix}.in_proj_weight"] = np.ascontiguousarray(np.concatenate([np.asarray(p[n]["kernel"]).T for n in names]))
+    if "bias" in p["q_proj"]:
+        sd[f"{prefix}.in_proj_bias"] = np.concatenate([np.asarray(p[n]["bias"]) for n in names])
+    _lin_out(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
+def _ffn_norms_out(sd: StateDict, prefix: str, p: dict, norms) -> None:
+    _lin_out(sd, f"{prefix}.linear1", p["ffn"]["linear1"])
+    _lin_out(sd, f"{prefix}.linear2", p["ffn"]["linear2"])
+    for n in norms:
+        _norm_out(sd, f"{prefix}.{n}", p[n])
+
+
+def _hf_audio_out(sd: StateDict, prefix: str, p: dict) -> None:
+    fe = p["feature_extractor"]
+    i = 0
+    while f"conv_{i}" in fe:
+        _conv_out(sd, f"{prefix}.feature_extractor.conv_layers.{i}.conv", fe[f"conv_{i}"])
+        i += 1
+    if "group_norm" in fe:
+        _norm_out(sd, f"{prefix}.feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+    _norm_out(sd, f"{prefix}.feature_projection.layer_norm", p["feature_projection"]["layer_norm"])
+    _lin_out(sd, f"{prefix}.feature_projection.projection", p["feature_projection"]["projection"])
+    # the positional conv re-emitted as a weight-norm pair with v = w, g = |w|
+    w = np.ascontiguousarray(np.asarray(p["encoder"]["pos_conv_embed"]["conv"]["kernel"]).transpose(2, 1, 0))
+    sd[f"{prefix}.encoder.pos_conv_embed.conv.weight_g"] = np.linalg.norm(w, axis=(0, 1), keepdims=True)
+    sd[f"{prefix}.encoder.pos_conv_embed.conv.weight_v"] = w
+    sd[f"{prefix}.encoder.pos_conv_embed.conv.bias"] = np.asarray(p["encoder"]["pos_conv_embed"]["conv"]["bias"])
+    _norm_out(sd, f"{prefix}.encoder.layer_norm", p["encoder"]["layer_norm"])
+    li = 0
+    while f"layers_{li}" in p["encoder"]:
+        lp, base = p["encoder"][f"layers_{li}"], f"{prefix}.encoder.layers.{li}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin_out(sd, f"{base}.attention.{n}", lp[n])
+        _norm_out(sd, f"{base}.layer_norm", lp["layer_norm"])
+        _lin_out(sd, f"{base}.feed_forward.intermediate_dense", lp["intermediate_dense"])
+        _lin_out(sd, f"{base}.feed_forward.output_dense", lp["output_dense"])
+        _norm_out(sd, f"{base}.final_layer_norm", lp["final_layer_norm"])
+        li += 1
+    if "masked_spec_embed" in p:
+        sd[f"{prefix}.masked_spec_embed"] = np.asarray(p["masked_spec_embed"])
+
+
+def flax_to_reference_msmd(params: dict, cfg) -> StateDict:
+    """The MSMD params tree -> ``MSMD.state_dict()`` names, with the
+    buffers regenerated so that torch ``load_state_dict(strict=True)``
+    takes it (``msmd_tpu/interop/msmd_checkpoint.py::flax_to_reference_msmd``)."""
+    from msmd_tpu_torch.ops.schedule import DiffusionSchedule
+    from msmd_tpu_torch.ops.seq import alignment_mask, sinusoidal_table
+
+    sd: StateDict = {}
+    _hf_audio_out(sd, "audio_encoder", params["audio_encoder"])
+    _lin_out(sd, "audio_feature_map", params["audio_feature_map"])
+    for name in ("start_motion_feat", "start_audio_feat", "null_style_feat", "null_audio_feat"):
+        if name in params:
+            sd[name] = np.asarray(params[name])
+    dn = params["denoising_net"]
+    sd["denoising_net.TE.pe"] = sinusoidal_table(cfg.feature_dim, cfg.n_diff_steps + 1).numpy()[None].copy()
+    _lin_out(sd, "denoising_net.diff_step_map.0", dn["diff_step_map"]["linear1"])
+    _lin_out(sd, "denoising_net.diff_step_map.2", dn["diff_step_map"]["linear2"])
+    if "PE" in dn:
+        sd["denoising_net.PE"] = np.asarray(dn["PE"])
+    _lin_out(sd, "denoising_net.person_proj", dn["person_proj"])
+    _lin_out(sd, "denoising_net.feature_proj", dn["feature_proj"])
+    for i in range(cfg.n_layers):
+        prefix, lp = f"denoising_net.transformer.layers.{i}", dn["transformer"][f"layers_{i}"]
+        _mha_out(sd, f"{prefix}.self_attn", lp["self_attn"])
+        _mha_out(sd, f"{prefix}.multihead_attn", lp["cross_attn"])
+        _ffn_norms_out(sd, prefix, lp, ("norm1", "norm2", "norm3"))
+    if cfg.align_mask_width > 0:
+        sd["denoising_net.alignment_mask"] = alignment_mask(cfg.n_prev_motions, cfg.n_motions,
+                                                            cfg.align_mask_width).numpy()
+    for k in range(cfg.num_of_basis):
+        m = dn[f"static_feature_mapping_{k}"]
+        _lin_out(sd, f"denoising_net.static_feature_mapping.{k}.0", m["linear1"])
+        _lin_out(sd, f"denoising_net.static_feature_mapping.{k}.2", m["linear2"])
+    _lin_out(sd, "denoising_net.motion_dec.0", dn["motion_dec_1"])
+    _lin_out(sd, "denoising_net.motion_dec.2", dn["motion_dec_2"])
+    sched = DiffusionSchedule.create(cfg.n_diff_steps, cfg.diff_schedule)
+    for name in ("betas", "alphas", "alpha_bars", "sigmas_flex", "sigmas_inflex"):
+        sd[f"diffusion_sched.{name}"] = np.asarray(getattr(sched, name))
+    return sd
+
+
+def flax_to_reference_style_enc(params: dict, conv_feature_dim: int = 512) -> StateDict:
+    """The VAE2 params tree -> ``StyleEncoder_VAE2.state_dict()`` names
+    (``msmd_checkpoint.py::flax_to_reference_style_enc``)."""
+    from msmd_tpu_torch.ops.seq import sinusoidal_table
+
+    sd: StateDict = {}
+    il = params["input_layers"]
+    _conv_out(sd, "input_layers.1", il["conv_0"])
+    _norm_out(sd, "input_layers.5", il["norm_0"])
+    _conv_out(sd, "input_layers.7", il["conv_1"])
+    _norm_out(sd, "input_layers.11", il["norm_1"])
+    sd["PE.pe"] = sinusoidal_table(conv_feature_dim, 600).numpy()[None].copy()
+    _mha_out(sd, "encoder.self_attn", params["encoder"]["self_attn"])
+    _ffn_norms_out(sd, "encoder", params["encoder"], ("norm1", "norm2"))
+    _conv_out(sd, "output_layers.1", params["out_conv_0"])
+    _norm_out(sd, "output_layers.5", params["out_norm"])
+    _conv_out(sd, "output_layers.7", params["out_conv_1"])
+    return sd

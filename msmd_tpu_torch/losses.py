@@ -1,0 +1,173 @@
+"""The MSMD parameter-space loss suite (the port of ``msmd_tpu/losses.py``;
+reference: utils/common.py:198-454, 769-832, training_script.py:406-438).
+
+The reference's quirks are kept: every term is halved except head_trans
+(the loop sums two clips); masked means are means over the selected
+elements; the velocity and smoothness masks are the base mask shifted by
+1 and 2 frames; head pose is the last 3 channels; the param-space
+head-transition term is unmasked. The vertex-space ``compute_loss``, the
+espnet variant and the auxiliary style-adherence and NT-Xent losses are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+LOSS_KEYS = ("noise", "vert", "vel", "smooth", "head_angle", "head_vel", "head_smooth", "head_trans")
+
+
+def _criterion(name: str):
+    if name.lower() == "l2":
+        return lambda a, b: (a - b) ** 2
+    if name.lower() == "l1":
+        return lambda a, b: (a - b).abs()
+    raise NotImplementedError(f"Criterion {name} not implemented.")
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the rows that ``mask`` selects (torch's
+    ``x[mask].mean()``, broadcast over x's trailing dims); 0 for an empty
+    mask."""
+    extra = x.ndim - mask.ndim
+    m = mask.reshape(mask.shape + (1,) * extra).to(x.dtype)
+    per_row = 1
+    for n in x.shape[mask.ndim:]:
+        per_row *= n
+    denom = torch.clamp(mask.to(x.dtype).sum() * per_row, min=1.0)
+    return (x * m).sum() / denom
+
+
+def compute_kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Sum-reduced KL(q || N(0, 1)) (reference: utils/common.py:443-454)."""
+    return -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar))
+
+
+def _base_mask(cfg, batch_size: int, end_idx: Optional[torch.Tensor], is_starting_sample: bool, device):
+    if end_idx is None:
+        mask = torch.ones(batch_size, cfg.n_motions, dtype=torch.bool, device=device)
+    else:
+        mask = torch.arange(cfg.n_motions, device=device)[None, :] < end_idx.to(device)[:, None]
+    if cfg.target == "sample" and not is_starting_sample:
+        fill = torch.zeros if cfg.no_constrain_prev else torch.ones
+        mask = torch.cat([fill(batch_size, cfg.n_prev_motions, dtype=torch.bool, device=device), mask], dim=1)
+    return mask
+
+
+def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int) -> torch.Tensor:
+    """Window-boundary continuity of the head pose: velocities of
+    [gt[-3:], pred[:3]] at frames [2:4] vs [1:3], accelerations
+    consecutive-matched; the param-space reference's unmasked means
+    (utils/common.py:352-368, 417)."""
+    if n_prev < 3:
+        raise ValueError("head_trans loss requires n_prev_motions >= 3")
+    trans = torch.cat([head_pose_gt[:, n_prev - 3:n_prev], head_pose_pred[:, n_prev:n_prev + 3]], dim=1)
+    vel = trans[:, 1:] - trans[:, :-1]
+    accel = vel[:, 1:] - vel[:, :-1]
+    return crit(vel[:, 2:4], vel[:, 1:3]).mean() + crit(accel[:, 1:], accel[:, :-1]).mean()
+
+
+def compute_loss_no_vert(cfg, is_starting_sample: bool, shape_coef, motion_coef_gt: torch.Tensor,
+                         noise: torch.Tensor, target: torch.Tensor, prev_motion_coef: Optional[torch.Tensor],
+                         end_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Parameter-space losses (``msmd_tpu/losses.py``:112-181; reference:
+    utils/common.py:198-441). Returns a dict over LOSS_KEYS; absent terms
+    are 0."""
+    crit = _criterion(cfg.criterion)
+    B, dev = motion_coef_gt.shape[0], target.device
+    zero = torch.zeros((), dtype=target.dtype, device=dev)
+    out = {k: zero for k in LOSS_KEYS}
+
+    if cfg.target == "noise":
+        mask = _base_mask(cfg, B, end_idx, True, dev)
+        out["noise"] = _masked_mean(crit(noise, target[:, cfg.n_prev_motions:]), mask) / 2
+        return out
+    if cfg.target != "sample":
+        raise ValueError(f"Unknown diffusion target: {cfg.target}")
+
+    if is_starting_sample:
+        target = target[:, cfg.n_prev_motions:]
+    else:
+        motion_coef_gt = torch.cat([prev_motion_coef, motion_coef_gt], dim=1)
+        if cfg.no_constrain_prev:
+            target = torch.cat([prev_motion_coef, target[:, cfg.n_prev_motions:]], dim=1)
+
+    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev)
+    out["noise"] = _masked_mean(crit(motion_coef_gt, target), mask) / 2
+
+    exp_gt, pose_gt = motion_coef_gt[..., :-3], motion_coef_gt[..., -3:]
+    exp_pred, pose_pred = target[..., :-3], target[..., -3:]
+    diff = lambda t: t[:, 1:] - t[:, :-1]
+
+    if cfg.l_vel > 0 or cfg.l_smooth > 0:
+        vel_pred_exp, vel_pred_pose = diff(exp_pred), diff(pose_pred)
+        if cfg.l_vel > 0:
+            loss_vel = crit(diff(exp_gt), vel_pred_exp).mean(-1) + crit(diff(pose_gt), vel_pred_pose).mean(-1)
+            out["vel"] = _masked_mean(loss_vel, mask[:, 1:]) / 2
+        if cfg.l_smooth > 0:
+            sm_exp, sm_pose = diff(vel_pred_exp), diff(vel_pred_pose)
+            loss_smooth = (crit(sm_exp, torch.zeros_like(sm_exp)).mean(-1)
+                           + crit(sm_pose, torch.zeros_like(sm_pose)).mean(-1))
+            out["smooth"] = _masked_mean(loss_smooth, mask[:, 2:]) / 2
+
+    if not cfg.no_head_pose:
+        out["head_angle"] = _masked_mean(crit(pose_gt, pose_pred), mask) / 2
+        if cfg.l_head_vel > 0:
+            out["head_vel"] = _masked_mean(crit(diff(pose_gt), diff(pose_pred)).mean(-1), mask[:, 1:]) / 2
+        if cfg.l_head_smooth > 0:
+            hvp = diff(pose_pred)
+            hs = crit(diff(hvp), torch.zeros_like(hvp[:, 1:])).mean(-1)
+            out["head_smooth"] = _masked_mean(hs, mask[:, 2:]) / 2
+        if not is_starting_sample and cfg.l_head_trans > 0:
+            # not halved (reference: utils/common.py:435)
+            out["head_trans"] = _head_trans_loss(crit, pose_gt, pose_pred, cfg.n_prev_motions)
+    return out
+
+
+def _truncate_seq(x: torch.Tensor, end_idx: torch.Tensor, pad_mode: str) -> torch.Tensor:
+    """Zero (or replicate the last kept frame) at and after ``end_idx``
+    along axis 1, per batch row."""
+    keep = torch.arange(x.shape[1], device=x.device)[None, :] < end_idx.to(x.device)[:, None]
+    keep = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
+    if pad_mode == "zero":
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    if pad_mode == "replicate":
+        idx = (end_idx.to(x.device) - 1).reshape(-1, *([1] * (x.ndim - 1))).expand(-1, 1, *x.shape[2:])
+        return torch.where(keep, x, torch.gather(x, 1, idx))
+    raise ValueError(f"Unknown pad mode {pad_mode}!")
+
+
+def truncate_motion_coef_and_audio(audio: torch.Tensor, motion_coef: torch.Tensor, end_idx: torch.Tensor,
+                                   audio_unit: float = 640.0, pad_mode: str = "zero"):
+    """End-truncation of an (audio, motion) window at the per-sample frame
+    ``end_idx`` (reference: utils/common.py:816-832). The caller draws
+    ``end_idx`` in [1, n_motions). Returns (audio, motion)."""
+    audio_end = (end_idx.to(torch.float32) * audio_unit).to(torch.int64)
+    return _truncate_seq(audio, audio_end, pad_mode), _truncate_seq(motion_coef, end_idx, pad_mode)
+
+
+def load_loss_weights(cfg) -> Dict[str, float]:
+    """Loss weights (reference: training_script.py:406-438)."""
+    w = {
+        "noise": 1.0,
+        "vert": float(cfg.l_vert),
+        "vel": float(cfg.l_vel),
+        "smooth": float(cfg.l_smooth),
+        "head_angle": float(cfg.l_head_angle),
+        "head_vel": float(cfg.l_head_vel),
+        "head_smooth": float(cfg.l_head_smooth),
+        "head_trans": float(cfg.l_head_trans),
+    }
+    if not cfg.use_vertex_space:
+        w["vel"] *= 4.5e-8
+        w["smooth"] *= 4e-7
+    is_hdtf = cfg.dataset_type[:9] == "HDTF_TFHP" or cfg.dataset_type == "flame_mead_ravdess"
+    if not is_hdtf and cfg.use_vertex_space:
+        w["vert"] *= 1e-7
+        w["vel"] *= 1e-7
+        w["smooth"] *= 2e-8
+    if cfg.training_loss_style == "MSMD":
+        w["kl_div"] = float(cfg.l_kl_div)
+    return w

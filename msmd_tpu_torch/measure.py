@@ -5,7 +5,9 @@ The cases are the main paths' shapes at the flagship configuration:
 the decoder stack at batch 48 with two CFG entries (Be = 96, lq = 111,
 8 x 512 layers, FFN 2048), the batch-1 sampler kernels (E = 2 CFG
 entries, lq = 111, the same layers, 500 steps) and the FLAME decode of
-one 4 s window at batch 48 (N = 4800 frames, V = 5023). A bound is the least time an H100
+one 4 s window at batch 48 (N = 4800 frames, V = 5023), and the training
+FFN block K7 at the train step's shapes (batch 16 x 111 rows = 1776 rows,
+F 512, FFN 2048, dropout 0.1). A bound is the least time an H100
 SXM could take for the same work: the larger of the bytes that must move
 (each input read once, each output written once) over the memory rate
 and the operations over the peak rate of their type (NVIDIA's data sheet).
@@ -23,6 +25,7 @@ HBM_RATE = 3.35e12  # HBM3 bytes/s
 SEED = 0
 BATCH = 48
 CFG_SCALE = 1.15
+TRAIN_BATCH = 16  # the JAX train bench's batch (benchmarks/bench_train.py)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -163,6 +166,21 @@ def lbs_work(fused, betas_ext, rt):
     return flops, nbytes
 
 
+def ffn_train_case(dev, rows=1776, F=512, FF=2048, p=0.1, seed=SEED):
+    """Seeded K7 inputs: ((x, w1, b1, w2, b2, g, b, seed, p), gbar) with
+    bf16 activations and weights in the nn.Linear layout, f32 LayerNorm
+    parameters and a (1,) int32 seed on ``dev``."""
+    from msmd_tpu_torch.ops.kernels.ffn_train import seed_tensor
+
+    g = torch.Generator().manual_seed(seed + 10)
+    rn = lambda *shape: torch.randn(*shape, generator=g)
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    args = (bf(rn(rows, F)), bf(rn(FF, F) / F ** 0.5), bf(rn(FF) * 0.1), bf(rn(F, FF) / FF ** 0.5),
+            bf(rn(F) * 0.1), f32(1.0 + 0.1 * rn(F)), f32(0.1 * rn(F)), seed_tensor(seed + 1234, dev), p)
+    return args, bf(rn(rows, F))
+
+
 def build_main_path(dev, cfg_kw=None, audio_kw=None, n_verts=5023, seed=SEED):
     """The bf16 MSMD and the VAE2 style encoder with seeded weights, a
     style embedding from a seeded 100-frame clip, and synthetic FLAME
@@ -206,3 +224,64 @@ def generate(model, style, fused, audio, reps, generator, dev, dynamic_threshold
         pose6 = torch.cat([m[:, -3:], torch.zeros_like(m[:, :3])], dim=-1)
         verts.append(flame_vertices(fused, torch.zeros(m.shape[0], 100, device=m.device), m[:, :50], pose6))
     return coeffs, torch.cat(verts, dim=0)
+
+
+def ffn_train_chain(x, w1, b1, w2, b2, g, b, p):
+    """The unfused torch-op chain of K7's forward (F.linear, gelu,
+    dropout, layer_norm): a reference time beside the kernel, used nowhere
+    in the port."""
+    import torch.nn.functional as F
+
+    h = F.dropout(F.gelu(F.linear(x, w1, b1)), p)
+    y = F.dropout(F.linear(h, w2, b2), p)
+    return F.layer_norm(x + y, (x.shape[-1],), g.to(x.dtype), b.to(x.dtype))
+
+
+def build_train_path(dev, fused_ffn_train: bool = True, cfg_kw=None, audio_kw=None, seed=SEED):
+    """The slice's training configuration: the default MSMD (8 x 512
+    denoiser, HuBERT-base encoder, VAE2 style encoder) at bf16 over f32
+    parameters, batch 16, ``fused_ffn_train``, seeded random weights, the
+    audio encoder's freezing policy, Adam, and the two generators. The
+    rate is constant (``warm_iter`` 0): the default warm-up starts at
+    rate 0, and a few steps should move every trainable parameter.
+    Returns dict(cfg, model, style_enc, opt, generator, host_generator)."""
+    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+    from msmd_tpu_torch.models.diffusion import get_diffusion_model
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.models.style_encoder import get_style_encoder
+    from msmd_tpu_torch.train.loop import TrainOptimizer, freeze
+
+    kw = dict(batch_size=TRAIN_BATCH, fused_ffn_train=fused_ffn_train, warm_iter=0, use_indicator=True,
+              use_cross_style=True, seed=seed)
+    kw.update(cfg_kw or {})
+    cfg = MSMDConfig(**kw)
+    model = get_diffusion_model(cfg, audio_config=AudioEncoderConfig(**(audio_kw or {})), dtype=torch.bfloat16,
+                                device=dev, seed=seed)
+    style_enc = init_params(get_style_encoder(cfg, torch.bfloat16), seed + 1).to(dev)
+    freeze(cfg, model)
+    opt = TrainOptimizer(cfg, list(model.parameters()) + list(style_enc.parameters()))
+    return dict(cfg=cfg, model=model, style_enc=style_enc, opt=opt,
+                generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                host_generator=torch.Generator().manual_seed(seed + 2))
+
+
+def train_batch(cfg, dev, batch_size: int = TRAIN_BATCH, seed: int = SEED + 20):
+    """Two adjacent clips of seeded z-scored audio (n_motions / fps seconds
+    each) and seeded 67-dim motion, zero shape: a loader batch on ``dev``."""
+    rs = np.random.RandomState(seed)
+    L = cfg.n_audio_samples
+    audio = [np.stack([seeded_audio(L / 16000, seed + 2 * b + i) for b in range(batch_size)]) for i in range(2)]
+    motion = [rs.randn(batch_size, cfg.n_motions, cfg.motion_feat_dim).astype(np.float32) for _ in range(2)]
+    shape = np.zeros((batch_size, cfg.n_motions, cfg.shape_feat_dim), np.float32)
+    t = lambda a: torch.as_tensor(a).to(dev)
+    return {"audio_0": t(audio[0]), "audio_1": t(audio[1]), "motion_0": t(motion[0]), "motion_1": t(motion[1]),
+            "shape_0": t(shape), "shape_1": t(shape)}
+
+
+def run_train_steps(path: dict, batch, steps: int):
+    """``steps`` train steps on the same batch; returns the losses (device
+    scalars)."""
+    from msmd_tpu_torch.train.loop import train_step
+
+    return [train_step(path["cfg"], path["model"], path["style_enc"], path["opt"], batch, path["generator"],
+                       path["host_generator"])["loss"] for _ in range(steps)]

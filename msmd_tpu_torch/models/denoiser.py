@@ -7,6 +7,13 @@ previous-window motion prepended, a learnable PE, an N-layer post-LN
 decoder cross-attending to the audio memory, and a motion decoder whose
 last ``num_of_basis`` channels weight per-basis static offsets (head-pose
 channels outside the alpha weighting, the MSMD default).
+
+In training (a ``torch.Generator`` as ``rng``) the decoder runs its
+dropout, the width-1 band stays an identity V-gather when
+``cfg.identity_band_train`` (the default) and is a masked softmax
+otherwise, the sinusoidal PE takes dropout 0.1 when the PE is not
+learned, and ``cfg.fused_ffn_train`` sends every layer's FFN block through
+K7 (``msmd_tpu/models/denoiser.py``:169-226).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch
 from torch import nn
 
 from msmd_tpu_torch.config import MSMDConfig
-from msmd_tpu_torch.models.layers import Dense, gelu
+from msmd_tpu_torch.models.layers import Dense, dropout, gelu
 from msmd_tpu_torch.models.transformer import KVCache, TransformerDecoder
 from msmd_tpu_torch.ops.seq import alignment_mask, apply_pe_single_row, sinusoidal_table
 
@@ -90,6 +97,7 @@ class DenoisingNetwork(nn.Module):
         memory_kv: Optional[List[KVCache]] = None,
         fused_decoder: Optional[dict] = None,
         step_emb_table: Optional[torch.Tensor] = None,
+        rng: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         cfg, dt = self.cfg, self.dtype
         n_prev, n_cur = prev_motion_feat.shape[1], motion_feat.shape[1]
@@ -113,8 +121,9 @@ class DenoisingNetwork(nn.Module):
             feats_in = feats_in + self.PE.to(dt)
         else:
             feats_in = apply_pe_single_row(feats_in, sinusoidal_table(cfg.feature_dim, 600, dt, feats_in.device))
+            feats_in = dropout(feats_in, 0.1, rng)
 
-        identity_band = cfg.align_mask_width == 1
+        identity_band = cfg.align_mask_width == 1 and (rng is None or cfg.identity_band_train)
         memory_mask = None
         if cfg.align_mask_width > 0 and not identity_band:
             memory_mask = alignment_mask(n_prev, n_cur, cfg.align_mask_width)
@@ -130,7 +139,8 @@ class DenoisingNetwork(nn.Module):
             memory = None
             if memory_kv is None:
                 memory = torch.cat([prev_audio_feat, audio_feat], dim=1).to(dt)
-            feat_out = self.transformer(feats_in, memory, memory_mask, memory_kv, identity_band)
+            feat_out = self.transformer(feats_in, memory, memory_mask, memory_kv, identity_band, rng,
+                                        cfg.fused_ffn_train)
 
         decoded = self.motion_dec_2(gelu(self.motion_dec_1(feat_out[:, 1:])))  # (N, L_p + L, D + K)
         K = cfg.num_of_basis

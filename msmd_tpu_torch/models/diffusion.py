@@ -1,6 +1,12 @@
 """MSMD, the conditional diffusion model for speech-driven facial motion,
-and its DDPM sampler (the port of ``msmd_tpu/models/diffusion.py``;
-reference: model.py:73-440).
+its training forward and its DDPM sampler (the port of
+``msmd_tpu/models/diffusion.py``; reference: model.py:73-440).
+
+The training forward (``MSMD.forward``, ``msmd_tpu/models/diffusion.py``
+:130-243) extracts the audio features, drops the CFG conditions at the
+reference's rates, draws a timestep and the noise, q-samples, and runs the
+denoiser once. Every draw comes from one ``torch.Generator``; dropout
+draws from it too when ``train``.
 
 The sampler stacks the classifier-free-guidance entries on the batch
 axis ([null, +audio, +style], dropping the entries whose mixing
@@ -33,6 +39,7 @@ taken up front, as the JAX sampler precomputes them.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,7 +50,7 @@ from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.audio import AudioEncoder
 from msmd_tpu_torch.models.denoiser import DenoisingNetwork
-from msmd_tpu_torch.models.layers import Dense, init_params
+from msmd_tpu_torch.models.layers import Dense, init_params, uniform
 from msmd_tpu_torch.ops.kernels import sampler as kernel_sampler
 from msmd_tpu_torch.ops.kernels.decoder import build_vmw, pack_decoder_weights, pack_memory_kv, person_rows
 from msmd_tpu_torch.ops.schedule import DiffusionSchedule
@@ -71,15 +78,103 @@ class MSMD(nn.Module):
     def device(self) -> torch.device:
         return self.start_motion_feat.device
 
-    def extract_audio_feature(self, audio: torch.Tensor, frame_num: Optional[int] = None) -> torch.Tensor:
+    def extract_audio_feature(self, audio: torch.Tensor, frame_num: Optional[int] = None,
+                              rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Raw 16 kHz audio (N, L_a) -> (N, frame_num, feature_dim): the
         encoder at 2 * frame_num frames, resampled to frame_num, projected
-        (reference: model.py:250-264)."""
+        (reference: model.py:250-264). ``rng``: training-mode dropout and
+        SpecAugment."""
         cfg = self.cfg
         frame_num = frame_num or cfg.n_motions
-        hidden = self.audio_encoder(pad_audio(audio), cfg.fps, frame_num * 2)
+        hidden = self.audio_encoder(pad_audio(audio), cfg.fps, frame_num * 2, rng)
         hidden = linear_interpolate(hidden.transpose(1, 2), frame_num).transpose(1, 2)
         return self.audio_feature_map(hidden)
+
+    def forward(
+        self,
+        motion_feat: torch.Tensor,  # (N, L, d_motion)
+        audio_or_feat: torch.Tensor,  # (N, L_a) raw or (N, L, F) features
+        shape_feat: torch.Tensor,  # (N, 100) or (N, 1, 100)
+        style_feat: Optional[torch.Tensor] = None,  # (N, d_style) or (N, 1, d_style)
+        prev_motion_feat: Optional[torch.Tensor] = None,
+        prev_audio_feat: Optional[torch.Tensor] = None,
+        time_step: Optional[torch.Tensor] = None,
+        indicator: Optional[torch.Tensor] = None,
+        train_with_cfg: bool = True,
+        generator: Optional[torch.Generator] = None,
+        train: bool = True,
+        noise: Optional[torch.Tensor] = None,
+    ):
+        """The training forward (reference: model.py:146-248). Returns (eps,
+        target, motion_feat detached, the audio features before the CFG
+        condition drop, detached). ``time_step`` and ``noise`` fix the draws
+        (test hooks, as in the JAX package); the rest come from
+        ``generator``, which also drives dropout when ``train``."""
+        cfg = self.cfg
+        B = motion_feat.shape[0]
+        rng = generator if train else None
+        if audio_or_feat.ndim == 2:
+            if audio_or_feat.shape[1] != cfg.n_audio_samples:
+                raise ValueError(f"Incorrect audio length {audio_or_feat.shape[1]} (expected {cfg.n_audio_samples})")
+            audio_feat_saved = self.extract_audio_feature(audio_or_feat, rng=rng)
+        elif audio_or_feat.ndim == 3:
+            if audio_or_feat.shape[1] != cfg.n_motions:
+                raise ValueError(f"Incorrect audio feature length {audio_or_feat.shape[1]}")
+            audio_feat_saved = audio_or_feat
+        else:
+            raise ValueError(f"Incorrect audio input shape {tuple(audio_or_feat.shape)}")
+        audio_feat = audio_feat_saved
+        if shape_feat.ndim == 2:
+            shape_feat = shape_feat[:, None]
+        if style_feat is not None and style_feat.ndim == 2:
+            style_feat = style_feat[:, None]
+        if prev_motion_feat is None:
+            prev_motion_feat = self.start_motion_feat.expand(B, *self.start_motion_feat.shape[1:])
+        if prev_audio_feat is None:
+            prev_audio_feat = self.start_audio_feat.expand(B, *self.start_audio_feat.shape[1:])
+
+        conds = cfg.guiding_condition_list
+        if conds and train_with_cfg:
+            if len(conds) > 2:
+                raise ValueError("Only support 1 or 2 CFG conditions!")
+            u = lambda: uniform((B,), generator, motion_feat.device)[:, None, None]
+            if len(conds) == 1 or cfg.cfg_mode == "independent":
+                null_prob = 0.5 if len(conds) >= 2 else 0.1
+                drop_style, drop_audio = u() < null_prob, u() < null_prob
+            else:  # incremental: full 0.45 / without style 0.45 / without both 0.1
+                flag = u()
+                drop_style, drop_audio = flag > 0.55, flag > 0.9
+            if "style" in conds:
+                style_feat = torch.where(drop_style, self.null_style_feat.to(style_feat.dtype), style_feat)
+            if "audio" in conds:
+                audio_feat = torch.where(drop_audio, self.null_audio_feat.to(audio_feat.dtype), audio_feat)
+
+        person_feat = shape_feat if style_feat is None else torch.cat([shape_feat, style_feat.to(shape_feat.dtype)],
+                                                                      dim=-1)
+        if time_step is None:
+            time_step = _schedule(cfg.n_diff_steps, cfg.diff_schedule).uniform_sample_t(generator, B)
+        time_step = time_step.to(motion_feat.device)
+        # q-sample: x_t = sqrt(ab) x_0 + sqrt(1 - ab) eps (model.py:231-236)
+        alpha_bar = _alpha_bars(cfg.n_diff_steps, cfg.diff_schedule, motion_feat.device)[time_step]
+        c0, c1 = torch.sqrt(alpha_bar)[:, None, None], torch.sqrt(1.0 - alpha_bar)[:, None, None]
+        if noise is None:
+            noise = _randn(tuple(motion_feat.shape), generator, motion_feat.device)
+        eps = noise.to(device=motion_feat.device, dtype=motion_feat.dtype)
+        target = self.denoising_net(c0 * motion_feat + c1 * eps, audio_feat, person_feat, style_feat,
+                                    prev_motion_feat, prev_audio_feat, time_step, indicator, rng=rng)
+        return eps, target, motion_feat.detach(), audio_feat_saved.detach()
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(n_diff_steps: int, mode: str) -> DiffusionSchedule:
+    return DiffusionSchedule.create(n_diff_steps, mode)
+
+
+@functools.lru_cache(maxsize=None)
+def _alpha_bars(n_diff_steps: int, mode: str, device) -> torch.Tensor:
+    """The schedule's alpha-bar table on ``device``, made once: a copy to
+    the card at every forward would make the host wait for the card."""
+    return torch.as_tensor(_schedule(n_diff_steps, mode).alpha_bars, device=device)
 
 
 def get_diffusion_model(cfg: MSMDConfig, audio_config: Optional[AudioEncoderConfig] = None,

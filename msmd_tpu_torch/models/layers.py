@@ -9,7 +9,9 @@ the same, so a bfloat16 model here rounds where the JAX one does.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +72,29 @@ class Conv1d(nn.Conv1d):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, flax ``nn.gelu(approximate=False)``."""
     return F.gelu(x, approximate="none")
+
+
+@functools.lru_cache(maxsize=None)
+def in_dtype(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` (a scalar operand of a product in
+    that dtype), as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def uniform(shape, rng: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) f32 draws from ``rng`` (on its own device), on ``device``."""
+    return torch.rand(shape, generator=rng, device=rng.device).to(device)
+
+
+def dropout(x: torch.Tensor, p: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p and scale by
+    1 / (1 - p), with the keep mask drawn from ``rng``. ``rng`` None is
+    eval mode (the identity). ``F.dropout`` takes no generator, so the
+    draws here are explicit."""
+    if rng is None or p == 0.0:
+        return x
+    keep = uniform(x.shape, rng, x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @torch.no_grad()

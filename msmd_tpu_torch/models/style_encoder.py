@@ -4,7 +4,10 @@
 ``StyleEncoderVAE2``, the factory default: two (Conv1d k3, ELU,
 LayerNorm) blocks, the sinusoidal PE with the single-row quirk, one
 post-LN encoder layer (512 wide, 8 heads, FFN 512), an ELU conv head,
-temporal mean-pool and a (mu, logvar) split.
+temporal mean-pool and a (mu, logvar) split. With a ``torch.Generator``
+as ``rng`` (training) dropout runs at 0.2 in the conv stem and at 0.1
+after the PE, in the encoder layer and in the head
+(``msmd_tpu/models/style_encoder.py``:41-105).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from msmd_tpu_torch.models.layers import Conv1d, LayerNorm
+from msmd_tpu_torch.models.layers import Conv1d, LayerNorm, dropout
 from msmd_tpu_torch.models.transformer import TransformerEncoderLayer
 from msmd_tpu_torch.ops.seq import apply_pe_single_row, sinusoidal_table
 
@@ -27,7 +30,7 @@ def style_input_dim(dataset_type: str) -> int:
 
 
 class _ConvStem(nn.Module):
-    """conv1d(k3, same) -> ELU -> LayerNorm, twice."""
+    """conv1d(k3, same) -> dropout(0.2) -> ELU -> LayerNorm, twice."""
 
     def __init__(self, in_dim: int, feature_dim: int, dtype=torch.float32):
         super().__init__()
@@ -37,9 +40,9 @@ class _ConvStem(nn.Module):
         ])
         self.norm = nn.ModuleList([LayerNorm(feature_dim, dtype=dtype) for _ in range(2)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         for conv, norm in zip(self.conv, self.norm):
-            x = norm(F.elu(conv(x)))
+            x = norm(F.elu(dropout(conv(x), 0.2, rng)))
         return x
 
 
@@ -60,18 +63,26 @@ class StyleEncoderVAE2(nn.Module):
         ])
         self.out_norm = LayerNorm(self.output_size, dtype=dtype)
 
-    def encode(self, motion_coef: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, motion_coef: torch.Tensor, rng: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, T, input_dim) -> (mu, logvar), each (N, d_style)."""
-        x = self.input_layers(motion_coef.to(self.dtype))
+        x = self.input_layers(motion_coef.to(self.dtype), rng)
         table = sinusoidal_table(self.conv_feature_dim, 600, self.dtype, x.device)
-        x = self.encoder(apply_pe_single_row(x, table))
-        x = self.out_norm(F.elu(self.out_conv[0](x)))
+        x = self.encoder(dropout(apply_pe_single_row(x, table), 0.1, rng), rng=rng)
+        x = self.out_norm(F.elu(dropout(self.out_conv[0](x), 0.1, rng)))
         x = self.out_conv[1](x)
         out = x.mean(dim=1)
         return out[:, : self.d_style], out[:, self.d_style :]
 
-    def forward(self, motion_coef: torch.Tensor):
-        return self.encode(motion_coef)
+    def forward(self, motion_coef: torch.Tensor, generator: Optional[torch.Generator] = None, train: bool = False,
+                eps: Optional[torch.Tensor] = None):
+        """(z, mu, logvar) with ``z = mu + eps * exp(logvar / 2)``
+        (``msmd_tpu/models/style_encoder.py``:102-106). ``eps`` comes from
+        ``generator`` unless given; dropout draws from it when ``train``."""
+        mu, logvar = self.encode(motion_coef, generator if train else None)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator, device=generator.device if generator else mu.device)
+        return mu + eps.to(device=mu.device, dtype=mu.dtype) * torch.exp(0.5 * logvar), mu, logvar
 
     def encode_mean(self, motion_coef: torch.Tensor) -> torch.Tensor:
         """Posterior mean, the deterministic style embedding."""

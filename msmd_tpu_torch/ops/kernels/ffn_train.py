@@ -1,0 +1,370 @@
+"""K7, the training FFN block of a decoder layer: a hand-written CUDA
+forward and backward (``csrc/ffn_train.cu``), their plain PyTorch
+versions, and the ``torch.autograd.Function`` that binds them.
+
+Replaces ``msmd_tpu/ops/pallas/ffn_train_kernel.py::fused_ffn_ln_train``:
+
+    out = LN(x + drop2(drop1(gelu(x W1 + b1)) W2 + b2))
+
+with inverted-dropout masks made inside the kernels, and a backward that
+recomputes the forward from x with the same masks: the Function saves x,
+the weights and the seed, never the hidden state or a mask. Weights are
+in the ``nn.Linear`` layout (w1 (FFN, F), w2 (F, FFN)); the JAX kernel
+takes their transposes. Both versions round where the JAX kernel rounds
+(``ffn_train_kernel.py``:107-219): each product's left operand is cast to
+the weights' dtype and summed in f32, biases are added in f32, GELU is the
+erf form with the Abramowitz & Stegun erf of ``decoder_kernel.py::_erf``,
+the residual and LayerNorm are f32, out and dx take x's dtype and the
+parameter gradients their parameter's.
+
+Masks. The kernels make Philox masks: the bits of (row, col) are
+``Philox4x32-10(key=(seed, salt), counter=(col // 4, row, 0, 0))[col % 4]``,
+salt 1 for the hidden state and 2 for the FFN output, kept where
+``bits >= uint32(p * 2**32)`` and scaled by ``1 / (1 - p)``. The plain
+version makes the same masks by default (``masks="philox"``); its
+``masks="jax"``, for the CPU parity tests only, gives the bits of the JAX
+kernel's interpret mode, the iota hash ``_det_bits`` with its per-tile
+offset, which is a lattice, not random bits, and is not used for training.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from msmd_tpu_torch import _build
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+# ---------------------------------------------------------------------------
+# dropout bits
+# ---------------------------------------------------------------------------
+
+def _mul32(a: torch.Tensor, b: int):
+    """(hi, lo) 32-bit halves of a * b for a in [0, 2**32) (int64) and a
+    32-bit constant b, without overflowing int64."""
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    p1, p2 = a * b_lo, a * b_hi  # each < 2**48
+    s = p1 + ((p2 & 0xFFFF) << 16)
+    return (p2 >> 16) + (s >> 32), s & _M32
+
+
+def philox4x32_10(key0, key1: int, c0, c1, c2, c3):
+    """Philox4x32 with 10 rounds on int64 tensors holding 32-bit values."""
+    k0, k1 = key0, key1
+    for i in range(10):
+        if i > 0:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mul32(c0, _PHILOX_M[0])
+        hi1, lo1 = _mul32(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _seed_int64(seed, device) -> torch.Tensor:
+    return (torch.as_tensor(seed, device=device).reshape(()).to(torch.int64)) & _M32
+
+
+def philox_bits(seed, salt: int, rows: int, cols: int, device=None) -> torch.Tensor:
+    """(rows, cols) int64 mask bits of the kernels' generator; cols % 4 == 0."""
+    if cols % 4:
+        raise ValueError(f"philox_bits: cols must be a multiple of 4, got {cols}")
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    row = torch.arange(rows, dtype=torch.int64, device=dev)[:, None].expand(rows, cols // 4)
+    grp = torch.arange(cols // 4, dtype=torch.int64, device=dev)[None, :].expand(rows, cols // 4)
+    zero = torch.zeros_like(row)
+    out = philox4x32_10(_seed_int64(seed, dev), salt, grp, row, zero, zero)
+    return torch.stack(out, dim=-1).reshape(rows, cols)
+
+
+def pick_tile(rows: int, target: int = 512) -> int:
+    """The JAX kernels' row tile (``msmd_tpu/ops/pallas/ffn_kernel.py::_pick_tile``):
+    the largest multiple of 16 up to ``target`` that divides ``rows``,
+    else all rows."""
+    if rows <= target:
+        return rows
+    best = 0
+    for d in range(16, target + 1, 16):
+        if rows % d == 0:
+            best = d
+    return best or rows
+
+
+def jax_interpret_bits(seed, salt: int, rows: int, cols: int, device=None) -> torch.Tensor:
+    """(rows, cols) int64 bits of the JAX kernel's interpret mode: the iota
+    hash ``_det_bits`` over each row tile, offset by
+    ``seed * 2946901 + 83492791 * tile`` (``ffn_train_kernel.py``:81-89, 120-122)."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    tile = pick_tile(rows)
+    r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
+    off = (_mul32(_seed_int64(seed, dev), 2946901)[1] + 83492791 * (r // tile)) & _M32
+    h = ((r % tile) * 2654435761 + c * 40503 + salt * 97 + off) & _M32
+    h = _mul32(h, 2246822519)[1]
+    return h ^ (h >> 13)
+
+
+def _threshold(p: float) -> int:
+    return int(p * 2.0 ** 32)  # P(bits < thr) = p
+
+
+def _scale(p: float) -> float:
+    return float(np.float32(1.0) / np.float32(1.0 - p))
+
+
+def keep_mask(bits: torch.Tensor, p: float) -> torch.Tensor:
+    """Inverted-dropout multipliers (0 or 1 / (1 - p)) in f32."""
+    return (bits >= _threshold(p)).to(torch.float32) / np.float32(1.0 - p)
+
+
+def _masks(kind: str, seed, rows: int, F: int, FF: int, p: float, device):
+    bits = {"philox": philox_bits, "jax": jax_interpret_bits}.get(kind)
+    if bits is None:
+        raise ValueError(f"unknown mask kind {kind!r}")
+    return keep_mask(bits(seed, 1, rows, FF, device), p), keep_mask(bits(seed, 2, rows, F, device), p)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+_INV_SQRT_2 = np.float32(1.0 / np.sqrt(2.0))
+_INV_SQRT_2PI = np.float32(1.0 / np.sqrt(2.0 * np.pi))
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz & Stegun 7.1.26, |err| <= 1.5e-7 (the JAX kernels' erf)."""
+    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def gelu_erf(u: torch.Tensor) -> torch.Tensor:
+    return u * 0.5 * (1.0 + _erf(u * _INV_SQRT_2))
+
+
+def gelu_erf_grad(u: torch.Tensor) -> torch.Tensor:
+    phi = _INV_SQRT_2PI * torch.exp(-0.5 * u * u)
+    return 0.5 * (1.0 + _erf(u * _INV_SQRT_2)) + u * phi
+
+
+def _recompute(x, w1, b1, w2, b2, seed, p, masks):
+    """The forward chain to the residual sum: (x2d f32, u, m1, h, m2, r)."""
+    F, FF = x.shape[-1], w1.shape[0]
+    rnd = lambda a: a.to(w1.dtype).float()
+    x2 = x.reshape(-1, F)
+    m1 = m2 = None
+    if p > 0.0:
+        m1, m2 = _masks(masks, seed, x2.shape[0], F, FF, p, x.device)
+    u = rnd(x2) @ w1.float().t() + b1.float()
+    h = gelu_erf(u)
+    if m1 is not None:
+        h = h * m1
+    y = rnd(h) @ w2.float().t() + b2.float()
+    if m2 is not None:
+        y = y * m2
+    return x2.float(), u, m1, h, m2, x2.float() + y
+
+
+def ffn_train_forward_plain(x, w1, b1, w2, b2, g, b, seed, p: float, masks: str = "philox") -> torch.Tensor:
+    """K7's forward in plain PyTorch. x (..., F) -> out (..., F) in x's dtype."""
+    *_, r = _recompute(x, w1, b1, w2, b2, seed, p, masks)
+    mu = r.mean(dim=-1, keepdim=True)
+    var = (r - mu).square().mean(dim=-1, keepdim=True)
+    out = (r - mu) * torch.rsqrt(var + 1e-5) * g.float() + b.float()
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p: float, masks: str = "philox"):
+    """K7's backward in plain PyTorch, by recomputation from x with the same
+    masks (``ffn_train_kernel.py``:161-219). Returns (dx, dw1, db1, dw2,
+    db2, dg, db) in the dtypes of (x, w1, b1, w2, b2, g, b)."""
+    rnd = lambda a: a.to(w1.dtype).float()
+    x2, u, m1, h, m2, r = _recompute(x, w1, b1, w2, b2, seed, p, masks)
+    gb = gbar.reshape(x2.shape).float()
+    mu = r.mean(dim=-1, keepdim=True)
+    var = (r - mu).square().mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt(var + 1e-5)
+    yh = (r - mu) * rs
+    dyh = gb * g.float()
+    dr = rs * (dyh - dyh.mean(dim=-1, keepdim=True) - yh * (dyh * yh).mean(dim=-1, keepdim=True))
+    dy = dr * m2 if m2 is not None else dr
+    dh = rnd(dy) @ w2.float()
+    dgl = dh * m1 if m1 is not None else dh
+    du = dgl * gelu_erf_grad(u)
+    dx = dr + rnd(du) @ w1.float()
+    return (
+        dx.to(x.dtype).reshape(x.shape),
+        (rnd(du).t() @ rnd(x2)).to(w1.dtype),
+        du.sum(dim=0).to(b1.dtype),
+        (rnd(dy).t() @ rnd(h)).to(w2.dtype),
+        dy.sum(dim=0).to(b2.dtype),
+        (gb * yh).sum(dim=0).to(g.dtype),
+        gb.sum(dim=0).to(b.dtype),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("ffn_train")
+    if not getattr(lib, "_msmd_typed", False):
+        vp, ci, cu, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        lib.msmd_ffn_train_workspace_bytes.argtypes = [ci] * 4
+        lib.msmd_ffn_train_workspace_bytes.restype = ctypes.c_size_t
+        lib.msmd_ffn_train_forward.argtypes = [vp] * 8 + [cu, cf] + [vp] * 2 + [ci] * 3 + [vp]
+        lib.msmd_ffn_train_forward.restype = ci
+        lib.msmd_ffn_train_backward.argtypes = [vp] * 9 + [cu, cf] + [vp] * 8 + [ci] * 3 + [vp]
+        lib.msmd_ffn_train_backward.restype = ci
+        lib.msmd_ffn_train_mask_bits.argtypes = [vp, ci, ci, ci, vp, vp]
+        lib.msmd_ffn_train_mask_bits.restype = ci
+        lib._msmd_typed = True
+    return lib
+
+
+def _check(name, x, w1, b1, w2, b2, g, b, seed, gbar=None):
+    F, FF = x.shape[-1], w1.shape[0]
+    want = {"x": (x.shape, torch.bfloat16), "w1": ((FF, F), torch.bfloat16), "b1": ((FF,), torch.bfloat16),
+            "w2": ((F, FF), torch.bfloat16), "b2": ((F,), torch.bfloat16), "g": ((F,), torch.float32),
+            "b": ((F,), torch.float32), "seed": ((1,), torch.int32)}
+    named = dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2, g=g, b=b, seed=seed)
+    if gbar is not None:
+        want["gbar"] = (x.shape, torch.bfloat16)
+        named["gbar"] = gbar
+    for key, t in named.items():
+        shape, dtype = want[key]
+        if t.device != x.device:
+            raise ValueError(f"{name}: {key} must be on {x.device}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if F % 128 or FF % 128 or F > 1024:
+        raise ValueError(f"{name}: the kernel needs F and FFN multiples of 128 and F <= 1024 (F={F}, FFN={FF})")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _on_cpu(name: str, x: torch.Tensor) -> bool:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type == "cpu"
+
+
+def ffn_train_forward(x, w1, b1, w2, b2, g, b, seed, p: float) -> torch.Tensor:
+    """K7 forward. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (bf16, seed a (1,) int32 tensor) or raises."""
+    if _on_cpu("ffn_train_forward", x):
+        return ffn_train_forward_plain(x, w1, b1, w2, b2, g, b, seed, p)
+    _check("ffn_train_forward", x, w1, b1, w2, b2, g, b, seed)
+    F, FF = x.shape[-1], w1.shape[0]
+    R = x.numel() // F
+    lib = _lib()
+    out = torch.empty_like(x)
+    ws = torch.empty(lib.msmd_ffn_train_workspace_bytes(R, F, FF, 0), dtype=torch.uint8, device=x.device)
+    rc = lib.msmd_ffn_train_forward(*(_ptr(t) for t in (x, w1, b1, w2, b2, g, b, seed)), _threshold(p),
+                                    _scale(p), _ptr(out), _ptr(ws), R, F, FF, _stream(x.device))
+    _build.check(lib, rc, "ffn_train_forward")
+    ffn_train_forward.launches += 1
+    return out
+
+
+ffn_train_forward.launches = 0
+
+
+def ffn_train_backward(x, gbar, w1, b1, w2, b2, g, b, seed, p: float):
+    """K7 backward: (dx, dw1, db1, dw2, db2, dg, db). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    if _on_cpu("ffn_train_backward", x):
+        return ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p)
+    _check("ffn_train_backward", x, w1, b1, w2, b2, g, b, seed, gbar=gbar)
+    F, FF = x.shape[-1], w1.shape[0]
+    R = x.numel() // F
+    lib = _lib()
+    grads = [torch.empty_like(t) for t in (x, w1, b1, w2, b2, g, b)]
+    ws = torch.empty(lib.msmd_ffn_train_workspace_bytes(R, F, FF, 1), dtype=torch.uint8, device=x.device)
+    rc = lib.msmd_ffn_train_backward(*(_ptr(t) for t in (x, gbar, w1, b1, w2, b2, g, b, seed)), _threshold(p),
+                                     _scale(p), *(_ptr(t) for t in grads), _ptr(ws), R, F, FF, _stream(x.device))
+    _build.check(lib, rc, "ffn_train_backward")
+    ffn_train_backward.launches += 1
+    return tuple(grads)
+
+
+ffn_train_backward.launches = 0
+
+
+def kernel_mask_bits(seed: torch.Tensor, salt: int, rows: int, cols: int) -> torch.Tensor:
+    """The raw mask bits from the kernels' device generator, (rows, cols)
+    int64, through the library's debug entry (CUDA only)."""
+    if seed.device.type != "cuda":
+        raise ValueError(f"kernel_mask_bits: unsupported device {seed.device}")
+    lib = _lib()
+    out = torch.empty(rows, cols, dtype=torch.int32, device=seed.device)
+    rc = lib.msmd_ffn_train_mask_bits(_ptr(seed), salt, rows, cols, _ptr(out), _stream(seed.device))
+    _build.check(lib, rc, "kernel_mask_bits")
+    return out.to(torch.int64) & _M32
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class FusedFFNLNTrain(torch.autograd.Function):
+    """K7 with the recompute backward: saves x, the weights and the seed."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, g, b, seed, p):
+        ctx.save_for_backward(x, w1, b1, w2, b2, g, b, seed)
+        ctx.p = p
+        return ffn_train_forward(x, w1, b1, w2, b2, g, b, seed, p)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        x, w1, b1, w2, b2, g, b, seed = ctx.saved_tensors
+        grads = ffn_train_backward(x, gbar.contiguous(), w1, b1, w2, b2, g, b, seed, ctx.p)
+        return (*grads, None, None)
+
+
+def fused_ffn_ln_train(x, w1, b1, w2, b2, g, b, seed: torch.Tensor, p: float):
+    """``LN(x + drop2(drop1(gelu(x w1^T + b1)) w2^T + b2))`` with in-kernel
+    dropout at rate ``p`` and the recompute backward. ``seed``: a (1,)
+    int32 tensor on x's device; vary it per layer call for fresh masks.
+    Any row count (the leading dims of x) is taken."""
+    return FusedFFNLNTrain.apply(x, w1, b1, w2, b2, g, b, seed, float(p))
+
+
+def ffn_train_work(rows: int, F: int, FF: int, backward: bool):
+    """(flops, bytes) of one forward or backward call at bf16 weights and
+    f32 LayerNorm parameters: 2 or 6 products of 2 * rows * F * FF
+    operations; each input read once, each output written once."""
+    flops = (6 if backward else 2) * 2 * rows * F * FF
+    weights = 2 * F * FF * 2 + (FF + F) * 2 + 2 * F * 4
+    acts = rows * F * 2
+    if backward:  # x, gbar in; dx, dw1, dw2, db1, db2, dg, db out
+        nbytes = 2 * acts + weights + acts + 2 * F * FF * 2 + (FF + F) * 2 + 2 * F * 4
+    else:  # x in; out
+        nbytes = acts + weights + acts
+    return flops, nbytes
+
+
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """A K7 seed as the kernels take it."""
+    return torch.tensor([seed], dtype=torch.int32, device=device)
+

@@ -8,6 +8,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 def make_betas(num_steps: int, mode: str = "linear", beta_1: float = 1e-4, beta_T: float = 0.02, s: float = 0.008) -> np.ndarray:
@@ -61,6 +62,11 @@ class DiffusionSchedule:
             sigmas_flex=sigmas_flex,
             sigmas_inflex=sigmas_inflex,
         )
+
+    def uniform_sample_t(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        """Uniform timesteps in [1, num_steps] (reference: model.py:63-65),
+        int64 on ``generator``'s device."""
+        return torch.randint(1, self.num_steps + 1, (batch_size,), generator=generator, device=generator.device)
 
     def get_sigmas(self, t, flexibility: float = 0.0):
         """sigma(t) between the flexible (sqrt beta) and inflexible

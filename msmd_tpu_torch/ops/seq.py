@@ -5,6 +5,7 @@ reference: utils/model_common.py:86-123, utils/wav2vec2.py:57-63).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -14,7 +15,15 @@ import torch.nn.functional as F
 
 def sinusoidal_table(d_model: int, max_len: int = 600, dtype=torch.float32, device=None) -> torch.Tensor:
     """Vanilla sinusoidal positional-encoding table ``(max_len, d_model)``
-    (reference: utils/model_common.py:89-97), built in float32 NumPy."""
+    (reference: utils/model_common.py:89-97), built in float32 NumPy.
+    Cached per device: copying it to the card at every call would make the
+    host wait for the card (a blocking copy), many times per step. The
+    result is shared; do not write to it."""
+    return _sinusoidal_table(d_model, max_len, dtype, torch.device(device) if device is not None else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoidal_table(d_model: int, max_len: int, dtype, device) -> torch.Tensor:
     pe = np.zeros((max_len, d_model), dtype=np.float32)
     position = np.arange(0, max_len, dtype=np.float32)[:, None]
     div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model))
@@ -81,17 +90,23 @@ def linear_interpolate(features: torch.Tensor, output_len: int) -> torch.Tensor:
     in_len = features.shape[-1]
     if output_len == in_len:
         return features
+    w, i0, i1 = _lerp_table(in_len, output_len, features.dtype, features.device)
+    f0 = features[..., i0]
+    f1 = features[..., i1]
+    return f0 + (f1 - f0) * w
+
+
+@functools.lru_cache(maxsize=None)
+def _lerp_table(in_len: int, output_len: int, dtype, device):
+    """(weights, left index, right index) of ``linear_interpolate``, cached
+    per device like ``sinusoidal_table``."""
     scale = np.float32(in_len / output_len)
     src = (np.arange(output_len, dtype=np.float32) + np.float32(0.5)) * scale - np.float32(0.5)
     src = np.clip(src, np.float32(0.0), np.float32(in_len - 1))
     i0 = np.floor(src).astype(np.int64)
     i1 = np.minimum(i0 + 1, in_len - 1)
-    w = torch.as_tensor(src - i0.astype(np.float32), device=features.device).to(features.dtype)
-    i0 = torch.as_tensor(i0, device=features.device)
-    i1 = torch.as_tensor(i1, device=features.device)
-    f0 = features[..., i0]
-    f1 = features[..., i1]
-    return f0 + (f1 - f0) * w
+    w = torch.as_tensor(src - i0.astype(np.float32), device=device).to(dtype)
+    return w, torch.as_tensor(i0, device=device), torch.as_tensor(i1, device=device)
 
 
 def linear_interpolation_fps(features: torch.Tensor, input_fps: int, output_fps: int, output_len=None) -> torch.Tensor:

@@ -20,6 +20,13 @@ Prints JSON lines:
 - ``batch1``: one 4 s window at batch 1 without a dynamic threshold (the
   route through the sampler kernel K3), measured the same way, with the
   device time of K3's kernels apart from the torch ops around them.
+- ``train``: one two-clip training step of the slice's training
+  configuration (batch 16, bf16, ``fused_ffn_train``; see
+  ``measure.build_train_path``), measured the same way, with the device
+  time of K7's kernels (``csrc/ffn_train.cu``) apart from the rest; the
+  host's time to enqueue the loss, the backward and the optimizer step
+  (the card left running); and the calls of one step that made the host
+  wait for the card (``torch.cuda.set_sync_debug_mode``).
 
 Needs a card, like every number it prints.
 """
@@ -36,13 +43,15 @@ import torch
 _DECODER_KERNELS = ("gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel", "cast_kernel")
 # K3 launches the decoder's sub-kernels and these; at batch 1 K1 does not run
 _SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
+_K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
 
 
 def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(gemm|self_attn|person_attn|ln|cast|lbs|prologue|epilogue|cross_rows)_kernel"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
+                  r"cross_rows|colsum_partial|colsum_final)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
@@ -64,13 +73,48 @@ def _device_ms_by_kernel(prof) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def _profile(fn):
+def profile_device_ms(fn) -> dict:
+    """Device milliseconds by kernel of one run of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return _device_ms_by_kernel(prof)
+
+
+def _train_host_split(path: dict, batch) -> dict:
+    """Host milliseconds to enqueue the loss, the backward and the
+    optimizer step of one train step, and the calls in one step that
+    synchronised with the card."""
+    import warnings
+
+    from msmd_tpu_torch.measure import run_train_steps
+    from msmd_tpu_torch.train.loop import two_clip_loss
+
+    cfg, opt = path["cfg"], path["opt"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, _ = two_clip_loss(cfg, path["model"], path["style_enc"], batch, path["generator"], path["host_generator"])
+    t1 = time.perf_counter()
+    total.backward()
+    t2 = time.perf_counter()
+    opt.step()
+    t3 = time.perf_counter()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_train_steps(path, batch, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message).lower() and "prototype" not in str(w.message)]
+    return {"host_ms": {"loss": (t1 - t0) * 1e3, "backward": (t2 - t1) * 1e3, "optimizer": (t3 - t2) * 1e3,
+                        "drain": (t4 - t3) * 1e3},
+            "synchronising_calls": len(syncs), "synchronising_examples": sorted(set(syncs))[:10]}
 
 
 def main() -> int:
@@ -89,7 +133,7 @@ def main() -> int:
     with torch.no_grad():
         args = decoder_case(dev)
         kd.fused_decoder_forward(*args)
-        by_kernel = _profile(lambda: [kd.fused_decoder_forward(*args) for _ in range(calls)])
+        by_kernel = profile_device_ms(lambda: [kd.fused_decoder_forward(*args) for _ in range(calls)])
     per_call = {k: v / calls for k, v in by_kernel.items()}
     print(json.dumps({"phase": "decoder", "calls": calls, "ms_per_call": per_call,
                       "total_ms_per_call": sum(per_call.values()),
@@ -100,7 +144,7 @@ def main() -> int:
     with torch.no_grad():
         scan, _, kw = sampler_case(dev, T=steps)
         ks.fused_sampler_scan(*scan, **kw)
-        by_kernel = _profile(lambda: ks.fused_sampler_scan(*scan, **kw))
+        by_kernel = profile_device_ms(lambda: ks.fused_sampler_scan(*scan, **kw))
     per_step = {k: v / steps for k, v in by_kernel.items()}
     print(json.dumps({"phase": "sampler", "steps": steps, "ms_per_step": per_step,
                       "total_ms_per_step": sum(per_step.values())}), flush=True)
@@ -119,7 +163,7 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = _profile(run)
+        by_kernel = profile_device_ms(run)
         busy = sum(by_kernel.values())
         stack = sum(v for k, v in by_kernel.items() if k.split("<")[0] in family)
         lbs = sum(v for k, v in by_kernel.items() if k.startswith("lbs_kernel"))
@@ -130,6 +174,27 @@ def main() -> int:
             name: stack, "lbs_kernel_ms": lbs, "other_kernels_ms": busy - stack - lbs,
             "top_kernels_ms": dict(list(by_kernel.items())[:25]),
         }), flush=True)
+    del model, style, fused
+
+    from msmd_tpu_torch.measure import build_train_path, run_train_steps, train_batch
+
+    path = build_train_path(dev)
+    batch = train_batch(path["cfg"], dev)
+    run_train_steps(path, batch, 2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_train_steps(path, batch, 1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = profile_device_ms(lambda: run_train_steps(path, batch, 1))
+    busy = sum(by_kernel.values())
+    k7 = sum(v for k, v in by_kernel.items() if k.split("<")[0] in _K7_KERNELS)
+    print(json.dumps({
+        "phase": "train", "batch": path["cfg"].batch_size, "steps": 1, "wall_ms": wall_ms,
+        "device_busy_ms": busy, "device_busy_share": busy / wall_ms, "k7_kernels_ms": k7,
+        "other_kernels_ms": busy - k7, **_train_host_split(path, batch),
+        "top_kernels_ms": dict(list(by_kernel.items())[:30]),
+    }), flush=True)
     return 0
 
 

@@ -1,0 +1,155 @@
+"""Training CLI of the port, the twin of the root ``training_script.py``
+(reference: training_script.py:446-515):
+
+    python -m msmd_tpu_torch.training_script --exp_name ... --data_root ... [--device cpu]
+
+The same flags plus ``--device`` (default ``cuda``; it raises without a
+card). It writes ``<exp_root>/<exp_name>-<stamp>/args.json``, the
+reference checkpoints ``checkpoints/iter_%07d.pt`` (which
+``python -m msmd_tpu_torch.inference`` and the root ``inference.py`` both
+load) and the port's native checkpoints under ``checkpoints/native``.
+Flags of paths that are not ported (the vertex-space loss, pretrained
+audio weights, profiler traces, remat, the batched two-clip loss, tensor
+parallelism) raise when set.
+"""
+
+from __future__ import annotations
+
+import argparse
+from datetime import datetime
+from pathlib import Path
+from typing import Optional, Sequence
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="MSMD training script (PyTorch port)")
+    p.add_argument("--mode", type=str, default="train", choices=["train", "test"])
+    p.add_argument("--exp_name", type=str, required=True, help="experiment name")
+    p.add_argument("--data_root", type=str, required=True, help="path to dataset")
+    p.add_argument("--max_iter", type=int, default=2000000)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--num_workers", type=int, default=2)
+    p.add_argument("--generator_model_style", type=str, default="MSMD")
+    p.add_argument("--style_enc_model_style", type=str, default="vae2")
+    p.add_argument("--training_loss_style", type=str, default="MSMD")
+    p.add_argument("--dataset_type", type=str, default="ravdess+celebv-text-medium")
+    p.add_argument("--audio_model", type=str, default="hubert")
+    p.add_argument("--d_style", type=int, default=256)
+    p.add_argument("--use_indicator", action="store_true")
+    p.add_argument("--use_cross_style", action="store_true")
+    p.add_argument("--use_vertex_space", action="store_true")
+    p.add_argument("--num_of_basis", type=int, default=4)
+    p.add_argument("--prob_cross_style", type=float, default=0.5)
+    for name, default in (("l_vert", 1.0), ("l_vel", 0.5), ("l_smooth", 10.0), ("l_kl_div", 1e-7),
+                          ("l_head_angle", 1.0), ("l_head_vel", 0.5), ("l_head_smooth", 0.5), ("l_head_trans", 0.5)):
+        p.add_argument(f"--{name}", type=float, default=default)
+    p.add_argument("--scheduler", type=str, default="Warmup", choices=["Warmup", "WarmupThenDecay"])
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--warm_iter", type=int, default=5000)
+    p.add_argument("--cos_max_iter", type=int, default=1000000)
+    p.add_argument("--min_lr_ratio", type=float, default=0.1)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--n_motions", type=int, default=100)
+    p.add_argument("--n_prev_motions", type=int, default=10)
+    p.add_argument("--fps", type=int, default=25)
+    p.add_argument("--trunc_prob1", type=float, default=0.5)
+    p.add_argument("--trunc_prob2", type=float, default=0.5)
+    p.add_argument("--pad_mode", type=str, default="zero")
+    p.add_argument("--rot_repr", type=str, default="euler")
+    p.add_argument("--no_head_pose", action="store_true")
+    p.add_argument("--do_ignore_shape", action="store_true")
+    p.add_argument("--do_ignore_cfg", action="store_true")
+    p.add_argument("--log_iter", type=int, default=100)
+    p.add_argument("--save_iter", type=int, default=10000)
+    p.add_argument("--val_iter", type=int, default=10000)
+    p.add_argument("--log_smooth_win", type=int, default=50)
+    p.add_argument("--continue_from", type=str, default=None)
+    p.add_argument("--target", type=str, default="sample", choices=["noise", "sample"])
+    p.add_argument("--criterion", type=str, default="l2", choices=["l1", "l2"])
+    p.add_argument("--architecture", type=str, default="decoder")
+    p.add_argument("--feature_dim", type=int, default=512)
+    p.add_argument("--n_heads", type=int, default=8)
+    p.add_argument("--n_layers", type=int, default=8)
+    p.add_argument("--mlp_ratio", type=int, default=4)
+    p.add_argument("--align_mask_width", type=int, default=1)
+    p.add_argument("--no_use_learnable_pe", action="store_true")
+    p.add_argument("--n_diff_steps", type=int, default=500)
+    p.add_argument("--diff_schedule", type=str, default="cosine")
+    p.add_argument("--cfg_mode", type=str, default="incremental", choices=["independent", "incremental"])
+    p.add_argument("--guiding_conditions", type=str, default="style,audio")
+    p.add_argument("--no_constrain_prev", action="store_true")
+    p.add_argument("--regularize_alpha", type=str, default="None")
+    # the JAX package's additions
+    p.add_argument("--exp_root", type=str, default="experiments/DPT", help="experiment root dir")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--flame_model_path", type=str, default=None)
+    p.add_argument("--tiny_audio_encoder", action="store_true", help="debug-size audio encoder (tests)")
+    p.add_argument("--audio_weights", type=str, default=None, help="not ported")
+    p.add_argument("--audio_weights_cache", type=str, default=None, help="not ported")
+    p.add_argument("--profile_dir", type=str, default=None, help="not ported")
+    p.add_argument("--use_fused_lbs", action="store_true", help="not ported (vertex-space loss)")
+    p.add_argument("--val_batches_cap", type=int, default=0,
+                   help="cap batches per periodic-validation round (<= 0: the reference's full epoch)")
+    p.add_argument("--fused_ffn_train", action="store_true",
+                   help="training FFN block (FFN, dropout, residual, LayerNorm) through the K7 kernel")
+    p.add_argument("--identity_band_train", action=argparse.BooleanOptionalAction, default=True,
+                   help="identity-band cross-attention in training too (width-1 band)")
+    p.add_argument("--remat_denoiser", action="store_true", help="not ported")
+    p.add_argument("--two_clip_batch", action="store_true", help="not ported")
+    p.add_argument("--tp_size", type=int, default=1, help="not ported beyond 1")
+    p.add_argument("--batch_overfit_size", type=int, default=-1, help="overfit smoke mode: dataset of k items")
+    p.add_argument("--device", type=str, default="cuda", help="device to run on (cuda or cpu)")
+    return p
+
+
+TINY_AUDIO = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                  conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3), conv_stride=(5, 4, 4))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
+    unported = [f"--{n}" for n in ("audio_weights", "profile_dir", "use_fused_lbs") if getattr(args, n)]
+    if args.use_vertex_space and (args.dataset_type[:9] == "HDTF_TFHP" or args.dataset_type == "flame_mead_ravdess"):
+        unported.append("--use_vertex_space on an HDTF layout")
+    if unported:
+        raise NotImplementedError("not ported: " + ", ".join(unported))
+
+    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+    from msmd_tpu_torch.data.pickle_dataset import get_dataset
+    from msmd_tpu_torch.device import resolve_device
+    from msmd_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(args.device)
+    cfg = MSMDConfig.from_dict(vars(args))
+    audio_config = AudioEncoderConfig(**TINY_AUDIO) if args.tiny_audio_encoder else None
+    if args.continue_from:
+        exp_dir = Path(args.continue_from)
+    else:
+        exp_dir = Path(args.exp_root) / f"{args.exp_name}-{datetime.now().strftime('%y%m%d_%H%M%S')}"
+        exp_dir.mkdir(parents=True, exist_ok=True)
+
+    print(f"Loading dataset {cfg.dataset_type} from {cfg.data_root}", flush=True)
+    _, _, train_loader, val_loader = get_dataset(cfg, batch_overfit_size=args.batch_overfit_size, seed=cfg.seed)
+    trainer = Trainer(cfg, exp_dir, audio_config=audio_config, device=dev)
+    if args.continue_from:
+        start = trainer.maybe_resume(args.continue_from)
+        print(f"Resumed from {args.continue_from} at iteration {start}", flush=True)
+    n_params = sum(p.numel() for m in (trainer.model, trainer.style_enc) for p in m.parameters())
+    print(f"Experiment dir: {exp_dir} | params: {n_params:,} | device: {dev}", flush=True)
+    try:
+        if args.mode == "train":
+            trainer.cfg.save_args_json(exp_dir)
+            trainer.fit(train_loader, val_loader)
+        else:
+            metrics = trainer.evaluate(val_loader, trainer.start_iter, n_rounds=5, mode="test", do_save=True)
+            print("Test results:")
+            for k, v in metrics.items():
+                print(f"{k}: {v:.4f}")
+    finally:
+        train_loader.close()
+        val_loader.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -123,3 +123,29 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
     fused = FusedFlame(synthetic_flame(n_verts=50, device="cpu"))
     with pytest.raises(ValueError, match="must be on"):
         skin_cuda(fused, torch.zeros(2, fused.n_basis), torch.zeros(2, 60))
+
+
+TRAINING_MODULES = ("losses", "train/loop.py", "train/scheduler.py", "train/checkpoint.py", "train/trainer.py",
+                    "utils/logging.py", "data/synthetic.py", "data/pickle_dataset.py", "training_script.py",
+                    "ops/kernels/ffn_train.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_nothing_of_jax(module):
+    """The training slice's modules (also under the package-wide scan
+    above) import neither JAX nor the JAX package."""
+    path = REPO / "msmd_tpu_torch" / (module if module.endswith(".py") else module + ".py")
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|orbax|msmd_tpu(?!_torch))\b", re.M)
+    assert path.exists() and not pat.search(path.read_text())
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+    from msmd_tpu_torch.train.trainer import Trainer
+    from msmd_tpu_torch.training_script import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(MSMDConfig(**tiny_cfg_kwargs()), tmp_path / "exp", audio_config=AudioEncoderConfig(**TINY_AUDIO))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--exp_name", "x", "--data_root", str(tmp_path), "--exp_root", str(tmp_path / "exps")])

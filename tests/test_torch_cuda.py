@@ -6,9 +6,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
 suite.) Tolerances as in ``chip_smoke.py``: the decoder stack and the
-batch-1 sampler kernels at bf16, max |err| / max |plain| <= 2e-2 (the
-same bf16 rounding points, other f32 summation orders); the FLAME decode
-in f32, atol 1e-4.
+batch-1 sampler kernels and the training FFN block K7 (forward, and each
+of its seven gradients) at bf16, max |err| / max |plain| <= 2e-2 (the
+same bf16 rounding points, other f32 summation orders); K7's mask bits
+exactly; the FLAME decode in f32, atol 1e-4.
 """
 
 import pytest
@@ -110,3 +111,54 @@ def test_sampler_wrappers_refuse_what_the_kernels_do_not_take():
         ks.fused_sampler_step(*step[:4], emb, *step[5:], **kw)
     with pytest.raises(ValueError, match="must be on"):
         ks.fused_sampler_step(step[0], step[1].cpu(), *step[2:], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,FF", [(100, 128, 256), (1776, 512, 2048)])
+def test_ffn_train_kernels_match_plain(rows, F, FF):
+    """K7 forward and backward against their plain versions, at a ragged
+    row count and at the train step's shapes."""
+    from msmd_tpu_torch.measure import ffn_train_case
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    args, gbar = ffn_train_case(_card(), rows=rows, F=F, FF=FF, seed=4)
+    before = (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches)
+    got = [k7.ffn_train_forward(*args)] + list(k7.ffn_train_backward(args[0], gbar, *args[1:]))
+    want = [k7.ffn_train_forward_plain(*args)] + list(k7.ffn_train_backward_plain(args[0], gbar, *args[1:]))
+    torch.cuda.synchronize()
+    assert (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2", "dg", "db"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype and bool(torch.isfinite(a).all()), name
+        assert float((a.float() - w.float()).abs().max() / w.float().abs().max()) <= 2e-2, name
+
+
+@pytest.mark.cuda
+def test_ffn_train_mask_bits_match_plain():
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    dev = _card()
+    seed = k7.seed_tensor(987654321, dev)
+    for salt, rows, cols in ((1, 37, 2048), (2, 1776, 512)):
+        got = k7.kernel_mask_bits(seed, salt, rows, cols)
+        assert int((got != k7.philox_bits(seed, salt, rows, cols, dev)).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_ffn_train_function_on_the_card():
+    """The autograd Function launches one forward and one backward kernel
+    and returns a gradient for every input in its dtype."""
+    from msmd_tpu_torch.measure import ffn_train_case
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    args, gbar = ffn_train_case(_card(), rows=222, F=512, FF=2048, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in args[:7]]
+    before = (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches)
+    out = k7.fused_ffn_ln_train(*leaves, args[7], args[8])
+    grads = torch.autograd.grad(out, leaves, gbar)
+    torch.cuda.synchronize()
+    assert (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert [g.dtype for g in grads] == [t.dtype for t in leaves]
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        k7.ffn_train_forward(args[0], args[1].float(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.ffn_train_forward(args[0].t().contiguous().t(), *args[1:])
