@@ -34,6 +34,14 @@ Phases, each printing one JSON line:
      call computes K7 (``library_ms`` null); the unfused torch-op chain
      (F.linear, gelu, dropout, layer_norm, and its autograd backward) is
      timed beside it as ``chain_ms``.
+   - the guided window's layer kernels at its batch-48 shapes (two CFG
+     entries, Be = 96, lq = 111): K6 ``fused_ffn_ln`` over 10656 rows (F
+     512, FFN 2048), K8 ``attention_middle`` over 96 entries of 111 rows (8
+     heads of 64, q, k, v the column slices of one projection), K9
+     ``fused_layer_tail`` over the 10560 motion rows; each at max |err| /
+     max |plain| <= 2e-2. ``library_ms`` is ``scaled_dot_product_attention``
+     on K8's inputs, and null for K6 and K9, whose unfused torch-op chains
+     are timed as ``chain_ms``.
 4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
@@ -47,7 +55,21 @@ Phases, each printing one JSON line:
    ``sample(..., ret_traj=True)``, which must run K4 500 times, and the
    difference of its x_0 from K3's on the same noise (printed, not gated).
 
-6. train: the default training configuration with ``fused_ffn_train``
+6. guided: the batch-48 model of phase 4; one 4 s window of
+   ``sample_with_guide`` at batch 48 (48 streams of seeded audio through
+   HuBERT, keyframes at frames 0, 10, ..., 90 with seeded values, cfg_scale
+   1.15, dynamic threshold (0, 1, 4)), its frames then decoded through
+   K5; a warm-up, then three timed runs on the same x_T and noise: the
+   default route (K6 500 x 8 times, K1/K3/K4/K8/K9 never), with
+   ``attn_kernel`` (K6 and K8 4000 times each) and with ``fused_tail``
+   (K9 4000 times, K6 and K8 never). Each gates on finite output, the
+   shapes and those counts (K5 once), and prints its wall time; the
+   largest |difference| between the three routes' x_0 is printed, not
+   gated.
+7. separate: one batch-1 window of ``sample_separate`` at bf16 on 4 s of
+   seeded audio; six finite outputs of the right shapes, and no launch of
+   any kernel.
+8. train: the default training configuration with ``fused_ffn_train``
    (MSMD at bf16 over f32 parameters, HuBERT-base, VAE2, batch 16, two
    clips of 4 s of seeded audio and seeded motion, seeded random weights,
    constant rate 2e-5), one warm-up step, then ``TRAIN_STEPS`` timed steps
@@ -140,6 +162,64 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def _guided_entries(dev):
+    """K6, K8 and K9 against their plain versions at the guided batch-48
+    shapes, timed beside their bounds, the unfused torch-op chains (K6,
+    K9) and ``scaled_dot_product_attention`` (K8)."""
+    import torch
+
+    from msmd_tpu_torch.measure import (BF16_PEAK, attn_case, bound, cuda_ms, ffn_case, ffn_chain, sdpa_call,
+                                        tail_case, tail_chain)
+    from msmd_tpu_torch.ops.kernels import attn as k8
+    from msmd_tpu_torch.ops.kernels import ffn as k6
+    from msmd_tpu_torch.ops.kernels import layer_tail as k9
+
+    cases = {
+        "ffn": (k6.fused_ffn_ln, k6.ffn_ln_plain, ffn_case(dev), ffn_chain, "msmd_tpu_torch/csrc/ffn.cu",
+                "msmd_tpu/ops/pallas/ffn_kernel.py:61"),
+        "attn": (k8.attention_middle, k8.attention_middle_plain, attn_case(dev), None,
+                 "msmd_tpu_torch/csrc/attn.cu", "msmd_tpu/ops/pallas/attn_kernel.py:88"),
+        "tail": (k9.fused_layer_tail, k9.layer_tail_plain, tail_case(dev), tail_chain,
+                 "msmd_tpu_torch/csrc/layer_tail.cu", "msmd_tpu/ops/pallas/layer_tail_kernel.py:77"),
+    }
+    entries = {}
+    with torch.no_grad():
+        for key, (fn, plain, args, chain, source, replaces) in cases.items():
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            rel = _rel(got.float(), want.float())
+            if key == "ffn":
+                x, w1 = args[0], args[1]
+                flops, nbytes = k6.ffn_work(x.shape[0], x.shape[1], w1.shape[0])
+                shape = {"rows": x.shape[0]}
+            elif key == "attn":
+                q = args[0]
+                flops, nbytes = k8.attn_work(q.shape[0], q.shape[1], q.shape[2])
+                shape = {"entries": q.shape[0], "lq": q.shape[1], "heads": args[3]}
+            else:
+                x_m, w1 = args[1], args[7]
+                flops, nbytes = k9.tail_work(x_m.shape[0] * x_m.shape[1], x_m.shape[2], w1.shape[0])
+                shape = {"rows": x_m.shape[0] * x_m.shape[1]}
+            bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+            if chain is None:
+                sdpa, heads = sdpa_call(*args)
+                library_ms, library, chain_ms = cuda_ms(sdpa, 20), "scaled_dot_product_attention", None
+                del heads
+            else:
+                library_ms, library = None, "none: no one call computes it"
+                chain_ms = cuda_ms(lambda: chain(*args), 20)
+            entries[key] = dict(
+                name=fn.__name__, route="cuda", source=source, replaces=replaces,
+                max_abs_err=float((got.float() - want.float()).abs().max()), rel_err=rel,
+                tolerance=f"max|err|/max|plain| <= {GATE}", **shape,
+                ms=cuda_ms(lambda: fn(*args), 20), plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, library=library, chain_ms=chain_ms,
+                flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE,
+            )
+            del got, want, args
+    return entries
+
+
 def phase_kernels(dev):
     import torch
 
@@ -230,6 +310,7 @@ def phase_kernels(dev):
         )
         del got, want
         out.update(_k7_entries(dev))
+        out.update(_guided_entries(dev))
     emit({"phase": "kernels", **out})
     bad = [k for k, v in out.items() if not v["ok"]]
     if bad:
@@ -297,13 +378,17 @@ def _k7_entries(dev):
 # ---------------------------------------------------------------------------
 
 def _counted():
+    from msmd_tpu_torch.ops.kernels import attn as k8
     from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import ffn as k6
     from msmd_tpu_torch.ops.kernels import ffn_train as k7
+    from msmd_tpu_torch.ops.kernels import layer_tail as k9
     from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
     return {"decoder": kd.fused_decoder_forward, "scan": ks.fused_sampler_scan, "step": ks.fused_sampler_step,
-            "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward, "ffn_train_bwd": k7.ffn_train_backward}
+            "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward, "ffn_train_bwd": k7.ffn_train_backward,
+            "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle, "tail": k9.fused_layer_tail}
 
 
 def _reset_counts():
@@ -424,7 +509,85 @@ def phase_batch1(dev, smi, built):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the two-clip training step
+# phases 6 and 7: guided inpainting and the style-basis sampler
+# ---------------------------------------------------------------------------
+
+GUIDED_ROUTES = (("default", {}, {"ffn"}), ("attn_kernel", {"attn_kernel": True}, {"ffn", "attn"}),
+                 ("fused_tail", {"fused_tail": True}, {"tail"}))
+
+
+def phase_guided(dev, smi, built):
+    import torch
+
+    from msmd_tpu_torch.measure import BATCH, decode_vertices, guided_inputs, run_guided
+
+    model, style, fused = built
+    cfg = model.cfg
+    inputs = guided_inputs(cfg, dev)
+    per_window = cfg.n_layers * cfg.n_diff_steps
+    with torch.no_grad():
+        run_guided(model, style, inputs, dev)  # warm-up
+        torch.cuda.synchronize()
+        runs, x0 = {}, {}
+        for name, route, launched in GUIDED_ROUTES:
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = run_guided(model, style, inputs, dev, **route)
+            verts = decode_vertices(fused, out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            want = {k: (per_window if k in launched else 0) for k in ("decoder", "scan", "step", "ffn", "attn", "tail")}
+            checks = {
+                "shape": list(out.shape) == [BATCH, cfg.n_motions, cfg.motion_feat_dim],
+                "verts_shape": list(verts.shape) == [BATCH * cfg.n_motions, fused.n_verts, 3],
+                "finite": _finite(out, verts),
+                "launches": all(launches[k] == v for k, v in want.items()) and launches["lbs"] == 1,
+            }
+            runs[name] = {"wall_s": wall, "real_time_factor": (cfg.n_motions / cfg.fps) * BATCH / wall,
+                          "launches": launches, "checks": checks}
+            x0[name] = out
+            del verts
+    diffs = {f"{a}_vs_{b}": float((x0[a] - x0[b]).abs().max())
+             for a, b in (("default", "attn_kernel"), ("default", "fused_tail"), ("attn_kernel", "fused_tail"))}
+    emit({"phase": "guided", "batch": BATCH, "windows": 1, "diff_steps": cfg.n_diff_steps,
+          "keyframes": int(inputs["guidance_indice"].numel()), "runs": runs, "x0_max_abs_diff": diffs,
+          "card": smi})
+    bad = {k: v["checks"] for k, v in runs.items() if not all(v["checks"].values())}
+    if bad:
+        raise SystemExit(f"chip_smoke: guided checks failed: {bad}")
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def phase_separate(dev, smi, built):
+    import torch
+
+    from msmd_tpu_torch.measure import CFG_SCALE, SEED, seeded_audio
+    from msmd_tpu_torch.models.diffusion import sample_separate
+
+    model, style, _ = built
+    cfg = model.cfg
+    n, D = cfg.n_motions, cfg.motion_feat_dim
+    audio = torch.as_tensor(seeded_audio(n / cfg.fps, SEED + 13), device=dev)[None]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = sample_separate(model, audio, torch.zeros(1, 100, device=dev), style.reshape(1, -1),
+                           cfg_scale=CFG_SCALE, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    shapes = [[1, n, D], [1, n, D], [1, n, cfg.feature_dim], [1, n, D], [1, n, D], [1, n, cfg.num_of_basis]]
+    checks = {"shapes": [list(o.shape) for o in outs] == shapes, "finite": _finite(*(o.float() for o in outs)),
+              "no_kernel": not any(launches.values())}
+    emit({"phase": "separate", "batch": 1, "diff_steps": cfg.n_diff_steps, "wall_s": wall,
+          "shapes": [list(o.shape) for o in outs], "launches": launches, "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: separate checks failed: {checks}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the two-clip training step
 # ---------------------------------------------------------------------------
 
 def _train_wall(path, batch, steps):
@@ -511,6 +674,8 @@ def main() -> int:
     built = build_main_path(dev)
     main_launches = phase_main(dev, smi, built)
     b1_launches, traj_launches = phase_batch1(dev, smi, built)
+    guided_launches = phase_guided(dev, smi, built)
+    phase_separate(dev, smi, built)
     del built
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, smi)
@@ -520,9 +685,12 @@ def main() -> int:
     kernels["step"]["launches"] = traj_launches["step"]
     for k in ("ffn_train_fwd", "ffn_train_bwd"):
         kernels[k]["launches"] = train_launches[k]
+    kernels["ffn"]["launches"] = guided_launches["default"]["ffn"]
+    kernels["attn"]["launches"] = guided_launches["attn_kernel"]["attn"]
+    kernels["tail"]["launches"] = guided_launches["fused_tail"]["tail"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    order = ("decoder", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd")
+    order = ("decoder", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd", "ffn", "attn", "tail")
     emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -87,3 +89,35 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({lib.msmd_error_string(rc).decode()})")
+
+
+def on_cpu(name: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper takes its plain version), False
+    for a CUDA tensor (it launches its kernel); raises for any other
+    device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type == "cpu"
+
+
+def check_args(name: str, device: torch.device, **named) -> None:
+    """Raise unless every ``named`` value ``(tensor, shape, dtype)`` is a
+    contiguous tensor of that shape and dtype on ``device``."""
+    for key, (t, shape, dtype) in named.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} must be on {device}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a C entry point."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,8 +1,11 @@
-// Device code shared by the decoder-stack kernel (decoder.cu, K1) and the
-// batch-1 sampler kernels (sampler.cu, K3 and K4): the tiled bf16 GEMM with
-// fused epilogues, per-(entry, head) self-attention, the identity-band
-// person-row cross-attention, the LayerNorm variants, and the host loop
-// that launches one decoder stack on a stream.
+// Device code shared by the decoder-stack kernel (decoder.cu, K1), the
+// batch-1 sampler kernels (sampler.cu, K3 and K4) and the layer kernels of
+// the XLA-decoder route (ffn.cu K6, attn.cu K8, layer_tail.cu K9): the
+// tiled bf16 GEMM with fused epilogues (its B operand in the (in, out)
+// layout, or in the nn.Linear (out, in) layout with BT), per-(entry, head)
+// self-attention, the identity-band person-row cross-attention, the
+// LayerNorm variants, and the host loop that launches one decoder stack on
+// a stream.
 //
 // Each kernel library is one translation unit that includes this header
 // once, so everything here has internal linkage (an anonymous namespace)
@@ -22,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -52,6 +57,20 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
+// erf by Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7), as
+// msmd_tpu/ops/pallas/decoder_kernel.py::_erf computes it
+__device__ __forceinline__ float erf_as(float x) {
+  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f, a4 = -1.453152027f,
+              a5 = 1.061405429f, p = 0.3275911f;
+  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + p * ax);
+  const float poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t;
+  return sign * (1.0f - poly * expf(-ax * ax));
+}
+
+__device__ __forceinline__ float gelu_erf(float u) { return u * 0.5f * (1.0f + erf_as(u * 0.70710677f)); }
+
 // the bf16 "fast" softmax numerator: exp(clamp(s - 20, -80, 60))
 __device__ __forceinline__ float fast_exp(float s) {
   return expf(fminf(fmaxf(s - 20.0f, -80.0f), 60.0f));
@@ -80,12 +99,16 @@ constexpr int DH = 64;  // head dim the attention kernels are written for
 // STAGES tiles in shared memory, filled by cp.async STAGES - 1 tiles ahead.
 // BM = 128 for the wide products (QKV, FFN1), BM = 64 for the N = 512 ones
 // (self-out, FFN2, the person rows), which would leave most SMs idle at 128.
+// B is K x N row-major, or with BT N x K row-major (the nn.Linear layout,
+// staged as BN rows of BK and read through col-major fragments).
 constexpr int BN = 128, BK = 32, PAD = 8, STAGES = 4, GEMM_THREADS = 256;
-constexpr int A_LD = BK + PAD, B_LD = BN + PAD, C_LD = 16 + 4;
+constexpr int A_LD = BK + PAD, B_LD = BN + PAD, BT_LD = BK + PAD, C_LD = 16 + 4;
 
 // EPI_BF16: bf16(scaled acc + bias); EPI_RESID: f32 res + (acc + bias);
-// EPI_GELU: bf16(gelu_tanh(acc + bias)); EPI_F32: f32 acc + bias.
-enum { EPI_BF16 = 0, EPI_RESID = 1, EPI_GELU = 2, EPI_F32 = 3 };
+// EPI_GELU: bf16(gelu_tanh(acc + bias)); EPI_F32: f32 acc + bias;
+// EPI_RESID_BF16: f32(bf16 res_b) + (acc + bias) in f32;
+// EPI_GELU_ERF: bf16(gelu_erf(acc + bias)).
+enum { EPI_BF16 = 0, EPI_RESID = 1, EPI_GELU = 2, EPI_F32 = 3, EPI_RESID_BF16 = 4, EPI_GELU_ERF = 5 };
 
 struct GemmArgs {
   const bf16* A;
@@ -95,24 +118,31 @@ struct GemmArgs {
   const bf16* bias;      // N, or null
   const float* bias_f;   // N f32, or null (added after `bias`)
   const float* res;      // M x N f32 residual (EPI_RESID)
-  void* C;               // M x N: bf16 (EPI_BF16, EPI_GELU) or f32 (EPI_RESID, EPI_F32)
+  void* C;               // M x N: bf16 (EPI_BF16, EPI_GELU*) or f32 (EPI_RESID*, EPI_F32)
   int M, N, K;
   float scale;     // EPI_BF16: columns < scale_cols are multiplied by scale
   int scale_cols;  // before the bf16 cast
+  const bf16* res_b;  // M x N bf16 residual (EPI_RESID_BF16)
 };
 
-template <int BM>
+template <bool BT>
+__host__ __device__ constexpr int b_stage_elems() { return BT ? BN * BT_LD : BK * B_LD; }
+
+template <int BM, bool BT = false>
 constexpr size_t gemm_smem_bytes() {
-  return (size_t)STAGES * (BM * A_LD + BK * B_LD) * sizeof(bf16) + (GEMM_THREADS / 32) * 16 * C_LD * sizeof(float);
+  return (size_t)STAGES * (BM * A_LD + b_stage_elems<BT>()) * sizeof(bf16) +
+         (GEMM_THREADS / 32) * 16 * C_LD * sizeof(float);
 }
 
-template <int EPI, int BM>
+template <int EPI, int BM, bool BT = false>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   constexpr int MI = BM / 32;  // 16-row fragments per warp
+  constexpr int B_ELEMS = b_stage_elems<BT>();
+  using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
   extern __shared__ __align__(128) unsigned char gsm[];
   bf16* As = reinterpret_cast<bf16*>(gsm);            // [STAGES][BM][A_LD]
-  bf16* Bs = As + STAGES * BM * A_LD;                 // [STAGES][BK][B_LD]
-  float* Cs = reinterpret_cast<float*>(Bs + STAGES * BK * B_LD);  // [8 warps][16][C_LD]
+  bf16* Bs = As + STAGES * BM * A_LD;                 // [STAGES][BK][B_LD], or with BT [STAGES][BN][BT_LD]
+  float* Cs = reinterpret_cast<float*>(Bs + STAGES * B_ELEMS);  // [8 warps][16][C_LD]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;
@@ -120,7 +150,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
 
   auto load_tile = [&](int stage, int k0) {
     bf16* as = As + stage * BM * A_LD;
-    bf16* bs = Bs + stage * BK * B_LD;
+    bf16* bs = Bs + stage * B_ELEMS;
     for (int i = tid; i < BM * (BK / 8); i += GEMM_THREADS) {
       const int r = i / (BK / 8), c = (i % (BK / 8)) * 8, gr = m0 + r;
       const bool ok = gr < g.M;
@@ -128,9 +158,16 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       if (ok) src = g.A + (long)(g.a_rows ? g.a_rows[gr] : gr) * g.lda + k0 + c;
       cp_async16(as + r * A_LD + c, src, ok);
     }
-    for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      cp_async16(bs + r * B_LD + c, g.B + (long)(k0 + r) * g.N + n0 + c, true);
+    if (BT) {  // BN rows of n, BK columns of k
+      for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
+        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+        cp_async16(bs + r * BT_LD + c, g.B + (long)(n0 + r) * g.K + k0 + c, true);
+      }
+    } else {  // BK rows of k, BN columns of n
+      for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
+        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+        cp_async16(bs + r * B_LD + c, g.B + (long)(k0 + r) * g.N + n0 + c, true);
+      }
     }
   };
 
@@ -152,15 +189,22 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
     if (kt + STAGES - 1 < KT) load_tile((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * BK);
     cp_async_commit();
     const bf16* as = As + (kt % STAGES) * BM * A_LD;
-    const bf16* bs = Bs + (kt % STAGES) * BK * B_LD;
+    const bf16* bs = Bs + (kt % STAGES) * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[MI];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
 #pragma unroll
       for (int i = 0; i < MI; ++i) wmma::load_matrix_sync(a[i], as + (wm * (BM / 2) + i * 16) * A_LD + kk, A_LD);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], bs + kk * B_LD + wn * 32 + j * 16, B_LD);
+      for (int j = 0; j < 2; ++j) {
+        const int nc = wn * 32 + j * 16;
+        if (BT) {
+          wmma::load_matrix_sync(b[j], bs + nc * BT_LD + kk, BT_LD);
+        } else {
+          wmma::load_matrix_sync(b[j], bs + kk * B_LD + nc, B_LD);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -198,11 +242,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
           for (int t = 0; t < 8; ++t) v[t] += g.bias_f[gc + t];
         }
         const long o = (long)gr * g.N + gc;
-        if (EPI == EPI_RESID || EPI == EPI_F32) {
+        if (EPI == EPI_RESID || EPI == EPI_F32 || EPI == EPI_RESID_BF16) {
           float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f), r1 = r0;
           if (EPI == EPI_RESID) {
             r0 = *reinterpret_cast<const float4*>(g.res + o);
             r1 = *reinterpret_cast<const float4*>(g.res + o + 4);
+          } else if (EPI == EPI_RESID_BF16) {
+            const uint4 ur = *reinterpret_cast<const uint4*>(g.res_b + o);
+            const bf16* r8 = reinterpret_cast<const bf16*>(&ur);
+            r0 = make_float4(__bfloat162float(r8[0]), __bfloat162float(r8[1]), __bfloat162float(r8[2]),
+                             __bfloat162float(r8[3]));
+            r1 = make_float4(__bfloat162float(r8[4]), __bfloat162float(r8[5]), __bfloat162float(r8[6]),
+                             __bfloat162float(r8[7]));
           }
           float4* out = reinterpret_cast<float4*>(static_cast<float*>(g.C) + o);
           out[0] = make_float4(r0.x + v[0], r0.y + v[1], r0.z + v[2], r0.w + v[3]);
@@ -215,6 +266,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
             float y = v[t];
             if (EPI == EPI_BF16 && gc + t < g.scale_cols) y *= g.scale;
             if (EPI == EPI_GELU) y = gelu_tanh(y);
+            if (EPI == EPI_GELU_ERF) y = gelu_erf(y);
             p8[t] = __float2bfloat16(y);
           }
           *reinterpret_cast<uint4*>(static_cast<bf16*>(g.C) + o) = packed;
@@ -225,23 +277,32 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   }
 }
 
-template <int EPI, int BM>
+template <int EPI, int BM, bool BT = false>
 cudaError_t gemm_attr() {
-  return cudaFuncSetAttribute(gemm_kernel<EPI, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(gemm_smem_bytes<BM>()));
+  return cudaFuncSetAttribute(gemm_kernel<EPI, BM, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(gemm_smem_bytes<BM, BT>()));
 }
 
-template <int EPI>
+// K % BK == 0 and N % BN == 0; M is ragged. With BT, B is (N, K) row-major.
+template <int EPI, bool BT = false>
 cudaError_t gemm(cudaStream_t st, const bf16* A, long lda, const int* a_rows, const bf16* B,
                  const bf16* bias, const float* res, void* C, int M, int N, int K,
-                 float scale = 1.0f, int scale_cols = 0, const float* bias_f = nullptr) {
-  GemmArgs g{A, lda, a_rows, B, bias, bias_f, res, C, M, N, K, scale, scale_cols};
+                 float scale = 1.0f, int scale_cols = 0, const float* bias_f = nullptr,
+                 const bf16* res_b = nullptr) {
+  GemmArgs g{A, lda, a_rows, B, bias, bias_f, res, C, M, N, K, scale, scale_cols, res_b};
   if (N > 512) {
-    gemm_kernel<EPI, 128><<<dim3(N / BN, (M + 127) / 128), GEMM_THREADS, gemm_smem_bytes<128>(), st>>>(g);
+    gemm_kernel<EPI, 128, BT><<<dim3(N / BN, (M + 127) / 128), GEMM_THREADS, gemm_smem_bytes<128, BT>(), st>>>(g);
   } else {
-    gemm_kernel<EPI, 64><<<dim3(N / BN, (M + 63) / 64), GEMM_THREADS, gemm_smem_bytes<64>(), st>>>(g);
+    gemm_kernel<EPI, 64, BT><<<dim3(N / BN, (M + 63) / 64), GEMM_THREADS, gemm_smem_bytes<64, BT>(), st>>>(g);
   }
   return cudaGetLastError();
+}
+
+// The dynamic shared-memory limit of both tile heights of one product.
+template <int EPI, bool BT>
+cudaError_t gemm_attrs() {
+  RETURN_IF_ERROR((gemm_attr<EPI, 64, BT>()));
+  return gemm_attr<EPI, 128, BT>();
 }
 
 // --------------------------------------------------------------------------
@@ -408,7 +469,8 @@ __global__ void cross_rows_kernel(const bf16* __restrict__ pa, const bf16* __res
 }
 
 // --------------------------------------------------------------------------
-// LayerNorm, one warp per row (F <= 1024); writes x (f32) and its bf16 copy
+// LayerNorm, one warp per row (F <= 1024); writes x (f32, unless x is null
+// outside CROSS) and its bf16 copy
 // --------------------------------------------------------------------------
 
 constexpr int LN_THREADS = 256, LN_MAXN = 32;
@@ -460,7 +522,7 @@ __global__ void __launch_bounds__(LN_THREADS) ln_kernel(const float* y, float* x
     if (i < n) {
       const int c = lane + 32 * i;
       const float o = (v[i] - mu) * rstd * scale[c] + bias[c];
-      x[base + c] = o;
+      if (x) x[base + c] = o;
       xb[base + c] = __float2bfloat16(o);
     }
   }

@@ -89,20 +89,8 @@ __device__ __forceinline__ float mask1(const Dropout& d, uint32_t salt, int row,
 }
 
 // --------------------------------------------------------------------------
-// GELU (erf form) and its derivative, as ffn_train_kernel.py computes them
+// the derivative of the erf GELU (gelu_erf and erf_as: decoder_common.cuh)
 // --------------------------------------------------------------------------
-
-__device__ __forceinline__ float erf_as(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f, a4 = -1.453152027f,
-              a5 = 1.061405429f, p = 0.3275911f;
-  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
-  const float poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t;
-  return sign * (1.0f - poly * expf(-ax * ax));
-}
-
-__device__ __forceinline__ float gelu_erf(float u) { return u * 0.5f * (1.0f + erf_as(u * 0.70710677f)); }
 
 __device__ __forceinline__ float gelu_erf_grad(float u) {
   const float phi = 0.3989422804014327f * expf(-0.5f * u * u);

@@ -7,7 +7,10 @@ the decoder stack at batch 48 with two CFG entries (Be = 96, lq = 111,
 entries, lq = 111, the same layers, 500 steps) and the FLAME decode of
 one 4 s window at batch 48 (N = 4800 frames, V = 5023), and the training
 FFN block K7 at the train step's shapes (batch 16 x 111 rows = 1776 rows,
-F 512, FFN 2048, dropout 0.1). A bound is the least time an H100
+F 512, FFN 2048, dropout 0.1), and the kernels of the guided batch-48
+window (two CFG entries, Be = 96, lq = 111): K6 over Be x lq = 10656 rows,
+K8 over 96 entries of 111 rows with 8 heads of 64, and K9 over the motion
+rows Be x 110 = 10560. A bound is the least time an H100
 SXM could take for the same work: the larger of the bytes that must move
 (each input read once, each output written once) over the memory rate
 and the operations over the peak rate of their type (NVIDIA's data sheet).
@@ -213,17 +216,24 @@ def generate(model, style, fused, audio, reps, generator, dev, dynamic_threshold
     kernel (expression and head pose from the motion, zero shape, as
     ``bench.py`` decodes). Returns (coeffs, vertices)."""
     from msmd_tpu_torch.inference_lib import infer_coeffs
-    from msmd_tpu_torch.ops.kernels.lbs import flame_vertices
 
     cfg = model.cfg
     coeffs = infer_coeffs(model, audio, torch.zeros(1, 100), style_feats=style, n_repetitions=reps,
                           cfg_scale=CFG_SCALE, dynamic_threshold=dynamic_threshold, generator=generator, device=dev)
-    verts = []
-    for w0 in range(0, coeffs.shape[1], cfg.n_motions):
-        m = coeffs[:, w0:w0 + cfg.n_motions].reshape(-1, coeffs.shape[-1]).float()
-        pose6 = torch.cat([m[:, -3:], torch.zeros_like(m[:, :3])], dim=-1)
-        verts.append(flame_vertices(fused, torch.zeros(m.shape[0], 100, device=m.device), m[:, :50], pose6))
+    verts = [decode_vertices(fused, coeffs[:, w0:w0 + cfg.n_motions])
+             for w0 in range(0, coeffs.shape[1], cfg.n_motions)]
     return coeffs, torch.cat(verts, dim=0)
+
+
+def decode_vertices(fused, motion):
+    """One window's frames (B, L, 67) through the FLAME kernel: expression
+    and head pose from the motion, zero shape, as ``bench.py`` decodes.
+    Returns (B * L, V, 3)."""
+    from msmd_tpu_torch.ops.kernels.lbs import flame_vertices
+
+    m = motion.reshape(-1, motion.shape[-1]).float()
+    pose6 = torch.cat([m[:, -3:], torch.zeros_like(m[:, :3])], dim=-1)
+    return flame_vertices(fused, torch.zeros(m.shape[0], 100, device=m.device), m[:, :50], pose6)
 
 
 def ffn_train_chain(x, w1, b1, w2, b2, g, b, p):
@@ -285,3 +295,115 @@ def run_train_steps(path: dict, batch, steps: int):
 
     return [train_step(path["cfg"], path["model"], path["style_enc"], path["opt"], batch, path["generator"],
                        path["host_generator"])["loss"] for _ in range(steps)]
+
+
+# ---------------------------------------------------------------------------
+# the guided window's layer kernels: K6, K8, K9
+# ---------------------------------------------------------------------------
+
+def _seeded(seed):
+    g = torch.Generator().manual_seed(seed)
+    return lambda *shape: torch.randn(*shape, generator=g)
+
+
+def ffn_case(dev, rows=96 * 111, F=512, FF=2048, seed=SEED):
+    """Seeded K6 inputs (x, w1, b1, w2, b2, g, b): bf16 activations and
+    weights in the nn.Linear layout, f32 LayerNorm parameters."""
+    rn = _seeded(seed + 30)
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    return (bf(rn(rows, F)), bf(rn(FF, F) / F ** 0.5), bf(rn(FF) * 0.1), bf(rn(F, FF) / FF ** 0.5),
+            bf(rn(F) * 0.1), f32(1.0 + 0.1 * rn(F)), f32(0.1 * rn(F)))
+
+
+def ffn_chain(x, w1, b1, w2, b2, g, b):
+    """The unfused torch-op chain of K6 (F.linear, tanh gelu, F.linear,
+    layer_norm): a reference time beside the kernel, used nowhere in the
+    port."""
+    import torch.nn.functional as F
+
+    y = F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)
+    return F.layer_norm(x + y, (x.shape[-1],), g.to(x.dtype), b.to(x.dtype))
+
+
+def attn_case(dev, B=96, lq=111, F=512, H=8, seed=SEED):
+    """Seeded K8 inputs (q, k, v, H): the three column slices of one
+    (B, lq, 3F) bf16 projection, as the fused q/k/v product gives them."""
+    rn = _seeded(seed + 31)
+    qkv = (rn(B, lq, 3 * F) * torch.tensor([1.5, 1.5, 1.0]).repeat_interleave(F)).to(dev, torch.bfloat16)
+    q, k, v = qkv.split(F, dim=-1)
+    return q, k, v, H
+
+
+def sdpa_call(q, k, v, H):
+    """``scaled_dot_product_attention`` on the same inputs in its head-major
+    layout, made once: (call, heads). A reference time beside K8, used
+    nowhere in the port."""
+    import torch.nn.functional as F
+
+    B, lq, D = q.shape
+    heads = [t.reshape(B, lq, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
+    return (lambda: F.scaled_dot_product_attention(*heads)), heads
+
+
+def tail_case(dev, Be=96, lm=110, F=512, FF=2048, seed=SEED):
+    """Seeded K9 inputs (sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2,
+    b2, ln_scale, ln_bias): bf16 activations and weights in the nn.Linear
+    layout, (3, F) f32 LayerNorm parameters."""
+    rn = _seeded(seed + 32)
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    return (bf(rn(Be, lm, F)), bf(rn(Be, lm, F)), bf(rn(Be * lm, F)),
+            bf(rn(F, F) / F ** 0.5), bf(rn(F) * 0.1), bf(rn(F, F) / F ** 0.5), bf(rn(F) * 0.1),
+            bf(rn(FF, F) / F ** 0.5), bf(rn(FF) * 0.1), bf(rn(F, FF) / FF ** 0.5), bf(rn(F) * 0.1),
+            f32(1.0 + 0.1 * rn(3, F)), f32(0.1 * rn(3, F)))
+
+
+def tail_chain(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias):
+    """The unfused torch-op chain of K9 (out-projection, layer_norm, the
+    cross out-projection, layer_norm, F.linear, erf gelu, F.linear,
+    layer_norm): a reference time beside the kernel, used nowhere in the
+    port."""
+    import torch.nn.functional as F
+
+    n, dt = (x_m.shape[-1],), x_m.dtype
+    s, b = ln_scale.to(dt), ln_bias.to(dt)
+    x1 = F.layer_norm(x_m + F.linear(sa_m, wso, bso), n, s[0], b[0])
+    x2 = F.layer_norm(x1 + F.linear(v_rows, wco, bco).reshape(x_m.shape), n, s[1], b[1])
+    return F.layer_norm(x2 + F.linear(F.gelu(F.linear(x2, w1, b1)), w2, b2), n, s[2], b[2])
+
+
+# ---------------------------------------------------------------------------
+# the guided window: sample_with_guide at batch 48
+# ---------------------------------------------------------------------------
+
+GUIDE_EVERY = 10  # keyframes at frames 0, 10, ..., 90 of a 100-frame window
+
+
+def guided_inputs(cfg, dev, batch: int = BATCH, seed: int = SEED + 40) -> dict:
+    """Seeded inputs of one guided window: 4 s of z-scored audio per stream
+    (raw, so the window runs HuBERT), zero shape, x_T and the per-step
+    noise made on the card, and keyframes at every ``GUIDE_EVERY``-th frame
+    with seeded values."""
+    n, D, T = cfg.n_motions, cfg.motion_feat_dim, cfg.n_diff_steps
+    audio = np.stack([seeded_audio(n / cfg.fps, seed + i) for i in range(batch)])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.arange(0, n, GUIDE_EVERY)
+    vals = np.random.RandomState(seed).randn(len(idx), D).astype(np.float32)
+    return dict(audio_or_feat=torch.as_tensor(audio, device=dev), shape_feat=torch.zeros(batch, 100, device=dev),
+                motion_at_T=torch.randn(batch, n, D, generator=g, device=dev),
+                noise_override=torch.randn(T, batch, n, D, generator=g, device=dev),
+                guidance_indice=idx.to(dev), guidance_values=torch.as_tensor(vals, device=dev))
+
+
+def run_guided(model, style, inputs: dict, dev, **route):
+    """``sample_with_guide`` on ``inputs`` at cfg_scale 1.15 with the
+    dynamic threshold (0, 1, 4); ``route``: ``attn_kernel``, ``fused_tail``.
+    Returns x_0 (B, n_motions, D)."""
+    from msmd_tpu_torch.models.diffusion import sample_with_guide
+
+    B = inputs["shape_feat"].shape[0]
+    style_b = style.reshape(1, -1).expand(B, -1)
+    out, _, _ = sample_with_guide(model, style_feat=style_b, cfg_scale=CFG_SCALE, dynamic_threshold=(0, 1, 4),
+                                  device=dev, **inputs, **route)
+    return out

@@ -13,7 +13,13 @@ dropout, the width-1 band stays an identity V-gather when
 ``cfg.identity_band_train`` (the default) and is a masked softmax
 otherwise, the sinusoidal PE takes dropout 0.1 when the PE is not
 learned, and ``cfg.fused_ffn_train`` sends every layer's FFN block through
-K7 (``msmd_tpu/models/denoiser.py``:169-226).
+K7 (``msmd_tpu/models/denoiser.py``:169-226). In eval mode the decoder
+takes ``fused_ffn`` (K6), ``attn_kernel`` (K8) and ``fused_tail`` (K9,
+only with the identity band and a memory K/V cache, as
+``msmd_tpu/models/denoiser.py``:221-226 gates it); see
+``models/transformer.py``. ``keep_separate`` returns the dynamic part, the
+per-basis static offsets and the alphas apart (the style-basis
+introspection sampler's view).
 """
 
 from __future__ import annotations
@@ -98,7 +104,14 @@ class DenoisingNetwork(nn.Module):
         fused_decoder: Optional[dict] = None,
         step_emb_table: Optional[torch.Tensor] = None,
         rng: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        keep_separate: bool = False,
+        fused_ffn: bool = False,
+        fused_tail: bool = False,
+        attn_kernel: bool = False,
+    ):
+        """The denoised motion (N, L_p + L, d_motion), or with
+        ``keep_separate`` (dynamic (N, L_p + L, d_motion), static
+        (N, L_p + L, K, d_motion), alphas (N, L_p + L, K))."""
         cfg, dt = self.cfg, self.dtype
         n_prev, n_cur = prev_motion_feat.shape[1], motion_feat.shape[1]
 
@@ -140,7 +153,8 @@ class DenoisingNetwork(nn.Module):
             if memory_kv is None:
                 memory = torch.cat([prev_audio_feat, audio_feat], dim=1).to(dt)
             feat_out = self.transformer(feats_in, memory, memory_mask, memory_kv, identity_band, rng,
-                                        cfg.fused_ffn_train)
+                                        cfg.fused_ffn_train, fused_ffn and rng is None,
+                                        fused_tail and identity_band and memory_kv is not None, attn_kernel)
 
         decoded = self.motion_dec_2(gelu(self.motion_dec_1(feat_out[:, 1:])))  # (N, L_p + L, D + K)
         K = cfg.num_of_basis
@@ -151,6 +165,8 @@ class DenoisingNetwork(nn.Module):
         style = static_style_feat.to(dt)
         static = torch.stack([m(style) for m in self.static_feature_mapping], dim=2)  # (N, 1, K, D)
         static = static.expand(static.shape[0], decoded.shape[1], *static.shape[2:])
+        if keep_separate:
+            return dynamic, static, alphas
         alphas_e = alphas[..., None]
         if self.use_head_alpha:
             summed_static = (static * alphas_e).sum(dim=2)

@@ -1,6 +1,6 @@
 """MSMD, the conditional diffusion model for speech-driven facial motion,
-its training forward and its DDPM sampler (the port of
-``msmd_tpu/models/diffusion.py``; reference: model.py:73-440).
+its training forward and its DDPM samplers (the port of
+``msmd_tpu/models/diffusion.py``; reference: model.py:73-818).
 
 The training forward (``MSMD.forward``, ``msmd_tpu/models/diffusion.py``
 :130-243) extracts the audio features, drops the CFG conditions at the
@@ -25,15 +25,33 @@ It takes the routes of the JAX sampler (``msmd_tpu/models/diffusion.py``
   one call of K4 (``fused_sampler_step``) per step;
 - the decoder-kernel path otherwise: t = T..1 as a Python loop whose
   decoder stack is one call of K1 (``ops/kernels/decoder.py``) per step;
-- otherwise the same loop through the plain modules, as the JAX f32 path
-  runs the XLA decoder.
+- otherwise the same loop through the decoder modules (the JAX
+  XLA-decoder route). At bf16 every layer's FFN block is K6
+  (``ops/kernels/ffn.py``), and two options open the JAX package's
+  opt-in kernels: ``attn_kernel`` sends the self-attention middle through
+  K8 (``ops/kernels/attn.py``), and ``fused_tail`` (width-1 band) sends
+  each layer's motion-row tail through K9 (``ops/kernels/layer_tail.py``)
+  in place of K6, with the self-attention plain, so that ``attn_kernel``
+  has no effect under it. At f32 the modules are plain (and
+  ``attn_kernel`` runs K8's f32 plain version on the CPU, as JAX's
+  switch runs its kernel at f32).
+
+Guided inpainting (``guidance_indice``/``guidance_values``,
+``sample_with_guide``) always takes the last route, as the JAX gate
+(``msmd_tpu/models/diffusion.py``:533, :686) turns the decoder kernel and
+the batch-1 kernels off under guidance. ``sample_separate``, the
+style-basis introspection sampler, runs the plain modules at every dtype,
+as the JAX one passes no kernel flag.
 
 The JAX package's ``MSMD_*`` environment switches are not ported; the
-port takes their defaults. For K3 that is padded rows (implicit here: the
-attention kernel masks the ragged edge), the f32 hoisted ``vmw``, concat
-row builds, no merged heads and no block-diagonal self-attention; K4 is
-reached through ``ret_traj`` only. At batch <= 4 all T noise draws are
-taken up front, as the JAX sampler precomputes them.
+port takes their defaults, and spells the opt-in kernels K8
+(``MSMD_ATTN_KERNEL=1``) and K9 (``MSMD_FUSED_TAIL=1``) as the keyword
+arguments ``attn_kernel`` and ``fused_tail``. For K3 the defaults are
+padded rows (implicit here: the attention kernel masks the ragged edge),
+the f32 hoisted ``vmw``, concat row builds, no merged heads and no
+block-diagonal self-attention; K4 is reached through ``ret_traj`` only.
+At batch <= 4 all T noise draws are taken up front, as the JAX sampler
+precomputes them.
 """
 
 from __future__ import annotations
@@ -104,11 +122,15 @@ class MSMD(nn.Module):
         generator: Optional[torch.Generator] = None,
         train: bool = True,
         noise: Optional[torch.Tensor] = None,
+        keep_separate: bool = False,
     ):
         """The training forward (reference: model.py:146-248). Returns (eps,
         target, motion_feat detached, the audio features before the CFG
-        condition drop, detached). ``time_step`` and ``noise`` fix the draws
-        (test hooks, as in the JAX package); the rest come from
+        condition drop, detached), and with ``keep_separate`` also the
+        denoiser's (dynamic, static, alpha) parts, the target then being
+        their recombination with alpha on all channels, head pose too
+        (reference: model.py:239-241). ``time_step`` and ``noise`` fix the
+        draws (test hooks, as in the JAX package); the rest come from
         ``generator``, which also drives dropout when ``train``."""
         cfg = self.cfg
         B = motion_feat.shape[0]
@@ -160,9 +182,14 @@ class MSMD(nn.Module):
         if noise is None:
             noise = _randn(tuple(motion_feat.shape), generator, motion_feat.device)
         eps = noise.to(device=motion_feat.device, dtype=motion_feat.dtype)
-        target = self.denoising_net(c0 * motion_feat + c1 * eps, audio_feat, person_feat, style_feat,
-                                    prev_motion_feat, prev_audio_feat, time_step, indicator, rng=rng)
-        return eps, target, motion_feat.detach(), audio_feat_saved.detach()
+        out = self.denoising_net(c0 * motion_feat + c1 * eps, audio_feat, person_feat, style_feat,
+                                 prev_motion_feat, prev_audio_feat, time_step, indicator, rng=rng,
+                                 keep_separate=keep_separate)
+        if keep_separate:
+            dynamic, static, alpha_t = out
+            target = dynamic + (static * alpha_t[..., None]).sum(dim=2)
+            return eps, target, motion_feat.detach(), audio_feat_saved.detach(), dynamic, static, alpha_t
+        return eps, out, motion_feat.detach(), audio_feat_saved.detach()
 
 
 @functools.lru_cache(maxsize=None)
@@ -425,13 +452,23 @@ def sample(
     fused_decoder: Optional[bool] = None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    guidance_indice=None,
+    guidance_values=None,
+    attn_kernel: bool = False,
+    fused_tail: bool = False,
 ):
-    """DDPM sampling over t = T..1 (reference: model.py:282-440).
+    """DDPM sampling over t = T..1 (reference: model.py:282-440), and with
+    ``guidance_indice``/``guidance_values`` the naive inpainting of
+    ``sample_with_guide`` (reference: model.py:653-818): at every step the
+    denoiser's input is overwritten at the current window's motion rows
+    ``guidance_indice`` by ``guidance_values`` (broadcast over the batch),
+    while the DDPM update integrates the un-inpainted state.
 
     ``noise_override``: optional (T, B, n_motions, D) per-step z in place
     of the generator's draws (index 0 is the first step, t = T), so tests
-    can hand both packages the same noise. ``fused_decoder`` and the
-    routes it opens are in the module docstring.
+    can hand both packages the same noise. ``fused_decoder``,
+    ``attn_kernel``, ``fused_tail`` and the routes they open are in the
+    module docstring.
 
     Returns (motion (B, n_motions, D) f32, motion_at_T, audio_feat), with
     the full trajectory (T+1, B, n_motions, D; index t holds x_t) in place
@@ -450,8 +487,9 @@ def sample(
     B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
     E = stacks["n_entries"]
     T = sched.num_steps
+    guided = guidance_indice is not None
     if fused_decoder is None:
-        fused_decoder = model.dtype == torch.bfloat16 and cfg.align_mask_width == 1
+        fused_decoder = model.dtype == torch.bfloat16 and cfg.align_mask_width == 1 and not guided
     elif fused_decoder and cfg.align_mask_width != 1:
         raise NotImplementedError("the decoder kernel's flat-mask mode (align_mask_width != 1) is not ported")
     if noise_override is None and B <= 4:
@@ -465,7 +503,7 @@ def sample(
     memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
 
     if (fused_decoder and B == 1 and dynamic_threshold is None and not cfg.no_use_learnable_pe
-            and not model.use_head_alpha):
+            and not model.use_head_alpha and not guided):
         return _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise_override, audio_feat,
                               flexibility, ret_traj)
 
@@ -476,6 +514,13 @@ def sample(
         kmem, vmem = pack_memory_kv(memory_kv, dtype=model.dtype)
         fused = dict(pack=pack, kmem=kmem, vmem=vmem, aux=person_rows(B * E, lq, dev),
                      vmw=build_vmw(vmem, pack["wco"], lq, out_dtype=model.dtype))
+    # the XLA-decoder route's kernels (``msmd_tpu/models/diffusion.py``:627-650)
+    fused_ffn = fused is None and model.dtype == torch.bfloat16
+    fused_tail = fused_ffn and fused_tail and cfg.align_mask_width == 1
+    fused_ffn = fused_ffn and not fused_tail
+    if guided:
+        guidance_indice = torch.as_tensor(guidance_indice, dtype=torch.long, device=dev)
+        guidance_values = _on(guidance_values, dev, torch.float32)
     step_emb_table = dn.precompute_step_emb()
     sc_tab = _ddpm_table(sched, cfg.target, flexibility)
 
@@ -487,10 +532,13 @@ def sample(
             z = torch.zeros_like(z)
 
         motion_in = torch.cat([motion] * E, dim=0)
+        if guided:
+            motion_in[:, guidance_indice, :] = guidance_values
         step_in = torch.full((B * E,), t, dtype=torch.long, device=dev)
         results = dn(motion_in, stacks["audio_in"], stacks["person_in"], stacks["style_in"],
                      stacks["prev_motion_in"], stacks["prev_audio_in"], step_in, stacks["indicator_in"],
-                     memory_kv=memory_kv, fused_decoder=fused, step_emb_table=step_emb_table)
+                     memory_kv=memory_kv, fused_decoder=fused, step_emb_table=step_emb_table,
+                     fused_ffn=fused_ffn, fused_tail=fused_tail, attn_kernel=attn_kernel)
         if dynamic_threshold:
             results = _dynamic_threshold(results, n_motions, dynamic_threshold)
         results = results.reshape((E, B) + results.shape[1:])
@@ -502,6 +550,107 @@ def sample(
     if ret_traj:
         return _trajectory(traj, motion_at_T), motion_at_T, audio_feat
     return motion, motion_at_T, audio_feat
+
+
+def sample_with_guide(model: MSMD, audio_or_feat, shape_feat, *, guidance_indice, guidance_values, **kw):
+    """Naive inpainting guidance (reference: model.py:653-818): ``sample``
+    with the window's motion rows ``guidance_indice`` pinned to
+    ``guidance_values`` in every denoiser input."""
+    return sample(model, audio_or_feat, shape_feat, guidance_indice=guidance_indice,
+                  guidance_values=guidance_values, **kw)
+
+
+@torch.no_grad()
+def sample_separate(
+    model: MSMD,
+    audio_or_feat,
+    shape_feat,
+    style_feat=None,
+    prev_motion_feat=None,
+    prev_audio_feat=None,
+    motion_at_T=None,
+    indicator=None,
+    cfg_mode: Optional[str] = None,
+    cfg_cond: Optional[Sequence[str]] = None,
+    cfg_scale=1.15,
+    flexibility: float = 0.0,
+    dynamic_threshold: Optional[Tuple[float, float, float]] = None,
+    alpha_t_modification=None,
+    return_all_alpha: bool = False,
+    noise_override=None,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+):
+    """The style-basis introspection sampler (reference: model.py:442-651;
+    ``msmd_tpu/models/diffusion.py``:969-1075): ``sample`` with the
+    denoiser's dynamic part, static offsets and alphas kept apart.
+    ``alpha_t_modification`` (a function of the (B*E, L_p + L, K) alphas)
+    may change the alphas in flight. Runs the plain modules at every dtype.
+
+    Returns (motion (B, n_motions, D), motion_at_T, audio_feat, the last
+    step's guided dynamic part, the accumulated static contribution
+    sum_t c1(t) * guided static(t), and the last step's guided alphas, or
+    with ``return_all_alpha`` every step's (T, B, n_motions, K), t = T..1).
+    """
+    dev = resolve_device(device)
+    _check_model_device(model, dev)
+    cfg = model.cfg
+    sched = DiffusionSchedule.create(cfg.n_diff_steps, cfg.diff_schedule)
+    audio_feat, motion_at_T, stacks = _prepare_sample_inputs(
+        model, _on(audio_or_feat, dev), _on(shape_feat, dev, torch.float32), _on(style_feat, dev),
+        _on(prev_motion_feat, dev), _on(prev_audio_feat, dev), _on(motion_at_T, dev, torch.float32),
+        _on(indicator, dev), cfg_mode, cfg_cond, cfg_scale, generator,
+    )
+    noise_override = _on(noise_override, dev, torch.float32)
+    B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
+    E, coeffs = stacks["n_entries"], stacks["coefficients"]
+    dn = model.denoising_net
+    if model.dtype == torch.bfloat16:
+        dn = copy.deepcopy(dn).to(torch.bfloat16)
+    memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
+
+    def combine_static(static, alpha_e):
+        if model.use_head_alpha:
+            return (static * alpha_e).sum(dim=2)
+        return torch.cat([(static[..., :-3] * alpha_e).sum(dim=2), static[..., -3:].sum(dim=2)], dim=-1)
+
+    def guided(x):
+        return _cfg_combine(x.reshape((E, B) + x.shape[1:]), coeffs, n_motions)
+
+    f32 = np.float32
+    motion, cum_static, alphas = motion_at_T, torch.zeros_like(motion_at_T), []
+    for i, t in enumerate(range(sched.num_steps, 0, -1)):
+        z = noise_override[i] if noise_override is not None else _randn(motion.shape, generator, dev)
+        if t <= 1:
+            z = torch.zeros_like(z)
+        step_in = torch.full((B * E,), t, dtype=torch.long, device=dev)
+        dynamic, static, alpha_t = dn(torch.cat([motion] * E, dim=0), stacks["audio_in"], stacks["person_in"],
+                                      stacks["style_in"], stacks["prev_motion_in"], stacks["prev_audio_in"], step_in,
+                                      stacks["indicator_in"], memory_kv=memory_kv, keep_separate=True)
+        if alpha_t_modification is not None:
+            alpha_t = alpha_t_modification(alpha_t)
+        static_sum = combine_static(static, alpha_t[..., None])
+        results = dynamic + static_sum
+        if dynamic_threshold:
+            results = _dynamic_threshold(results, n_motions, dynamic_threshold)
+        target = guided(results).float()
+        target_dynamic, target_static = guided(dynamic), guided(static_sum).float()
+        alphas.append(guided(alpha_t))
+
+        al, ab, ab_prev = (f32(sched.alphas[t]), f32(sched.alpha_bars[t]), f32(sched.alpha_bars[t - 1]))
+        sigma = float(sched.get_sigmas(t, flexibility))
+        if cfg.target == "noise":
+            c0, c1 = f32(1.0) / np.sqrt(al), (f32(1.0) - al) / np.sqrt(f32(1.0) - ab)
+            motion = float(c0) * (motion - float(c1) * target) + sigma * z
+        elif cfg.target == "sample":
+            c0 = (f32(1.0) - ab_prev) * np.sqrt(al) / (f32(1.0) - ab)
+            c1 = (f32(1.0) - al) * np.sqrt(ab_prev) / (f32(1.0) - ab)
+            motion = float(c0) * motion + float(c1) * target + sigma * z
+        else:
+            raise ValueError(f"Unknown target type: {cfg.target}")
+        cum_static = cum_static + float(c1) * target_static
+    alpha_out = torch.stack(alphas) if return_all_alpha else alphas[-1]
+    return motion, motion_at_T, audio_feat, target_dynamic, cum_static, alpha_out
 
 
 def _trajectory(steps, motion_at_T):

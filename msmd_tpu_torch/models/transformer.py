@@ -18,10 +18,36 @@ the JAX package:
 
 With ``fused_ffn_train`` a training layer's FFN block (FFN, dropout,
 residual, LayerNorm) is the kernel K7 (``ops/kernels/ffn_train.py``),
-with a fresh mask seed drawn from ``rng`` per layer call. The JAX package
-takes its flax ops instead when no row tile of at most 2048 divides the
-row count (a TPU VMEM limit, ``msmd_tpu/models/transformer.py``:307); the
-port's kernel takes any row count, so it has no such fallback.
+with a fresh mask seed drawn from ``rng`` per layer call. In eval mode
+(``rng`` None) a decoder layer takes the kernels of the JAX package's
+XLA-decoder route (``msmd_tpu/models/transformer.py``:400-423):
+
+- ``fused_ffn``: the FFN block LN(x + FFN(x)) is K6
+  (``ops/kernels/ffn.py``; tanh GELU at bf16, where ``FeedForward`` is erf);
+- ``attn_kernel``: the unmasked self-attention between the fused q/k/v
+  product and the out-projection is K8 (``ops/kernels/attn.py``), the
+  port's spelling of ``MSMD_ATTN_KERNEL=1``;
+- ``fused_tail`` (with the identity band and a memory K/V cache): the
+  self-attention stays plain up to its out-projection, the person rows
+  take plain ops, and everything after that for the motion rows is K9
+  (``ops/kernels/layer_tail.py``; erf GELU), the port's spelling of
+  ``MSMD_FUSED_TAIL=1``. It takes the place of the whole layer, so
+  ``attn_kernel`` and ``fused_ffn`` have no effect under it.
+
+The JAX package keeps its flax or XLA ops where a TPU tile does not fit:
+no row tile of at most 2048 dividing the rows (K6 and K7,
+``msmd_tpu/models/transformer.py``:274 and :307; K9,
+``msmd_tpu/models/diffusion.py``:648) or no 8-aligned tile of whole
+entries (K8, ``attn_middle_viable``, :177). Those are VMEM and sublane
+limits, not semantics, and the port's kernels take any row count, so the
+port has no such fallback. The two packages then take different routes
+where JAX's gate closes: for K6 and K9 at row counts above 2048 with no
+divisor that is a multiple of 16 up to 512 (Be x lq = 96 x 111 = 10656
+has 288, so JAX takes K6 at the guided batch-48 shapes; 37 x 111 = 4107
+has none, so JAX keeps XLA there and the port runs K6); for K8 where no
+tile of up to 8 entries divides B with an 8-aligned row count: at the
+odd lq = 111, every B that is not a multiple of 8 (batch 1 with two CFG
+entries, B = 2: JAX keeps XLA, the port runs K8).
 """
 
 from __future__ import annotations
@@ -33,7 +59,10 @@ import torch
 from torch import nn
 
 from msmd_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu, in_dtype, uniform
+from msmd_tpu_torch.ops.kernels.attn import attention_middle
+from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln
 from msmd_tpu_torch.ops.kernels.ffn_train import fused_ffn_ln_train
+from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail
 
 Rng = Optional[torch.Generator]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (k, v): (B, L, H, Dh)
@@ -72,12 +101,40 @@ class MultiHeadAttention(nn.Module):
         number: a tensor made on the card would be a blocking copy."""
         return in_dtype(1.0 / math.sqrt(self.head_dim), self.dtype)
 
+    def _fused_qkv(self, x: torch.Tensor):
+        """q, k and v of a self-attention as one (F, 3F) product with the
+        same parameters (``msmd_tpu/models/transformer.py``:71-83): three
+        column slices of one (B, L, 3F) tensor."""
+        dt = self.dtype
+        w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight]).to(dt)
+        b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]).to(dt)
+        return (torch.nn.functional.linear(x.to(dt), w) + b).split(self.dim, dim=-1)
+
+    def _attend(self, qh, kh, vh, mask=None, rng: Rng = None) -> torch.Tensor:
+        """Scaled-dot-product attention of (B, L, H, Dh) heads, merged to
+        (B, Lq, F), before the out-projection."""
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh * self._scale(), kh.to(self.dtype))
+        if mask is not None:
+            logits = logits.masked_fill(mask.to(logits.device), torch.finfo(torch.float32).min)
+        weights = dropout(_softmax_f32(logits, self.dtype), self.dropout, rng)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, vh.to(self.dtype))
+        return out.reshape(qh.shape[0], qh.shape[1], self.dim)
+
+    def self_attn_preproj(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval-mode, unmasked self-attention without its out-projection
+        (``msmd_tpu/models/transformer.py``:123-137), which K9 absorbs."""
+        qp, kp, vp = self._fused_qkv(x)
+        return self._attend(self._heads(qp), self._heads(kp), self._heads(vp))
+
+    def person_attend(self, q0: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, rng: Rng = None) -> torch.Tensor:
+        """The person row's cross-attention over the whole memory (the one
+        row that attends under the width-1 band), before the out-projection:
+        q0 (B, 1, F) -> (B, 1, F)."""
+        return self._attend(self._heads(self.q_proj(q0)), kh, vh, rng=rng)
+
     def _identity_band(self, q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, rng: Rng) -> torch.Tensor:
         B, Lq, _ = q.shape
-        q0 = self._heads(self.q_proj(q[:, :1]))
-        logits0 = torch.einsum("bqhd,bkhd->bhqk", q0 * self._scale(), kh.to(self.dtype))
-        w0 = dropout(_softmax_f32(logits0, self.dtype), self.dropout, rng)
-        person = torch.einsum("bhqk,bkhd->bqhd", w0, vh.to(self.dtype))
+        person = self.person_attend(q[:, :1], kh, vh, rng).reshape(B, 1, self.n_heads, self.head_dim)
         motion = vh.to(self.dtype)
         if rng is not None and self.dropout > 0.0:
             keep = uniform((B, kh.shape[1], self.n_heads, 1), rng, q.device) < 1.0 - self.dropout
@@ -94,8 +151,17 @@ class MultiHeadAttention(nn.Module):
         kv_cache: Optional[KVCache] = None,
         identity_band: bool = False,
         rng: Rng = None,
+        attn_kernel: bool = False,
     ) -> torch.Tensor:
-        B, Lq, _ = q.shape
+        """Attention of q over k, v (self-attention when both are None).
+        ``attn_kernel``: an unmasked eval-mode self-attention runs its
+        middle through K8."""
+        Lq = q.shape[1]
+        if kv_cache is None and k is None and v is None and not identity_band:
+            qp, kp, vp = self._fused_qkv(q)
+            if attn_kernel and mask is None and rng is None:
+                return self.out_proj(attention_middle(qp, kp, vp, self.n_heads))
+            return self.out_proj(self._attend(self._heads(qp), self._heads(kp), self._heads(vp), mask, rng))
         if kv_cache is not None:
             kh, vh = kv_cache
         else:
@@ -106,13 +172,7 @@ class MultiHeadAttention(nn.Module):
             if kh.shape[1] != Lq - 1:
                 raise ValueError(f"identity band needs Lm == Lq - 1, got {kh.shape[1]} and {Lq}")
             return self._identity_band(q, kh, vh, rng)
-        qh = self._heads(self.q_proj(q))
-        logits = torch.einsum("bqhd,bkhd->bhqk", qh * self._scale(), kh.to(self.dtype))
-        if mask is not None:
-            logits = logits.masked_fill(mask.to(logits.device), torch.finfo(torch.float32).min)
-        weights = dropout(_softmax_f32(logits, self.dtype), self.dropout, rng)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, vh.to(self.dtype)).reshape(B, Lq, self.dim)
-        return self.out_proj(out)
+        return self.out_proj(self._attend(self._heads(self.q_proj(q)), kh, vh, mask, rng))
 
 
 class FeedForward(nn.Module):
@@ -152,12 +212,46 @@ class TransformerDecoderLayer(nn.Module):
         return fused_ffn_ln_train(x.to(dt), l1.weight.to(dt), l1.bias.to(dt), l2.weight.to(dt), l2.bias.to(dt),
                                   self.norm3.weight, self.norm3.bias, seed.to(x.device), self.dropout)
 
+    def _fused_ffn_ln(self, x: torch.Tensor) -> torch.Tensor:
+        """LN(x + FFN(x)) through K6 (``_fused_ffn_ln`` of the JAX layer)."""
+        dt = self.dtype
+        l1, l2 = self.ffn.linear1, self.ffn.linear2
+        return fused_ffn_ln(x, l1.weight.to(dt), l1.bias.to(dt), l2.weight.to(dt), l2.bias.to(dt),
+                            self.norm3.weight.float(), self.norm3.bias.float())
+
+    def _fused_tail(self, x: torch.Tensor, kv_cache: KVCache) -> torch.Tensor:
+        """The layer under the width-1 band in eval mode (``_fused_tail`` of
+        the JAX layer, ``msmd_tpu/models/transformer.py``:325-380): plain
+        self-attention up to its out-projection; the person rows through
+        the plain modules; the motion rows' tail through K9."""
+        B, Lq, F = x.shape
+        dt = self.dtype
+        sa_pre = self.self_attn.self_attn_preproj(x)
+        x1_p = self.norm1(x[:, :1] + self.self_attn.out_proj(sa_pre[:, :1]))
+        kh, vh = kv_cache
+        x2_p = self.norm2(x1_p + self.cross_attn.out_proj(self.cross_attn.person_attend(x1_p, kh, vh)))
+        out_p = self.norm3(x2_p + self.ffn(x2_p))
+
+        so, co, l1, l2 = self.self_attn.out_proj, self.cross_attn.out_proj, self.ffn.linear1, self.ffn.linear2
+        norms = (self.norm1, self.norm2, self.norm3)
+        out_m = fused_layer_tail(
+            sa_pre[:, 1:].contiguous(), x[:, 1:].contiguous(), vh.reshape(B * kh.shape[1], F).to(dt),
+            *(t.to(dt) for t in (so.weight, so.bias, co.weight, co.bias, l1.weight, l1.bias, l2.weight, l2.bias)),
+            torch.stack([n.weight for n in norms]).float(), torch.stack([n.bias for n in norms]).float(),
+        )
+        return torch.cat([out_p.to(out_m.dtype), out_m], dim=1)
+
     def forward(self, x, memory=None, memory_mask=None, memory_kv: Optional[KVCache] = None,
-                cross_identity_band: bool = False, rng: Rng = None, fused_ffn_train: bool = False):
-        x = self.norm1(x + dropout(self.self_attn(x, rng=rng), self.dropout, rng))
+                cross_identity_band: bool = False, rng: Rng = None, fused_ffn_train: bool = False,
+                fused_ffn: bool = False, fused_tail: bool = False, attn_kernel: bool = False):
+        if fused_tail and rng is None and cross_identity_band and memory_kv is not None:
+            return self._fused_tail(x, memory_kv)
+        x = self.norm1(x + dropout(self.self_attn(x, rng=rng, attn_kernel=attn_kernel), self.dropout, rng))
         ca = self.cross_attn(x, memory, memory, mask=memory_mask, kv_cache=memory_kv,
                              identity_band=cross_identity_band, rng=rng)
         x = self.norm2(x + dropout(ca, self.dropout, rng))
+        if fused_ffn and rng is None:
+            return self._fused_ffn_ln(x)
         if fused_ffn_train and rng is not None:
             return self._ffn_block_k7(x, rng)
         return self.norm3(x + dropout(self.ffn(x, rng), self.dropout, rng))
@@ -178,10 +272,12 @@ class TransformerDecoder(nn.Module):
         return [layer.memory_kv(memory) for layer in self.layers]
 
     def forward(self, x, memory=None, memory_mask=None, memory_kv: Optional[List[KVCache]] = None,
-                cross_identity_band: bool = False, rng: Rng = None, fused_ffn_train: bool = False):
+                cross_identity_band: bool = False, rng: Rng = None, fused_ffn_train: bool = False,
+                fused_ffn: bool = False, fused_tail: bool = False, attn_kernel: bool = False):
         for i, layer in enumerate(self.layers):
             kv = memory_kv[i] if memory_kv is not None else None
-            x = layer(x, memory, memory_mask, kv, cross_identity_band, rng, fused_ffn_train)
+            x = layer(x, memory, memory_mask, kv, cross_identity_band, rng, fused_ffn_train,
+                      fused_ffn, fused_tail, attn_kernel)
         return x
 
 

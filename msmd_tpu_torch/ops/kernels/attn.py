@@ -1,0 +1,104 @@
+"""K8, the per-entry, unmasked self-attention middle: a hand-written CUDA
+kernel (``csrc/attn.cu``) and its plain PyTorch version.
+
+Replaces ``msmd_tpu/ops/pallas/attn_kernel.py::attention_middle``:
+``softmax(q k^T / sqrt(dh)) v`` per batch entry and head, from projected
+q, k, v (B, lq, F), with no mask. Both versions round where
+``_attn_mid_kernel`` rounds, which is not the decoder kernel K1's "fast"
+softmax: q is scaled by 1/sqrt(dh) in f32 and then cast to the input
+dtype; the scores are f32; the softmax is exact and subtracts the row
+max (``jax.nn.softmax``) and is normalised before the PV product, with P
+cast to the input dtype; the PV sums are f32; the output takes the input
+dtype.
+
+The kernel takes bf16 with head dim 64, any B, and lq up to what one
+block's shared memory holds (it raises past it, naming the shape). q, k
+and v may be column slices of one (B, lq, 3F) projection. The JAX layer
+takes its kernel only where ``attn_middle_viable`` finds an 8-aligned
+row tile (a TPU sublane limit, ``msmd_tpu/models/transformer.py``:177).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from msmd_tpu_torch import _build
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+
+
+def attention_middle_plain(q, k, v, n_heads: int) -> torch.Tensor:
+    """K8 in plain PyTorch. q, k, v (B, lq, F) -> (B, lq, F) in q's dtype."""
+    B, lq, F = q.shape
+    dh = F // n_heads
+    cdt = q.dtype
+    heads = lambda t: t.reshape(B, lq, n_heads, dh).transpose(1, 2).float()
+    qh = (heads(q) * np.float32(1.0 / np.sqrt(dh))).to(cdt).float()
+    p = torch.softmax(qh @ heads(k).transpose(-1, -2), dim=-1)
+    out = p.to(cdt).float() @ heads(v)
+    return out.transpose(1, 2).reshape(B, lq, F).to(cdt)
+
+
+def _lib():
+    lib = _build.load("attn")
+    if not getattr(lib, "_msmd_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.msmd_attn_smem_bytes.argtypes = [ci]
+        lib.msmd_attn_smem_bytes.restype = ctypes.c_size_t
+        lib.msmd_attn_forward.argtypes = [vp] * 3 + [ctypes.c_long, vp] + [ci] * 4 + [vp]
+        lib.msmd_attn_forward.restype = ci
+        lib._msmd_typed = True
+    return lib
+
+
+def _check(q, k, v, n_heads: int) -> int:
+    """Raise unless the kernel takes (q, k, v); returns their row stride."""
+    B, lq, F = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"attention_middle: {name} must be on {q.device}, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"attention_middle: {name} must be {torch.bfloat16}, got {t.dtype}")
+        if tuple(t.shape) != (B, lq, F):
+            raise ValueError(f"attention_middle: {name} has shape {tuple(t.shape)}, expected {(B, lq, F)}")
+    ld = q.stride(1)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != lq * ld or ld % 8 or t.data_ptr() % 16:
+            raise ValueError(f"attention_middle: {name} must be contiguous rows of one row stride "
+                             f"(strides {t.stride()}, q's row stride {ld})")
+    if F != 64 * n_heads:
+        raise ValueError(f"attention_middle: the kernel needs head dim 64 (F={F}, heads={n_heads})")
+    return ld
+
+
+def attention_middle(q, k, v, n_heads: int) -> torch.Tensor:
+    """Per-entry ``softmax(q k^T / sqrt(dh)) v``; q, k, v (B, lq, F) ->
+    (B, lq, F). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (bf16, head dim 64) or raises."""
+    if _build.on_cpu("attention_middle", q):
+        return attention_middle_plain(q, k, v, n_heads)
+    ld = _check(q, k, v, n_heads)
+    B, lq, F = q.shape
+    lib = _lib()
+    smem = lib.msmd_attn_smem_bytes(lq)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention_middle: lq={lq} (B={B}, F={F}) needs {smem} bytes of shared memory per "
+                         f"block, above the card's {SMEM_LIMIT}")
+    out = torch.empty(B, lq, F, dtype=q.dtype, device=q.device)
+    rc = lib.msmd_attn_forward(_build.ptr(q), _build.ptr(k), _build.ptr(v), ld, _build.ptr(out), B, lq, F,
+                               n_heads, _build.stream(q.device))
+    _build.check(lib, rc, "attention_middle")
+    attention_middle.launches += 1
+    return out
+
+
+attention_middle.launches = 0
+
+
+def attn_work(B: int, lq: int, F: int):
+    """(flops, bytes) of one call at bf16: q k^T and P v, each 2 * B * lq *
+    lq * F operations over all heads; q, k, v read once, out written once."""
+    return 2 * 2 * B * lq * lq * F, 4 * B * lq * F * 2

@@ -233,45 +233,19 @@ def _lib():
 
 def _check(name, x, w1, b1, w2, b2, g, b, seed, gbar=None):
     F, FF = x.shape[-1], w1.shape[0]
-    want = {"x": (x.shape, torch.bfloat16), "w1": ((FF, F), torch.bfloat16), "b1": ((FF,), torch.bfloat16),
-            "w2": ((F, FF), torch.bfloat16), "b2": ((F,), torch.bfloat16), "g": ((F,), torch.float32),
-            "b": ((F,), torch.float32), "seed": ((1,), torch.int32)}
-    named = dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2, g=g, b=b, seed=seed)
-    if gbar is not None:
-        want["gbar"] = (x.shape, torch.bfloat16)
-        named["gbar"] = gbar
-    for key, t in named.items():
-        shape, dtype = want[key]
-        if t.device != x.device:
-            raise ValueError(f"{name}: {key} must be on {x.device}, got {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+    bf, f32 = torch.bfloat16, torch.float32
+    extra = {} if gbar is None else {"gbar": (gbar, x.shape, bf)}
+    _build.check_args(name, x.device, x=(x, x.shape, bf), w1=(w1, (FF, F), bf), b1=(b1, (FF,), bf),
+                      w2=(w2, (F, FF), bf), b2=(b2, (F,), bf), g=(g, (F,), f32), b=(b, (F,), f32),
+                      seed=(seed, (1,), torch.int32), **extra)
     if F % 128 or FF % 128 or F > 1024:
         raise ValueError(f"{name}: the kernel needs F and FFN multiples of 128 and F <= 1024 (F={F}, FFN={FF})")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _on_cpu(name: str, x: torch.Tensor) -> bool:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type == "cpu"
 
 
 def ffn_train_forward(x, w1, b1, w2, b2, g, b, seed, p: float) -> torch.Tensor:
     """K7 forward. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (bf16, seed a (1,) int32 tensor) or raises."""
-    if _on_cpu("ffn_train_forward", x):
+    if _build.on_cpu("ffn_train_forward", x):
         return ffn_train_forward_plain(x, w1, b1, w2, b2, g, b, seed, p)
     _check("ffn_train_forward", x, w1, b1, w2, b2, g, b, seed)
     F, FF = x.shape[-1], w1.shape[0]
@@ -279,8 +253,8 @@ def ffn_train_forward(x, w1, b1, w2, b2, g, b, seed, p: float) -> torch.Tensor:
     lib = _lib()
     out = torch.empty_like(x)
     ws = torch.empty(lib.msmd_ffn_train_workspace_bytes(R, F, FF, 0), dtype=torch.uint8, device=x.device)
-    rc = lib.msmd_ffn_train_forward(*(_ptr(t) for t in (x, w1, b1, w2, b2, g, b, seed)), _threshold(p),
-                                    _scale(p), _ptr(out), _ptr(ws), R, F, FF, _stream(x.device))
+    rc = lib.msmd_ffn_train_forward(*(_build.ptr(t) for t in (x, w1, b1, w2, b2, g, b, seed)), _threshold(p),
+                                    _scale(p), _build.ptr(out), _build.ptr(ws), R, F, FF, _build.stream(x.device))
     _build.check(lib, rc, "ffn_train_forward")
     ffn_train_forward.launches += 1
     return out
@@ -292,7 +266,7 @@ ffn_train_forward.launches = 0
 def ffn_train_backward(x, gbar, w1, b1, w2, b2, g, b, seed, p: float):
     """K7 backward: (dx, dw1, db1, dw2, db2, dg, db). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
-    if _on_cpu("ffn_train_backward", x):
+    if _build.on_cpu("ffn_train_backward", x):
         return ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p)
     _check("ffn_train_backward", x, w1, b1, w2, b2, g, b, seed, gbar=gbar)
     F, FF = x.shape[-1], w1.shape[0]
@@ -300,8 +274,8 @@ def ffn_train_backward(x, gbar, w1, b1, w2, b2, g, b, seed, p: float):
     lib = _lib()
     grads = [torch.empty_like(t) for t in (x, w1, b1, w2, b2, g, b)]
     ws = torch.empty(lib.msmd_ffn_train_workspace_bytes(R, F, FF, 1), dtype=torch.uint8, device=x.device)
-    rc = lib.msmd_ffn_train_backward(*(_ptr(t) for t in (x, gbar, w1, b1, w2, b2, g, b, seed)), _threshold(p),
-                                     _scale(p), *(_ptr(t) for t in grads), _ptr(ws), R, F, FF, _stream(x.device))
+    rc = lib.msmd_ffn_train_backward(*(_build.ptr(t) for t in (x, gbar, w1, b1, w2, b2, g, b, seed)), _threshold(p),
+                                     _scale(p), *(_build.ptr(t) for t in grads), _build.ptr(ws), R, F, FF, _build.stream(x.device))
     _build.check(lib, rc, "ffn_train_backward")
     ffn_train_backward.launches += 1
     return tuple(grads)
@@ -317,7 +291,7 @@ def kernel_mask_bits(seed: torch.Tensor, salt: int, rows: int, cols: int) -> tor
         raise ValueError(f"kernel_mask_bits: unsupported device {seed.device}")
     lib = _lib()
     out = torch.empty(rows, cols, dtype=torch.int32, device=seed.device)
-    rc = lib.msmd_ffn_train_mask_bits(_ptr(seed), salt, rows, cols, _ptr(out), _stream(seed.device))
+    rc = lib.msmd_ffn_train_mask_bits(_build.ptr(seed), salt, rows, cols, _build.ptr(out), _build.stream(seed.device))
     _build.check(lib, rc, "kernel_mask_bits")
     return out.to(torch.int64) & _M32
 

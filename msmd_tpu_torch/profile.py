@@ -1,6 +1,6 @@
 """Where the time goes on the card: device time by kernel for the decoder
-stack, for one window of the batch-48 main path and for one window at
-batch 1.
+stack, for one window of the batch-48 main path, one window at batch 1,
+one guided batch-48 window and one train step.
 
     python -m msmd_tpu_torch.profile
 
@@ -20,6 +20,13 @@ Prints JSON lines:
 - ``batch1``: one 4 s window at batch 1 without a dynamic threshold (the
   route through the sampler kernel K3), measured the same way, with the
   device time of K3's kernels apart from the torch ops around them.
+- ``guided``: one 4 s window of ``sample_with_guide`` at batch 48 (the
+  inputs of ``chip_smoke.py``'s phase ``guided``: HuBERT, 500 steps through
+  the decoder modules with K6 in every layer, FLAME decode), default
+  route, measured as ``main_path`` is, with the device time of K6's
+  kernels (``csrc/ffn.cu``: its two GEMMs and its LayerNorm) apart from
+  the torch ops around them, and the host gap (un-profiled wall time
+  minus the summed device time: the card waiting on the host).
 - ``train``: one two-clip training step of the slice's training
   configuration (batch 16, bf16, ``fused_ffn_train``; see
   ``measure.build_train_path``), measured the same way, with the device
@@ -44,6 +51,8 @@ _DECODER_KERNELS = ("gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln
 # K3 launches the decoder's sub-kernels and these; at batch 1 K1 does not run
 _SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
 _K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
+# the guided window runs no K1, so these are K6's (csrc/ffn.cu) there
+_K6_KERNELS = ("gemm_kernel", "ln_kernel")
 
 
 def _short(name: str) -> str:
@@ -51,7 +60,7 @@ def _short(name: str) -> str:
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
     m = re.search(r"(?<![a-z_])(tgemm|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
-                  r"cross_rows|colsum_partial|colsum_final)_kernel"
+                  r"cross_rows|colsum_partial|colsum_final|attn_mid)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
@@ -174,7 +183,27 @@ def main() -> int:
             name: stack, "lbs_kernel_ms": lbs, "other_kernels_ms": busy - stack - lbs,
             "top_kernels_ms": dict(list(by_kernel.items())[:25]),
         }), flush=True)
-    del model, style, fused
+
+    from msmd_tpu_torch.measure import guided_inputs, run_guided
+
+    inputs = guided_inputs(cfg, dev)
+    with torch.no_grad():
+        run = lambda: run_guided(model, style, inputs, dev)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = profile_device_ms(run)
+    busy = sum(by_kernel.values())
+    k6 = sum(v for k, v in by_kernel.items() if k.split("<")[0] in _K6_KERNELS)
+    print(json.dumps({
+        "phase": "guided", "batch": BATCH, "windows": 1, "diff_steps": cfg.n_diff_steps, "wall_ms": wall_ms,
+        "device_busy_ms": busy, "device_busy_share": busy / wall_ms, "host_gap_ms": wall_ms - busy,
+        "k6_kernels_ms": k6, "other_kernels_ms": busy - k6, "top_kernels_ms": dict(list(by_kernel.items())[:25]),
+    }), flush=True)
+    del model, style, fused, inputs
 
     from msmd_tpu_torch.measure import build_train_path, run_train_steps, train_batch
 

@@ -67,6 +67,49 @@ def build_msmd_pair(dtype="float32", seed=0, batch=4, **cfg_kw):
     return jmodel, variables, tmodel, kw
 
 
+def build_decoder_pair(dtype="float32", Be=8, lq=16, F=64, H=4, L=2, FFN=128, seed=0):
+    """A JAX ``TransformerDecoder`` and the port's with the same weights,
+    both computing in ``dtype``, with seeded inputs x (Be, lq, F) and an
+    audio memory (Be, lq - 1, F), and each side's memory K/V cache.
+    Returns (jdec, jvars, tdec, x, jkv, tkv)."""
+    from msmd_tpu.models import transformer as jtr
+    from msmd_tpu_torch.interop import load_flax_params
+    from msmd_tpu_torch.models import transformer as ttr
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(Be, lq, F).astype(np.float32)
+    mem = rs.randn(Be, lq - 1, F).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jdec = jtr.TransformerDecoder(L, F, H, FFN, dtype=jdt)
+    v = jdec.init(jax.random.PRNGKey(seed), jnp.asarray(x), jnp.asarray(mem))
+    tdec = load_flax_params(ttr.TransformerDecoder(L, F, H, FFN, tdt), np_params(v))
+    jkv = jdec.apply(v, jnp.asarray(mem), method=jtr.TransformerDecoder.cache_memory)
+    with torch.no_grad():
+        tkv = tdec.cache_memory(torch.as_tensor(mem))
+    return jdec, v, tdec, x, jkv, tkv
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def counting_spy(monkeypatch, module, name, counts, key=None):
+    """Replace ``module.name`` by a wrapper that counts its calls in
+    ``counts[key or name]``."""
+    real = getattr(module, name)
+    key = key or name
+    counts.setdefault(key, 0)
+
+    def counted(*a, **k):
+        counts[key] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+
+
 def test_import_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil; sys.modules['jax'] = None; sys.modules['msmd_tpu'] = None\n"
@@ -88,7 +131,7 @@ def test_no_import_of_jax_package():
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
-    from msmd_tpu_torch.models.diffusion import get_diffusion_model, sample
+    from msmd_tpu_torch.models.diffusion import get_diffusion_model, sample, sample_separate, sample_with_guide
     from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
     from msmd_tpu_torch.device import resolve_device
 
@@ -103,6 +146,10 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         sample(model, feat, torch.zeros(2, 100), torch.zeros(2, kw["d_style"]), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_diffusion_model(MSMDConfig(**kw), audio_config=AudioEncoderConfig(**TINY_AUDIO))
+    for fn, extra in ((sample_with_guide, dict(guidance_indice=[0], guidance_values=np.zeros((1, 67), np.float32))),
+                      (sample_separate, {})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(model, feat, torch.zeros(2, 100), style_feat=torch.zeros(2, kw["d_style"]), **extra)
 
 
 def test_kernel_wrappers_refuse_non_cpu_tensors():
@@ -112,6 +159,9 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
     from msmd_tpu_torch.ops.kernels.decoder import fused_decoder_forward
     from msmd_tpu_torch.ops.kernels.lbs import FusedFlame, skin_cuda
     from msmd_tpu_torch.ops.kernels.sampler import fused_sampler_scan, fused_sampler_step
+    from msmd_tpu_torch.ops.kernels.attn import attention_middle
+    from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln
+    from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail
 
     x = torch.empty(2, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -123,17 +173,25 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
     fused = FusedFlame(synthetic_flame(n_verts=50, device="cpu"))
     with pytest.raises(ValueError, match="must be on"):
         skin_cuda(fused, torch.zeros(2, fused.n_basis), torch.zeros(2, 60))
+    w = torch.empty(128, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_ffn_ln(x, w, None, w.t(), None, None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_middle(x, x, x, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_layer_tail(x, x, x, *([None] * 10))
 
 
 TRAINING_MODULES = ("losses", "train/loop.py", "train/scheduler.py", "train/checkpoint.py", "train/trainer.py",
                     "utils/logging.py", "data/synthetic.py", "data/pickle_dataset.py", "training_script.py",
                     "ops/kernels/ffn_train.py")
+GUIDED_MODULES = ("ops/kernels/ffn.py", "ops/kernels/attn.py", "ops/kernels/layer_tail.py")
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + GUIDED_MODULES)
 def test_training_modules_import_nothing_of_jax(module):
-    """The training slice's modules (also under the package-wide scan
-    above) import neither JAX nor the JAX package."""
+    """The training and guided-sampling slices' modules (also under the
+    package-wide scan above) import neither JAX nor the JAX package."""
     path = REPO / "msmd_tpu_torch" / (module if module.endswith(".py") else module + ".py")
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|orbax|msmd_tpu(?!_torch))\b", re.M)
     assert path.exists() and not pat.search(path.read_text())

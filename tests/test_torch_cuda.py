@@ -4,12 +4,15 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
+(``-s`` shows each K6, K8 and K9 case's max |err| / max |plain|.)
+
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
 suite.) Tolerances as in ``chip_smoke.py``: the decoder stack and the
-batch-1 sampler kernels and the training FFN block K7 (forward, and each
-of its seven gradients) at bf16, max |err| / max |plain| <= 2e-2 (the
-same bf16 rounding points, other f32 summation orders); K7's mask bits
-exactly; the FLAME decode in f32, atol 1e-4.
+batch-1 sampler kernels, the training FFN block K7 (forward, and each
+of its seven gradients) and the guided window's layer kernels K6, K8 and
+K9 at bf16, max |err| / max |plain| <= 2e-2 (the same bf16 rounding
+points, other f32 summation orders); K7's mask bits exactly; the FLAME
+decode in f32, atol 1e-4.
 """
 
 import pytest
@@ -162,3 +165,91 @@ def test_ffn_train_function_on_the_card():
         k7.ffn_train_forward(args[0], args[1].float(), *args[2:])
     with pytest.raises(ValueError, match="contiguous"):
         k7.ffn_train_forward(args[0].t().contiguous().t(), *args[1:])
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,FF", [(100, 128, 256), (96 * 111, 512, 2048)])
+def test_ffn_kernel_matches_plain(rows, F, FF):
+    """K6 at a row count that no GEMM tile divides and at the guided
+    batch-48 shape."""
+    from msmd_tpu_torch.measure import ffn_case
+    from msmd_tpu_torch.ops.kernels import ffn as k6
+
+    args = ffn_case(_card(), rows=rows, F=F, FF=FF, seed=6)
+    before = k6.fused_ffn_ln.launches
+    got, want = k6.fused_ffn_ln(*args), k6.ffn_ln_plain(*args)
+    torch.cuda.synchronize()
+    assert k6.fused_ffn_ln.launches == before + 1
+    assert got.shape == want.shape == (rows, F) and got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    print(f"K6 rows={rows} rel_err={_rel(got, want):.3e}")
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,lq", [(3, 16), (5, 37), (96, 111)])
+def test_attn_kernel_matches_plain(B, lq):
+    """K8 on the column slices of one fused q/k/v projection, at row counts
+    that are not multiples of 16 and at the guided batch-48 shape."""
+    from msmd_tpu_torch.measure import attn_case
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    q, k, v, H = attn_case(_card(), B=B, lq=lq, seed=7)
+    before = k8.attention_middle.launches
+    got, want = k8.attention_middle(q, k, v, H), k8.attention_middle_plain(q, k, v, H)
+    torch.cuda.synchronize()
+    assert k8.attention_middle.launches == before + 1
+    assert got.shape == want.shape == q.shape and got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    print(f"K8 B={B} lq={lq} rel_err={_rel(got, want):.3e}")
+    assert _rel(got, want) <= 2e-2
+    contiguous = k8.attention_middle(q.contiguous(), k.contiguous(), v.contiguous(), H)
+    assert torch.equal(contiguous, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Be,lm,F,FF", [(3, 15, 128, 256), (96, 110, 512, 2048)])
+def test_layer_tail_kernel_matches_plain(Be, lm, F, FF):
+    from msmd_tpu_torch.measure import tail_case
+    from msmd_tpu_torch.ops.kernels import layer_tail as k9
+
+    args = tail_case(_card(), Be=Be, lm=lm, F=F, FF=FF, seed=8)
+    before = k9.fused_layer_tail.launches
+    got, want = k9.fused_layer_tail(*args), k9.layer_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert k9.fused_layer_tail.launches == before + 1
+    assert got.shape == want.shape == (Be, lm, F) and got.dtype == torch.bfloat16
+    print(f"K9 rows={Be * lm} rel_err={_rel(got, want):.3e}")
+    assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_guided_wrappers_refuse_what_the_kernels_do_not_take():
+    from msmd_tpu_torch.measure import attn_case, ffn_case, tail_case
+    from msmd_tpu_torch.ops.kernels import attn as k8
+    from msmd_tpu_torch.ops.kernels import ffn as k6
+    from msmd_tpu_torch.ops.kernels import layer_tail as k9
+
+    dev = _card()
+    x, w1, *rest = ffn_case(dev, rows=10, F=128, FF=256)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        k6.fused_ffn_ln(x.float(), w1, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.fused_ffn_ln(x, w1.t().contiguous().t(), *rest)
+    with pytest.raises(ValueError, match="shape"):
+        k6.fused_ffn_ln(x, w1[:128], *rest)
+    q, k, v, H = attn_case(dev, B=2, lq=16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        k8.attention_middle(q, k, v, 4)
+    with pytest.raises(ValueError, match="row stride"):
+        k8.attention_middle(q.contiguous(), k, v, H)
+    with pytest.raises(ValueError, match="lq=400"):
+        big = torch.zeros(1, 400, 512, dtype=torch.bfloat16, device=dev)
+        k8.attention_middle(big, big, big, 8)
+    args = list(tail_case(dev, Be=2, lm=5, F=128, FF=256))
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        k9.fused_layer_tail(*args[:11], args[11].bfloat16(), args[12])
+    with pytest.raises(ValueError, match="must be on"):
+        k9.fused_layer_tail(args[0], args[1], args[2].cpu(), *args[3:])
