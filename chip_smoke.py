@@ -34,6 +34,16 @@ Phases, each printing one JSON line:
      call computes K7 (``library_ms`` null); the unfused torch-op chain
      (F.linear, gelu, dropout, layer_norm, and its autograd backward) is
      timed beside it as ``chain_ms``.
+   - K1's flat-mask mode (``decoder_flat``) in its two cross forms, one
+     tile of all entries, lq = 111, the same layers: the identity band at
+     Be = 4 (the 2-slot serving round) and the full masked cross at Be = 2
+     (batch 1 of a model without the alignment mask); each at max |err| /
+     max |plain| <= 2e-2. The entry's ``ms`` is the identity band's; both
+     forms' numbers are under ``forms``.
+   - K2 (``resident``) at K1's Be = 96 shapes: max |err| / max |plain| <=
+     2e-2, and its largest difference from K1's kernel on the same inputs
+     (printed, not gated: the same device functions in the same order
+     should give the same bits), timed beside K1 in the same call.
    - the guided window's layer kernels at its batch-48 shapes (two CFG
      entries, Be = 96, lq = 111): K6 ``fused_ffn_ln`` over 10656 rows (F
      512, FFN 2048), K8 ``attention_middle`` over 96 entries of 111 rows (8
@@ -69,7 +79,20 @@ Phases, each printing one JSON line:
 7. separate: one batch-1 window of ``sample_separate`` at bf16 on 4 s of
    seeded audio; six finite outputs of the right shapes, and no launch of
    any kernel.
-8. train: the default training configuration with ``fused_ffn_train``
+8. serving: ``StreamingBatcher`` on the model of phase 4 at cfg_scale
+   1.15, no dynamic threshold: 48 streams of 8 s of seeded audio through
+   48 slots, two rounds, K1 per-entry 500 times a round; the same first
+   round with ``resident=True`` (K2 500 times, K1 never) and its largest
+   difference from the K1 round; one of the streams alone in a 48-slot
+   batcher, and its largest difference from its output beside the other
+   47 (printed; expected 0); a 2-slot round (K1 flat-mask, identity band,
+   500 times); one 4 s window at batch 1 of the same model with
+   ``align_mask_width=0`` (K1 flat-mask, full cross, 500 times; K3
+   never); then 48 streams of 16 s through 48 slots at ``pipeline_depth``
+   1 and 4, each giving aggregate audio seconds per wall second. Every
+   output must be finite and of its shape.
+
+9. train: the default training configuration with ``fused_ffn_train``
    (MSMD at bf16 over f32 parameters, HuBERT-base, VAE2, batch 16, two
    clips of 4 s of seeded audio and seeded motion, seeded random weights,
    constant rate 2e-5), one warm-up step, then ``TRAIN_STEPS`` timed steps
@@ -309,12 +332,71 @@ def phase_kernels(dev):
             library_ms=None, flops=flops, bytes=nbytes, ok=ok,
         )
         del got, want
+        out.update(_flat_and_resident_entries(dev))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
     emit({"phase": "kernels", **out})
     bad = [k for k, v in out.items() if not v["ok"]]
     if bad:
         raise SystemExit(f"chip_smoke: kernel(s) disagree with their plain version: {bad}")
+    return out
+
+
+NO_LIBRARY = "none: no one call computes a decoder stack"
+
+
+def _flat_and_resident_entries(dev):
+    """K1's flat-mask mode in both cross forms and K2, each against its
+    plain version, timed beside its bound; K2 also beside K1's kernel."""
+    import torch
+
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, decoder_case, decoder_flat_case, \
+        decoder_flat_work, decoder_work
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+
+    forms = {}
+    for form, Be, width in (("identity_band", 4, 1), ("full_cross", 2, 0)):
+        args = decoder_flat_case(dev, Be=Be, width=width)
+        got, want = kd.fused_decoder_forward_flat(*args), kd.fused_decoder_forward_plain(*args)
+        torch.cuda.synchronize()
+        rel = _rel(got, want)
+        flops, nbytes = decoder_flat_work(args)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        forms[form] = dict(entries=Be, lq=int(args[3].shape[1]), align_mask_width=width,
+                           max_abs_err=float((got - want).abs().max()), rel_err=rel,
+                           ms=cuda_ms(lambda: kd.fused_decoder_forward_flat(*args), 20),
+                           plain_ms=cuda_ms(lambda: kd.fused_decoder_forward_plain(*args), 3, warmup=1),
+                           bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+                           ok=bool(torch.isfinite(got).all()) and rel <= GATE)
+        del args, got, want
+    band = forms["identity_band"]
+    out = {"decoder_flat": dict(
+        name="fused_decoder_forward_flat", route="cuda", source="msmd_tpu_torch/csrc/decoder.cu",
+        replaces="msmd_tpu/ops/pallas/decoder_kernel.py:560",
+        max_abs_err=max(f["max_abs_err"] for f in forms.values()), tolerance=f"max|err|/max|plain| <= {GATE}",
+        ms=band["ms"], plain_ms=band["plain_ms"], bound_ms=band["bound_ms"], bound_by=band["bound_by"],
+        library_ms=None, library=NO_LIBRARY, forms=forms, ok=all(f["ok"] for f in forms.values()))}
+
+    args = decoder_case(dev)
+    got = kdr.fused_decoder_forward_resident(*args)
+    k1 = kd.fused_decoder_forward(*args)
+    want = kdr.fused_decoder_forward_resident_plain(*args)
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    flops, nbytes = decoder_work(args)
+    bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+    out["resident"] = dict(
+        name="fused_decoder_forward_resident", route="cuda", source="msmd_tpu_torch/csrc/decoder_resident.cu",
+        replaces="msmd_tpu/ops/pallas/decoder_kernel.py:723", max_abs_err=float((got - want).abs().max()),
+        rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE}",
+        max_abs_diff_vs_k1=float((got - k1).abs().max()), bit_equal_k1=bool(torch.equal(got, k1)),
+        grid_blocks=kdr.resident_grid(int(args[3].shape[1]), args[5]),
+        ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20),
+        k1_ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20),
+        plain_ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident_plain(*args), 3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, library=NO_LIBRARY, flops=flops, bytes=nbytes,
+        ok=bool(torch.isfinite(got).all()) and rel <= GATE)
     return out
 
 
@@ -380,15 +462,18 @@ def _k7_entries(dev):
 def _counted():
     from msmd_tpu_torch.ops.kernels import attn as k8
     from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
     from msmd_tpu_torch.ops.kernels import ffn as k6
     from msmd_tpu_torch.ops.kernels import ffn_train as k7
     from msmd_tpu_torch.ops.kernels import layer_tail as k9
     from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
-    return {"decoder": kd.fused_decoder_forward, "scan": ks.fused_sampler_scan, "step": ks.fused_sampler_step,
-            "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward, "ffn_train_bwd": k7.ffn_train_backward,
-            "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle, "tail": k9.fused_layer_tail}
+    return {"decoder": kd.fused_decoder_forward, "decoder_flat": kd.fused_decoder_forward_flat,
+            "resident": kdr.fused_decoder_forward_resident, "scan": ks.fused_sampler_scan,
+            "step": ks.fused_sampler_step, "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward,
+            "ffn_train_bwd": k7.ffn_train_backward, "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle,
+            "tail": k9.fused_layer_tail}
 
 
 def _reset_counts():
@@ -587,7 +672,121 @@ def phase_separate(dev, smi, built):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the two-clip training step
+# phase 8: multi-stream serving
+# ---------------------------------------------------------------------------
+
+SLOTS = 48
+DEPTHS = (1, 4)
+
+
+def _serve(model, style, streams, slots, dev, rounds=None, **kw):
+    """A ``StreamingBatcher`` of ``slots`` slots fed ``streams`` [(sid,
+    seed, audio)], run to the end (or ``rounds`` rounds, the audio then
+    not marked final), with the counts set to 0 just before. Returns
+    (outputs by sid, wall seconds, launch counts)."""
+    import torch
+
+    from msmd_tpu_torch.measure import CFG_SCALE
+    from msmd_tpu_torch.serving import StreamingBatcher
+
+    bat = StreamingBatcher(model, max_slots=slots, cfg_scale=CFG_SCALE, device=dev, **kw)
+    style_np = style.reshape(-1).cpu().numpy()
+    for sid, seed, audio in streams:
+        bat.add_stream(sid, seed, style=style_np)
+        bat.push_audio(sid, audio, final=rounds is None)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    if rounds is None:
+        bat.run_until_drained()
+    else:
+        for _ in range(rounds):
+            bat.step()
+        bat.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = {sid: bat.output(sid) for sid, _, _ in streams}
+    del bat
+    torch.cuda.empty_cache()
+    return outs, wall, _counts()
+
+
+def phase_serving(dev, smi, built):
+    import numpy as np
+    import torch
+
+    from msmd_tpu_torch.measure import SEED, build_main_path, generate, seeded_audio
+
+    model, style, fused = built
+    cfg = model.cfg
+    T, n, D = cfg.n_diff_steps, cfg.n_motions, cfg.motion_feat_dim
+    window_s = n / cfg.fps
+    streams = lambda count, seconds, base: [(f"s{i}", base + i, seeded_audio(seconds, base + i))
+                                            for i in range(count)]
+    finite = lambda outs: all(np.isfinite(o).all() for o in outs.values())
+    shaped = lambda outs, frames: all(o.shape == (frames, D) for o in outs.values())
+    only = lambda counts, **want: all(counts[k] == want.get(k, 0) for k in counts)
+    runs, checks = {}, {}
+
+    mixed = streams(SLOTS, AUDIO_SECONDS, SEED + 60)
+    _serve(model, style, [(sid, seed, a[:cfg.n_audio_samples]) for sid, seed, a in mixed], SLOTS, dev)  # warm-up
+    k1_out, wall, counts = _serve(model, style, mixed, SLOTS, dev)
+    frames = int(AUDIO_SECONDS * cfg.fps)
+    runs["k1_48_slots"] = {"rounds": 2, "wall_s": wall, "launches": counts}
+    checks["k1_48_slots"] = finite(k1_out) and shaped(k1_out, frames) and only(counts, decoder=2 * T)
+
+    k2_out, wall, counts = _serve(model, style, mixed, SLOTS, dev, rounds=1, resident=True)
+    k2_diff = max(float(np.abs(k2_out[sid] - k1_out[sid][:n]).max()) for sid, _, _ in mixed)
+    runs["k2_48_slots_first_round"] = {"rounds": 1, "wall_s": wall, "launches": counts,
+                                       "max_abs_diff_vs_k1_round": k2_diff}
+    checks["k2_48_slots"] = finite(k2_out) and shaped(k2_out, n) and only(counts, resident=T)
+
+    alone, wall, counts = _serve(model, style, mixed[:1], SLOTS, dev)
+    sid0 = mixed[0][0]
+    iso_diff = float(np.abs(alone[sid0] - k1_out[sid0]).max())
+    runs["one_stream_in_48_slots"] = {"rounds": 2, "wall_s": wall, "launches": counts,
+                                      "max_abs_diff_vs_mixed": iso_diff}
+    checks["one_stream_in_48_slots"] = finite(alone) and shaped(alone, frames) and only(counts, decoder=2 * T)
+
+    two, wall, counts = _serve(model, style, streams(2, window_s, SEED + 120), 2, dev)
+    runs["flat_2_slots"] = {"rounds": 1, "wall_s": wall, "launches": counts}
+    checks["flat_2_slots"] = finite(two) and shaped(two, n) and only(counts, decoder_flat=T)
+
+    model0, _, _ = build_main_path(dev, cfg_kw={"align_mask_width": 0})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 130)
+    audio0 = seeded_audio(window_s, SEED + 131)
+    generate(model0, style, fused, audio0, 1, gen, dev, dynamic_threshold=None)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    coeffs0, verts0 = generate(model0, style, fused, audio0, 1, gen, dev, dynamic_threshold=None)
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, _counts()
+    del model0
+    torch.cuda.empty_cache()
+    runs["no_alignment_mask_batch1"] = {"windows": 1, "wall_s": wall, "launches": counts}
+    checks["no_alignment_mask_batch1"] = (_finite(coeffs0, verts0) and list(coeffs0.shape) == [1, n, D]
+                                          and only(counts, decoder_flat=T, lbs=1))
+
+    long = streams(SLOTS, 4 * window_s, SEED + 200)
+    rates = {}
+    for depth in DEPTHS:
+        outs, wall, counts = _serve(model, style, long, SLOTS, dev, pipeline_depth=depth)
+        rates[depth] = SLOTS * 4 * window_s / wall
+        runs[f"depth_{depth}"] = {"rounds": 4, "wall_s": wall, "audio_s_per_s": rates[depth], "launches": counts}
+        checks[f"depth_{depth}"] = finite(outs) and shaped(outs, 4 * n) and only(counts, decoder=4 * T)
+    emit({"phase": "serving", "slots": SLOTS, "diff_steps": T, "runs": runs,
+          "audio_s_per_s": {f"depth_{d}": r for d, r in rates.items()},
+          "stream_isolation_max_abs_diff": iso_diff, "k2_vs_k1_max_abs_diff": k2_diff, "checks": checks,
+          "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: serving checks failed: {checks}")
+    return {"decoder_flat": runs["flat_2_slots"]["launches"]["decoder_flat"],
+            "resident": runs["k2_48_slots_first_round"]["launches"]["resident"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the two-clip training step
 # ---------------------------------------------------------------------------
 
 def _train_wall(path, batch, steps):
@@ -676,6 +875,7 @@ def main() -> int:
     b1_launches, traj_launches = phase_batch1(dev, smi, built)
     guided_launches = phase_guided(dev, smi, built)
     phase_separate(dev, smi, built)
+    serving_launches = phase_serving(dev, smi, built)
     del built
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, smi)
@@ -688,9 +888,12 @@ def main() -> int:
     kernels["ffn"]["launches"] = guided_launches["default"]["ffn"]
     kernels["attn"]["launches"] = guided_launches["attn_kernel"]["attn"]
     kernels["tail"]["launches"] = guided_launches["fused_tail"]["tail"]
+    for k in ("decoder_flat", "resident"):
+        kernels[k]["launches"] = serving_launches[k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    order = ("decoder", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd", "ffn", "attn", "tail")
+    order = ("decoder", "decoder_flat", "resident", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd",
+             "ffn", "attn", "tail")
     emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

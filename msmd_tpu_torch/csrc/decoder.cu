@@ -32,6 +32,29 @@
 // the LayerNorms into the GEMM epilogues; the GEMM's 128-wide tiles read
 // 43 to 64 FLOP per byte from L2, which caps it well below the tensor
 // cores' rate.
+//
+// Flat-mask mode (msmd_decoder_forward_flat; _layer_compute with a
+// self_mask, decoder_kernel.py:392-400, and at align_mask_width != 1 the
+// full masked cross-attention, :459-467): the batch is cut into tiles of
+// `tile` whole entries, and every attention of a tile runs over all of
+// the tile's rows with an additive f32 mask shared by the tiles (NEG =
+// -1e30 where a query may not look). The GEMMs and LayerNorms are the
+// per-entry mode's. What is new is one masked attention kernel for the
+// self-attention (the tile's Rt = tile * lq rows against themselves, an
+// (Rt, Rt) mask), for the full cross-attention (the Rt rows against the
+// tile's Mt = tile * lm memory rows, an (Rt, Mt) mask), and, at width 1,
+// for the person rows (tile rows against the Mt memory rows, the (tile,
+// Mt) person mask), whose cross output then takes the per-entry mode's
+// bf16 scatter with vmw. At Be = 4, lq = 111 a head's scores are 444 x
+// 444 f32 (0.79 MB), beyond shared memory, so a block holds 64 query rows
+// and streams the keys through shared memory 64 at a time. The bf16
+// softmax has no running max (exp(clamp(s - 20, -80, 60)), a fixed
+// shift), so numerators and row sums simply accumulate over the key
+// blocks; a key block whose mask is all at or below _MASK_FLOOR = -1e29
+// adds exactly 0 and is skipped, which leaves ~1 / tile of the
+// block-diagonal self mask's blocks to compute. Bound: at Be = 4 a step
+// is ~25 GFLOP (~0.03 ms) against ~60 MB of weights (~0.02 ms); the ~11
+// launches per layer on grids of 8-112 blocks make it latency-bound.
 
 #include "decoder_common.cuh"
 
@@ -43,6 +66,227 @@ __global__ void cast_kernel(const float* __restrict__ x_in, float* __restrict__ 
     x[i] = v;
     xb[i] = __float2bfloat16(v);
   }
+}
+
+// --------------------------------------------------------------------------
+// masked attention over a tile: block (query block, head, tile)
+// --------------------------------------------------------------------------
+
+constexpr float MASK_FLOOR = -1e29f;  // scores at or below are structural masks
+constexpr int MA_BQ = 64, MA_BK = 64, MA_THREADS = 256;
+constexpr int MA_LD = DH + 8;      // bf16 row stride of Q, K, V, P
+constexpr int MA_SLD = MA_BK + 4;  // f32 row stride of the scores, the mask tile and the output
+
+constexpr size_t masked_attn_smem_bytes() {
+  return (size_t)4 * MA_BQ * MA_LD * sizeof(bf16) + (size_t)2 * MA_BQ * MA_SLD * sizeof(float) +
+         MA_BQ * sizeof(float);
+}
+
+struct MaskedAttnArgs {
+  const bf16 *q, *k, *v;  // row r of head h at base + r * ld + h * DH
+  long ldq, ldk, ldv;
+  const float* mask;  // (rq, rk) additive f32, the same for every tile
+  bf16* out;          // row r of head h at out + r * ldo + h * DH
+  long ldo;
+  int rq, rk;  // query rows and key rows per tile
+};
+
+// out = (exp(clamp_unmasked(q k^T + mask - 20)) v) / rowsum, with q already
+// scaled and every product on bf16 operands with f32 accumulation. Tile
+// t's query rows are t * rq .. and its key rows t * rk ..
+__global__ void __launch_bounds__(MA_THREADS) masked_attn_kernel(MaskedAttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + MA_BQ * MA_LD;
+  bf16* Vs = Ks + MA_BK * MA_LD;
+  bf16* Ps = Vs + MA_BK * MA_LD;
+  float* Ss = reinterpret_cast<float*>(Ps + MA_BQ * MA_LD);  // scores, then the output
+  float* Ms = Ss + MA_BQ * MA_SLD;                            // the mask tile
+  float* rs = Ms + MA_BQ * MA_SLD;                            // row sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * MA_BQ, h = blockIdx.y, t = blockIdx.z;
+  const long qrow0 = (long)t * a.rq + q0, krow0 = (long)t * a.rk;
+
+  for (int i = tid; i < MA_BQ * (DH / 8); i += MA_THREADS) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    uint4 q = make_uint4(0, 0, 0, 0);
+    if (q0 + r < a.rq) q = *reinterpret_cast<const uint4*>(a.q + (qrow0 + r) * a.ldq + h * DH + c);
+    *reinterpret_cast<uint4*>(Qs + r * MA_LD + c) = q;
+  }
+  if (tid < MA_BQ) rs[tid] = 0.0f;
+
+  // each warp owns one 16-row strip of the output and two of its four
+  // 16-column fragments, summed over the key blocks in registers
+  const int oi = warp / 2, oj = (warp % 2) * 2;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.0f);
+  wmma::fill_fragment(acc[1], 0.0f);
+
+  for (int kb = 0; kb < a.rk; kb += MA_BK) {
+    __syncthreads();  // the previous key block is done with Ks, Vs, Ps, Ms
+    int live = 0;
+    for (int i = tid; i < MA_BQ * MA_BK; i += MA_THREADS) {
+      const int r = i / MA_BK, c = i % MA_BK;
+      float m = -1e30f;  // rows and keys past the edge get no weight
+      if (q0 + r < a.rq && kb + c < a.rk) {
+        m = a.mask[(long)(q0 + r) * a.rk + kb + c];
+        live |= m > MASK_FLOOR;
+      }
+      Ms[r * MA_SLD + c] = m;
+    }
+    if (!__syncthreads_or(live)) continue;  // every score of this block is masked: it adds exactly 0
+
+    for (int i = tid; i < MA_BK * (DH / 8); i += MA_THREADS) {
+      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+      uint4 k = make_uint4(0, 0, 0, 0), v = k;
+      if (kb + r < a.rk) {
+        k = *reinterpret_cast<const uint4*>(a.k + (krow0 + kb + r) * a.ldk + h * DH + c);
+        v = *reinterpret_cast<const uint4*>(a.v + (krow0 + kb + r) * a.ldv + h * DH + c);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * MA_LD + c) = k;
+      *reinterpret_cast<uint4*>(Vs + r * MA_LD + c) = v;
+    }
+    __syncthreads();
+
+    // S = Q K^T (f32): 4 x 4 fragments, two per warp
+    for (int f = warp; f < (MA_BQ / 16) * (MA_BK / 16); f += MA_THREADS / 32) {
+      const int ti = f / (MA_BK / 16), tj = f % (MA_BK / 16);
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
+      wmma::fill_fragment(s, 0.0f);
+#pragma unroll
+      for (int k = 0; k < DH; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, Qs + ti * 16 * MA_LD + k, MA_LD);
+        wmma::load_matrix_sync(fb, Ks + tj * 16 * MA_LD + k, MA_LD);
+        wmma::mma_sync(s, fa, fb, s);
+      }
+      wmma::store_matrix_sync(Ss + ti * 16 * MA_SLD + tj * 16, s, MA_SLD, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // numerators: the mask is added before the floor test, the -20 shift
+    // after it (-1e30 - 20 == -1e30 in f32); a masked score's exp is 0
+    for (int r = warp * (MA_BQ / 8); r < (warp + 1) * (MA_BQ / 8); ++r) {
+      float sum = 0.0f;
+      for (int c = lane; c < MA_BK; c += 32) {
+        const float sh = (Ss[r * MA_SLD + c] + Ms[r * MA_SLD + c]) - 20.0f;
+        const float p = sh > MASK_FLOOR ? expf(fminf(fmaxf(sh, -80.0f), 60.0f)) : 0.0f;
+        sum += p;
+        Ps[r * MA_LD + c] = __float2bfloat16(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) rs[r] += sum;
+    }
+    __syncthreads();
+
+    // O += P V
+#pragma unroll
+    for (int k = 0; k < MA_BK; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, Ps + oi * 16 * MA_LD + k, MA_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, Vs + k * MA_LD + (oj + j) * 16, MA_LD);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(Ss + oi * 16 * MA_SLD + (oj + j) * 16, acc[j], MA_SLD, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < MA_BQ * DH; i += MA_THREADS) {
+    const int r = i / DH, c = i % DH;
+    if (q0 + r < a.rq) {
+      const float inv = 1.0f / rs[r];
+      a.out[(qrow0 + r) * a.ldo + h * DH + c] = __float2bfloat16(Ss[r * MA_SLD + c] * inv);
+    }
+  }
+}
+
+cudaError_t masked_attn(cudaStream_t st, const MaskedAttnArgs& a, int H, int n_tiles) {
+  masked_attn_kernel<<<dim3((a.rq + MA_BQ - 1) / MA_BQ, H, n_tiles), MA_THREADS, masked_attn_smem_bytes(), st>>>(a);
+  return cudaGetLastError();
+}
+
+// All L layers in flat-mask mode on x (Be*lq, F) f32 with its bf16 copy in
+// w.xb. Width 1 (vmw != null): identity-band cross through the person mask
+// (tile, tile*lm) and the hoisted vmw, person rows `rows`. Otherwise the
+// full masked cross with cross_mask (tile*lq, tile*lm).
+cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, const DecoderWeights& p,
+                                const int* rows, const float* self_mask, const float* cross_mask, int Be, int lq,
+                                int F, int H, int L, int FF, int tile) {
+  const int R = Be * lq, lm = lq - 1, n_tiles = Be / tile, Rt = tile * lq, Mt = tile * lm;
+  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
+  const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
+  const bool band = p.vmw != nullptr;
+  for (int l = 0; l < L; ++l) {
+    const bf16* Wqkv = p.wqkv + (size_t)l * F * 3 * F;
+    const bf16* Bqkv = p.bqkv + (size_t)l * 3 * F;
+    const bf16* Wso = p.wso + (size_t)l * F * F;
+    const bf16* Bso = p.bso + (size_t)l * F;
+    const bf16* Wcq = p.wcq + (size_t)l * F * F;
+    const bf16* Bcq = p.bcq + (size_t)l * F;
+    const bf16* Wco = p.wco + (size_t)l * F * F;
+    const bf16* Bco = p.bco + (size_t)l * F;
+    const bf16* Wf1 = p.wf1 + (size_t)l * F * FF;
+    const bf16* Bf1 = p.bf1 + (size_t)l * FF;
+    const bf16* Wf2 = p.wf2 + (size_t)l * FF * F;
+    const bf16* Bf2 = p.bf2 + (size_t)l * F;
+    const float* lns = p.ln_scale + (size_t)l * 3 * F;
+    const float* lnb = p.ln_bias + (size_t)l * 3 * F;
+    const bf16* Km = p.kmem + (size_t)l * Be * lm * F;
+    const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
+
+    // self-attention over each tile's flattened rows, masked
+    RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, nullptr, Wqkv, Bqkv, nullptr, w.qkv, R, 3 * F, F, scale, F));
+    RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, w.qkv + F, w.qkv + 2 * F, 3L * F, 3L * F, 3L * F,
+                                                   self_mask, w.sa, F, Rt, Rt}, H, n_tiles));
+    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wso, Bso, x, w.y, R, F, F));
+    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns, lnb, R, F, nullptr, nullptr,
+                                                             nullptr, nullptr, lq);
+    RETURN_IF_ERROR(cudaGetLastError());
+
+    if (band) {
+      // the person rows attend the tile's memory through the person mask;
+      // motion rows take vmw, as in the per-entry mode
+      const bf16* Vmw = static_cast<const bf16*>(p.vmw) + (size_t)l * R * F;
+      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, rows, Wcq, Bcq, nullptr, w.qp, Be, F, F, scale, F));
+      RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qp, Km, Vm, F, F, F, cross_mask, w.pa, F, tile, Mt},
+                                  H, n_tiles));
+      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
+      ln_kernel<true, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
+                                                              static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
+    } else {
+      // every row attends the tile's memory through the cross mask; q in
+      // w.qkv and the attention output in w.sa, both free here
+      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, nullptr, Wcq, Bcq, nullptr, w.qkv, R, F, F, scale, F));
+      RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, Km, Vm, F, F, F, cross_mask, w.sa, F, Rt, Mt},
+                                  H, n_tiles));
+      RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wco, Bco, x, w.y, R, F, F));
+      ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + F, lnb + F, R, F, nullptr,
+                                                               nullptr, nullptr, nullptr, lq);
+    }
+    RETURN_IF_ERROR(cudaGetLastError());
+
+    RETURN_IF_ERROR(gemm<EPI_GELU>(st, w.xb, F, nullptr, Wf1, Bf1, nullptr, w.h, R, FF, F));
+    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.h, FF, nullptr, Wf2, Bf2, x, w.y, R, F, FF));
+    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + 2 * F, lnb + 2 * F, R, F,
+                                                             nullptr, nullptr, nullptr, nullptr, lq);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  return cudaSuccess;
+}
+
+DecoderWeights weights(const void* const* w, const void* kmem, const void* vmem, const void* vmw) {
+  auto b = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  return DecoderWeights{b(0), b(1), b(2), b(3), b(4), b(5), b(6), b(7), b(8), b(9), b(10), b(11),
+                        static_cast<const float*>(w[12]), static_cast<const float*>(w[13]),
+                        static_cast<const bf16*>(kmem), static_cast<const bf16*>(vmem), vmw};
 }
 
 }  // namespace
@@ -71,13 +315,39 @@ extern "C" int msmd_decoder_forward(const void* x_in, void* x_out, void* ws, con
   float* x = static_cast<float*>(x_out);
   cast_kernel<<<1024, 256, 0, st>>>(static_cast<const float*>(x_in), x, w.xb, (long)Be * lq * F);
   RETURN_IF_ERROR(cudaGetLastError());
-  const DecoderWeights p{static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
-                         static_cast<const bf16*>(wso),  static_cast<const bf16*>(bso),
-                         static_cast<const bf16*>(wcq),  static_cast<const bf16*>(bcq),
-                         static_cast<const bf16*>(wco),  static_cast<const bf16*>(bco),
-                         static_cast<const bf16*>(wf1),  static_cast<const bf16*>(bf1),
-                         static_cast<const bf16*>(wf2),  static_cast<const bf16*>(bf2),
-                         static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
-                         static_cast<const bf16*>(kmem), static_cast<const bf16*>(vmem), vmw};
-  return decoder_layers(st, w, x, p, static_cast<const int*>(aux), Be, lq, F, H, L, FF, CROSS_BF16);
+  const void* w14[14] = {wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, wf1, bf1, wf2, bf2, ln_scale, ln_bias};
+  return decoder_layers(st, w, x, weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux), Be, lq, F, H, L,
+                        FF, CROSS_BF16);
+}
+
+// Flat-mask mode: the arguments of msmd_decoder_forward, the tile (whole
+// entries, dividing Be), the (tile*lq, tile*lq) f32 self mask, and either
+// (width 1) vmw, the person rows aux and the (tile, tile*lm) person mask
+// as cross_mask, or (vmw and aux null) the (tile*lq, tile*lm) cross mask.
+extern "C" int msmd_decoder_forward_flat(const void* x_in, void* x_out, void* ws, const void* wqkv,
+                                         const void* bqkv, const void* wso, const void* bso, const void* wcq,
+                                         const void* bcq, const void* wco, const void* bco, const void* wf1,
+                                         const void* bf1, const void* wf2, const void* bf2, const void* ln_scale,
+                                         const void* ln_bias, const void* kmem, const void* vmem, const void* vmw,
+                                         const void* aux, const void* self_mask, const void* cross_mask, int Be,
+                                         int lq, int F, int H, int L, int FF, int tile, void* stream) {
+  if (!decoder_shapes_ok(lq, F, H, FF) || tile < 1 || Be % tile || (vmw == nullptr) != (aux == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RETURN_IF_ERROR(set_kernel_attributes());
+  static bool attr_set = false;
+  if (!attr_set) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(masked_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(masked_attn_smem_bytes())));
+    attr_set = true;
+  }
+  size_t total = 0;
+  Workspace w = carve(ws, Be, lq, F, FF, &total);
+  float* x = static_cast<float*>(x_out);
+  cast_kernel<<<1024, 256, 0, st>>>(static_cast<const float*>(x_in), x, w.xb, (long)Be * lq * F);
+  RETURN_IF_ERROR(cudaGetLastError());
+  const void* w14[14] = {wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, wf1, bf1, wf2, bf2, ln_scale, ln_bias};
+  return decoder_layers_flat(st, w, x, weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux),
+                             static_cast<const float*>(self_mask), static_cast<const float*>(cross_mask), Be, lq,
+                             F, H, L, FF, tile);
 }

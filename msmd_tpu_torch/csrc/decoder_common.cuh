@@ -134,19 +134,22 @@ constexpr size_t gemm_smem_bytes() {
          (GEMM_THREADS / 32) * 16 * C_LD * sizeof(float);
 }
 
+// One BM x BN output tile (tile_m, tile_n) by the whole block of
+// GEMM_THREADS threads, in the shared memory `gsm` (gemm_smem_bytes). The
+// leading barrier lets a persistent block (K2) run tiles back to back.
 template <int EPI, int BM, bool BT = false>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
+__device__ __forceinline__ void gemm_tile(const GemmArgs& g, int tile_m, int tile_n, unsigned char* gsm) {
   constexpr int MI = BM / 32;  // 16-row fragments per warp
   constexpr int B_ELEMS = b_stage_elems<BT>();
   using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  extern __shared__ __align__(128) unsigned char gsm[];
   bf16* As = reinterpret_cast<bf16*>(gsm);            // [STAGES][BM][A_LD]
   bf16* Bs = As + STAGES * BM * A_LD;                 // [STAGES][BK][B_LD], or with BT [STAGES][BN][BT_LD]
   float* Cs = reinterpret_cast<float*>(Bs + STAGES * B_ELEMS);  // [8 warps][16][C_LD]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = tile_m * BM, n0 = tile_n * BN;
+  __syncthreads();  // the previous tile of this block is done with the ring
 
   auto load_tile = [&](int stage, int k0) {
     bf16* as = As + stage * BM * A_LD;
@@ -278,6 +281,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
 }
 
 template <int EPI, int BM, bool BT = false>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
+  extern __shared__ __align__(128) unsigned char gsm[];
+  gemm_tile<EPI, BM, BT>(g, blockIdx.y, blockIdx.x, gsm);
+}
+
+template <int EPI, int BM, bool BT = false>
 cudaError_t gemm_attr() {
   return cudaFuncSetAttribute(gemm_kernel<EPI, BM, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(gemm_smem_bytes<BM, BT>()));
@@ -327,10 +336,11 @@ inline size_t att_smem_bytes(int lq) {
 // qkv: (Be*lq, 3F) bf16 with q already scaled; out: (Be*lq, F) bf16.
 // Rows are zero-padded to a multiple of 16 in shared memory and the padded
 // keys get no weight, as the TPU kernels' pad-row key mask gives them none.
-__global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(const bf16* __restrict__ qkv,
-                                                                bf16* __restrict__ out, int lq, int F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x, e = blockIdx.y;
+// Entry e, head h, by the whole block of ATT_THREADS threads in `smem`
+// (att_smem_bytes).
+__device__ __forceinline__ void self_attn_block(const bf16* __restrict__ qkv, bf16* __restrict__ out, int lq,
+                                                int F, int h, int e, unsigned char* smem) {
+  __syncthreads();  // the previous item of this block is done with smem
   const int nt = (lq + 15) / 16, lp = nt * 16;
   const int s_ld = lp + 4, p_ld = lp + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -415,46 +425,64 @@ __global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(const bf16* __re
   }
 }
 
+__global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(const bf16* __restrict__ qkv,
+                                                                bf16* __restrict__ out, int lq, int F) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  self_attn_block(qkv, out, lq, F, blockIdx.x, blockIdx.y, smem);
+}
+
 // --------------------------------------------------------------------------
 // identity-band person-row cross-attention: block per entry, warp per head
 // --------------------------------------------------------------------------
 
 constexpr int MAX_LM = 128;
 
-// qp: (Be, F) bf16, scaled; km, vm: (Be*lm, F) bf16; out: (Be, F) bf16
+// Entry e's person row, one warp per head (warps loop over the H heads),
+// each warp with DH + MAX_LM floats of `psm`. qp: (Be, F) bf16, scaled;
+// km, vm: (Be*lm, F) bf16; out: (Be, F) bf16.
+__device__ __forceinline__ void person_attn_block(const bf16* __restrict__ qp, const bf16* __restrict__ km,
+                                                  const bf16* __restrict__ vm, bf16* __restrict__ out, int lm,
+                                                  int F, int H, int e, float* psm) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  float* qs = psm + warp * (DH + MAX_LM);
+  float* es = qs + DH;
+  for (int h = warp; h < H; h += nwarps) {
+    __syncwarp();  // the warp's previous head is done with qs and es
+    for (int d = lane; d < DH; d += 32) qs[d] = __bfloat162float(qp[(long)e * F + h * DH + d]);
+    __syncwarp();
+
+    float sum = 0.0f;
+    for (int j = lane; j < lm; j += 32) {
+      const bf16* krow = km + ((long)e * lm + j) * F + h * DH;
+      float s = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DH; d += 8) {
+        const uint4 u = *reinterpret_cast<const uint4*>(krow + d);
+        const bf16* kv = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) s += qs[d + t] * __bfloat162float(kv[t]);
+      }
+      const float p = fast_exp(s);
+      es[j] = __bfloat162float(__float2bfloat16(p));
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+
+    const float inv = 1.0f / sum;
+    for (int d = lane; d < DH; d += 32) {
+      float acc = 0.0f;
+      for (int j = 0; j < lm; ++j) acc += es[j] * __bfloat162float(vm[((long)e * lm + j) * F + h * DH + d]);
+      out[(long)e * F + h * DH + d] = __float2bfloat16(acc * inv);
+    }
+  }
+}
+
+// block per entry, H * 32 threads (a warp per head)
 __global__ void person_attn_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ km,
                                    const bf16* __restrict__ vm, bf16* __restrict__ out, int lm, int F) {
   extern __shared__ float psm[];
-  const int e = blockIdx.x, h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qs = psm + h * (DH + MAX_LM);
-  float* es = qs + DH;
-  for (int d = lane; d < DH; d += 32) qs[d] = __bfloat162float(qp[(long)e * F + h * DH + d]);
-  __syncwarp();
-
-  float sum = 0.0f;
-  for (int j = lane; j < lm; j += 32) {
-    const bf16* krow = km + ((long)e * lm + j) * F + h * DH;
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DH; d += 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(krow + d);
-      const bf16* kv = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) s += qs[d + t] * __bfloat162float(kv[t]);
-    }
-    const float p = fast_exp(s);
-    es[j] = __bfloat162float(__float2bfloat16(p));
-    sum += p;
-  }
-  sum = warp_sum(sum);
-  __syncwarp();
-
-  const float inv = 1.0f / sum;
-  for (int d = lane; d < DH; d += 32) {
-    float acc = 0.0f;
-    for (int j = 0; j < lm; ++j) acc += es[j] * __bfloat162float(vm[((long)e * lm + j) * F + h * DH + d]);
-    out[(long)e * F + h * DH + d] = __float2bfloat16(acc * inv);
-  }
+  person_attn_block(qp, km, vm, out, lm, F, blockDim.x / 32, blockIdx.x, psm);
 }
 
 // K4's cross input: row e*lq of entry e takes its bf16 person output, row
@@ -475,17 +503,13 @@ __global__ void cross_rows_kernel(const bf16* __restrict__ pa, const bf16* __res
 
 constexpr int LN_THREADS = 256, LN_MAXN = 32;
 
-// CROSS = false: y is the residual sum. CROSS = true: the row is
-// x + ((person row ? po[e] : 0) + vmw + bco), the identity-band cross step,
-// with po and vmw of type T (bf16 for K1, f32 for K3).
+// One row by one warp. CROSS = false: y is the residual sum. CROSS = true:
+// the row is x + ((person row ? po[e] : 0) + vmw + bco), the identity-band
+// cross step, with po and vmw of type T (bf16 for K1, f32 for K3).
 template <bool CROSS, typename T>
-__global__ void __launch_bounds__(LN_THREADS) ln_kernel(const float* y, float* x, bf16* xb,
-                                                        const float* __restrict__ scale,
-                                                        const float* __restrict__ bias, int R, int F,
-                                                        const T* po, const T* vmw, const bf16* bco,
-                                                        const int* aux, int lq) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (row >= R) return;
+__device__ __forceinline__ void ln_row(int row, int lane, const float* y, float* x, bf16* xb,
+                                       const float* __restrict__ scale, const float* __restrict__ bias, int F,
+                                       const T* po, const T* vmw, const bf16* bco, const int* aux, int lq) {
   const int n = F / 32;
   const long base = (long)row * F;
   int pe = -1;
@@ -526,6 +550,17 @@ __global__ void __launch_bounds__(LN_THREADS) ln_kernel(const float* y, float* x
       xb[base + c] = __float2bfloat16(o);
     }
   }
+}
+
+template <bool CROSS, typename T>
+__global__ void __launch_bounds__(LN_THREADS) ln_kernel(const float* y, float* x, bf16* xb,
+                                                        const float* __restrict__ scale,
+                                                        const float* __restrict__ bias, int R, int F,
+                                                        const T* po, const T* vmw, const bf16* bco,
+                                                        const int* aux, int lq) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (row >= R) return;
+  ln_row<CROSS, T>(row, threadIdx.x % 32, y, x, xb, scale, bias, F, po, vmw, bco, aux, lq);
 }
 
 // --------------------------------------------------------------------------

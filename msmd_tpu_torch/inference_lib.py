@@ -41,12 +41,14 @@ def infer_coeffs(
     noise_override=None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    resident: bool = False,
 ) -> torch.Tensor:
     """Returns motion coefficients (n_repetitions, clip_frames, 67).
 
     ``motion_at_T`` / ``noise_override`` optionally pin the initial noise
     and the (T, R, n_motions, D) per-step z, reused across windows as the
-    reference reuses its noise."""
+    reference reuses its noise. ``resident`` is ``sample``'s (K2 where its
+    gate holds)."""
     dev = resolve_device(device)
     cfg = model.cfg
     audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
@@ -85,7 +87,7 @@ def infer_coeffs(
             model, audio_in, shape_in, style, prev_motion_feat=prev_motion, prev_audio_feat=prev_audio,
             motion_at_T=motion_at_T if i == 0 else noise, indicator=indicator,
             cfg_mode=cfg_mode, cfg_cond=cfg_cond, cfg_scale=cfg_scale, dynamic_threshold=dynamic_threshold,
-            noise_override=noise_override, generator=generator, device=dev,
+            noise_override=noise_override, generator=generator, device=dev, resident=resident,
         )
         prev_motion = motion[:, -cfg.n_prev_motions:]
         prev_audio = prev_audio_full[:, -cfg.n_prev_motions:]

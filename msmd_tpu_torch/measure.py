@@ -10,7 +10,11 @@ FFN block K7 at the train step's shapes (batch 16 x 111 rows = 1776 rows,
 F 512, FFN 2048, dropout 0.1), and the kernels of the guided batch-48
 window (two CFG entries, Be = 96, lq = 111): K6 over Be x lq = 10656 rows,
 K8 over 96 entries of 111 rows with 8 heads of 64, and K9 over the motion
-rows Be x 110 = 10560. A bound is the least time an H100
+rows Be x 110 = 10560; K1's flat-mask mode at the 2-slot serving shape
+(Be = 4 entries of lq = 111 rows in one tile, the identity band) and at
+the batch-1 shape of a model without the alignment mask (Be = 2, the
+full masked cross-attention), and K2 at K1's batch-48 shapes. A bound is
+the least time an H100
 SXM could take for the same work: the larger of the bytes that must move
 (each input read once, each output written once) over the memory rate
 and the operations over the peak rate of their type (NVIDIA's data sheet).
@@ -79,6 +83,42 @@ def decoder_work(args):
                  + 2 * Be * F * F * 2 + 2 * 2 * Be * H * lm * dh)  # person rows: wcq, wco, attention
     nbytes = sum(t.numel() * t.element_size() for t in pack.values())
     nbytes += sum(t.numel() * t.element_size() for t in (kmem, vmem, vmw, x, aux)) + x.numel() * 4
+    return L * per_layer, nbytes
+
+
+def decoder_flat_case(dev, Be=4, lq=111, width=1, tile=0, F=512, H=8, L=8, FF=2048, seed=SEED):
+    """Seeded arguments of K1's flat-mask mode in tiles of ``tile`` entries
+    (0: one tile of all Be): (pack, kmem, vmem, x, aux, H, vmw, self_mask,
+    cross_mask, tile). Width 1: the identity band (person rows, vmw, the
+    person mask); otherwise the full masked cross (the block mask, plus
+    the alignment band of that width when it is not 0; no aux or vmw)."""
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.seq import alignment_mask
+
+    tile = tile or Be
+    lm = lq - 1
+    pack, kmem, vmem, x, aux, H, vmw = decoder_case(dev, Be=Be, lq=lq, F=F, H=H, L=L, FF=FF, seed=seed)
+    if width == 1:
+        self_mask = kd.build_masks(tile, lq, lm, None, dev)[0]
+        return pack, kmem, vmem, x, aux, H, vmw, self_mask, kd.build_person_mask(tile, lm, dev), tile
+    self_mask, cross_mask = kd.build_masks(tile, lq, lm, alignment_mask(0, lm, width) if width else None, dev)
+    return pack, kmem, vmem, x, None, H, None, self_mask, cross_mask, tile
+
+
+def decoder_flat_work(args):
+    """(flops, bytes) of one flat-mode call. The attention counts the
+    (query, key) pairs its masks leave unmasked (the work these inputs
+    need), each 2 x 2 x dh operations per head (scores and PV)."""
+    pack, kmem, vmem, x, aux, H, vmw, self_mask, cross_mask, tile = args
+    Be, lq, F = x.shape
+    L, FF = pack["wqkv"].shape[0], pack["wf1"].shape[-1]
+    R, dh, n_tiles = Be * lq, F // H, Be // tile
+    live = lambda m: int((m > -1e29).sum()) * n_tiles
+    per_layer = (2 * R * F * 3 * F + 2 * R * F * F + 2 * R * F * FF * 2  # QKV, self-out, FFN
+                 + 4 * H * dh * live(self_mask) + 4 * H * dh * live(cross_mask)  # masked attentions
+                 + 2 * (Be if vmw is not None else R) * F * F * 2)  # wcq, wco: person rows or every row
+    tensors = list(pack.values()) + [kmem, vmem, x, self_mask, cross_mask] + [t for t in (aux, vmw) if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + x.numel() * 4
     return L * per_layer, nbytes
 
 

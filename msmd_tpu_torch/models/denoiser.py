@@ -13,10 +13,12 @@ dropout, the width-1 band stays an identity V-gather when
 ``cfg.identity_band_train`` (the default) and is a masked softmax
 otherwise, the sinusoidal PE takes dropout 0.1 when the PE is not
 learned, and ``cfg.fused_ffn_train`` sends every layer's FFN block through
-K7 (``msmd_tpu/models/denoiser.py``:169-226). In eval mode the decoder
-takes ``fused_ffn`` (K6), ``attn_kernel`` (K8) and ``fused_tail`` (K9,
-only with the identity band and a memory K/V cache, as
-``msmd_tpu/models/denoiser.py``:221-226 gates it); see
+K7 (``msmd_tpu/models/denoiser.py``:169-226). In eval mode
+``fused_decoder`` (the sampler's packed weights, memory K/V and masks)
+runs the whole stack through K1 per-entry, K1 flat-mask or K2; otherwise
+the decoder takes ``fused_ffn`` (K6), ``attn_kernel`` (K8) and
+``fused_tail`` (K9, only with the identity band and a memory K/V cache,
+as ``msmd_tpu/models/denoiser.py``:221-226 gates it); see
 ``models/transformer.py``. ``keep_separate`` returns the dynamic part, the
 per-basis static offsets and the alphas apart (the style-basis
 introspection sampler's view).
@@ -142,12 +144,20 @@ class DenoisingNetwork(nn.Module):
             memory_mask = alignment_mask(n_prev, n_cur, cfg.align_mask_width)
 
         if fused_decoder is not None:
-            from msmd_tpu_torch.ops.kernels.decoder import fused_decoder_forward
+            # the decoder-kernel path (``msmd_tpu/models/denoiser.py``:186-217):
+            # K2 with ``layer_outer``, else K1 per-entry, or K1 flat-mask
+            # with the dict's ``self_mask`` / ``cross_mask`` / ``tile_entries``
+            from msmd_tpu_torch.ops.kernels import decoder, decoder_resident
 
-            feat_out = fused_decoder_forward(
-                fused_decoder["pack"], fused_decoder["kmem"], fused_decoder["vmem"],
-                feats_in.float(), fused_decoder["aux"], cfg.n_heads, fused_decoder["vmw"],
-            ).to(dt)
+            fd = fused_decoder
+            args = (fd["pack"], fd["kmem"], fd["vmem"], feats_in.float(), fd["aux"], cfg.n_heads, fd["vmw"])
+            if fd.get("layer_outer", False):
+                feat_out = decoder_resident.fused_decoder_forward_resident(*args)
+            else:
+                feat_out = decoder.fused_decoder_forward(*args, self_mask=fd.get("self_mask"),
+                                                         cross_mask=fd.get("cross_mask"),
+                                                         tile_entries=fd.get("tile_entries", 0))
+            feat_out = feat_out.to(dt)
         else:
             memory = None
             if memory_kv is None:

@@ -14,17 +14,28 @@ coefficient is exactly zero) and caches the memory K/V once per window.
 It takes the routes of the JAX sampler (``msmd_tpu/models/diffusion.py``
 :495-957), with the same gates:
 
-- the decoder-kernel path (``fused_decoder``: None = on for a bf16 model
-  with the width-1 alignment band, True forces it, False turns it off;
-  the JAX signature's switch, kept for parity. Callers leave it at None:
-  True on an f32 model is a test hook that runs the kernels' f32 plain
-  versions on the CPU, and raises on the card, whose kernels take bf16)
-  at batch 1 without a dynamic threshold, with the learnable PE and no
-  head alpha: the whole window is one call of the sampler kernel K3
+- the decoder-kernel path (``fused_decoder``: None = on as below, True
+  forces it, False turns it off; the JAX signature's switch, kept for
+  parity. Callers leave it at None: True on an f32 model is a test hook
+  that runs the kernels' f32 plain versions on the CPU, and raises on the
+  card, whose kernels take bf16) at batch 1 with the width-1 band, without
+  a dynamic threshold, with the learnable PE and no head alpha: the whole
+  window is one call of the sampler kernel K3
   (``ops/kernels/sampler.py::fused_sampler_scan``), or with ``ret_traj``
   one call of K4 (``fused_sampler_step``) per step;
 - the decoder-kernel path otherwise: t = T..1 as a Python loop whose
-  decoder stack is one call of K1 (``ops/kernels/decoder.py``) per step;
+  decoder stack is one call of K1 (``ops/kernels/decoder.py``) per step,
+  in the mode JAX picks (``msmd_tpu/models/diffusion.py``:555-612, see
+  ``decoder_route``): per-entry at ``align_mask_width == 1`` and Be > 4
+  (Be = batch x CFG entries), else flat-mask over tiles of whole entries
+  (tile = Be at Be <= 4, else the largest divisor of Be up to 8), with the
+  identity-band cross at width 1 and the full masked cross otherwise; or,
+  with ``resident`` (the port of ``MSMD_DECODER_RESIDENT=1``) in the
+  per-entry mode at Be > 4 with ``Be * lq * F * 4 <= 40 MiB``, one call of
+  K2 (``ops/kernels/decoder_resident.py``) per step. ``fused_decoder``
+  None is on for a bf16 model without guidance when Be <= 4 or the
+  per-entry mode has a tile whose rows are a multiple of 8 (the TPU
+  kernel's sublane rule, kept so that both packages route alike);
 - otherwise the same loop through the decoder modules (the JAX
   XLA-decoder route). At bf16 every layer's FFN block is K6
   (``ops/kernels/ffn.py``), and two options open the JAX package's
@@ -45,11 +56,14 @@ as the JAX one passes no kernel flag.
 
 The JAX package's ``MSMD_*`` environment switches are not ported; the
 port takes their defaults, and spells the opt-in kernels K8
-(``MSMD_ATTN_KERNEL=1``) and K9 (``MSMD_FUSED_TAIL=1``) as the keyword
-arguments ``attn_kernel`` and ``fused_tail``. For K3 the defaults are
-padded rows (implicit here: the attention kernel masks the ragged edge),
-the f32 hoisted ``vmw``, concat row builds, no merged heads and no
-block-diagonal self-attention; K4 is reached through ``ret_traj`` only.
+(``MSMD_ATTN_KERNEL=1``), K9 (``MSMD_FUSED_TAIL=1``) and K2
+(``MSMD_DECODER_RESIDENT=1``) as the keyword arguments ``attn_kernel``,
+``fused_tail`` and ``resident``. The TPU layout option
+``MSMD_DECODER_PAD`` (rows padded to multiples of 8) is not ported. For
+K3 the defaults are padded rows (implicit here: the attention kernel
+masks the ragged edge), the f32 hoisted ``vmw``, concat row builds, no
+merged heads and no block-diagonal self-attention; K4 is reached
+through ``ret_traj`` only.
 At batch <= 4 all T noise draws are taken up front, as the JAX sampler
 precomputes them.
 """
@@ -70,9 +84,10 @@ from msmd_tpu_torch.models.audio import AudioEncoder
 from msmd_tpu_torch.models.denoiser import DenoisingNetwork
 from msmd_tpu_torch.models.layers import Dense, init_params, uniform
 from msmd_tpu_torch.ops.kernels import sampler as kernel_sampler
-from msmd_tpu_torch.ops.kernels.decoder import build_vmw, pack_decoder_weights, pack_memory_kv, person_rows
+from msmd_tpu_torch.ops.kernels.decoder import (build_masks, build_person_mask, build_vmw, pack_decoder_weights,
+                                                pack_memory_kv, person_rows)
 from msmd_tpu_torch.ops.schedule import DiffusionSchedule
-from msmd_tpu_torch.ops.seq import linear_interpolate, pad_audio
+from msmd_tpu_torch.ops.seq import alignment_mask, linear_interpolate, pad_audio
 
 
 class MSMD(nn.Module):
@@ -388,6 +403,59 @@ def _ddpm_table(sched: DiffusionSchedule, target: str, flexibility: float) -> np
     return np.stack([A, B, sig] + [z] * 5, axis=1).astype(f32)
 
 
+DECODER_TILE = 8  # entries per row tile at most (MSMD_DECODER_TILE's default)
+RESIDENT_MAX_BYTES = 40 * 1024 * 1024  # K2's gate on the f32 activations (diffusion.py:607-612)
+
+
+def decoder_route(align_mask_width: int, Be: int, lq: int) -> Tuple[bool, int]:
+    """(per_entry, tile) of the decoder-kernel path for Be entries of lq
+    rows, as ``msmd_tpu/models/diffusion.py``:555-599 picks them:
+    per-entry only at width 1 and Be > 4 with a tile of at most 8 entries
+    whose rows are a multiple of 8 (the largest such); otherwise flat-mask
+    mode with tile = Be at Be <= 4, else the largest divisor of Be up to 8."""
+    if Be <= 4:
+        return False, Be
+    divisors = [d for d in range(1, DECODER_TILE + 1) if Be % d == 0]
+    viable = [d for d in divisors if (d * lq) % 8 == 0]
+    if align_mask_width == 1 and viable:
+        return True, max(viable)
+    return False, max(divisors)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_masks(tile: int, n_prev: int, n_motions: int, align_mask_width: int, device):
+    """The flat-mask mode's (self mask, cross mask) on ``device``, made
+    once: at width 1 the cross mask is the person mask (tile, tile*lm),
+    otherwise the (tile*lq, tile*lm) block mask with the alignment band
+    (none at width 0). Shared; do not write to them."""
+    lm = n_prev + n_motions
+    if align_mask_width == 1:
+        return build_masks(tile, lm + 1, lm, None, device)[0], build_person_mask(tile, lm, device)
+    align = alignment_mask(n_prev, n_motions, align_mask_width) if align_mask_width > 0 else None
+    return build_masks(tile, lm + 1, lm, align, device)
+
+
+def fused_decoder_args(dn: DenoisingNetwork, cfg: MSMDConfig, dtype, memory_kv, Be: int, n_prev: int,
+                       n_motions: int, device, resident: bool = False) -> dict:
+    """What the denoiser's decoder-kernel path takes for one window of Be
+    entries (``msmd_tpu/models/diffusion.py``:591-621, :855-870): the
+    packed weights and memory K/V, the tile and, per mode, the person rows
+    and the hoisted ``vmw`` (width 1), the flat-mode masks, and
+    ``layer_outer`` (K2) under JAX's resident gate."""
+    lq = 1 + n_prev + n_motions
+    per_entry, tile = decoder_route(cfg.align_mask_width, Be, lq)
+    pack = pack_decoder_weights(dn.transformer, dtype=dtype)
+    kmem, vmem = pack_memory_kv(memory_kv, dtype=dtype)
+    fused = dict(pack=pack, kmem=kmem, vmem=vmem, aux=None, vmw=None, tile_entries=tile,
+                 layer_outer=per_entry and resident and Be * lq * cfg.feature_dim * 4 <= RESIDENT_MAX_BYTES)
+    if cfg.align_mask_width == 1:
+        fused.update(aux=person_rows(Be, lq, device), vmw=build_vmw(vmem, pack["wco"], lq, out_dtype=dtype))
+    if not per_entry:
+        fused["self_mask"], fused["cross_mask"] = _flat_masks(tile, n_prev, n_motions, cfg.align_mask_width,
+                                                              torch.device(device))
+    return fused
+
+
 def batch1_sampler_args(dn: DenoisingNetwork, cfg: MSMDConfig, dtype, stacks: dict, memory_kv, n_motions: int,
                         flexibility: float = 0.0) -> dict:
     """What the batch-1 sampler kernels K3 and K4 take, built in f32 as
@@ -456,6 +524,7 @@ def sample(
     guidance_values=None,
     attn_kernel: bool = False,
     fused_tail: bool = False,
+    resident: bool = False,
 ):
     """DDPM sampling over t = T..1 (reference: model.py:282-440), and with
     ``guidance_indice``/``guidance_values`` the naive inpainting of
@@ -467,8 +536,8 @@ def sample(
     ``noise_override``: optional (T, B, n_motions, D) per-step z in place
     of the generator's draws (index 0 is the first step, t = T), so tests
     can hand both packages the same noise. ``fused_decoder``,
-    ``attn_kernel``, ``fused_tail`` and the routes they open are in the
-    module docstring.
+    ``attn_kernel``, ``fused_tail``, ``resident`` and the routes they open
+    are in the module docstring.
 
     Returns (motion (B, n_motions, D) f32, motion_at_T, audio_feat), with
     the full trajectory (T+1, B, n_motions, D; index t holds x_t) in place
@@ -488,10 +557,11 @@ def sample(
     E = stacks["n_entries"]
     T = sched.num_steps
     guided = guidance_indice is not None
+    n_prev = stacks["prev_motion_in"].shape[1]
+    Be, lq = B * E, 1 + n_prev + n_motions
     if fused_decoder is None:
-        fused_decoder = model.dtype == torch.bfloat16 and cfg.align_mask_width == 1 and not guided
-    elif fused_decoder and cfg.align_mask_width != 1:
-        raise NotImplementedError("the decoder kernel's flat-mask mode (align_mask_width != 1) is not ported")
+        fused_decoder = (model.dtype == torch.bfloat16 and not guided
+                         and (Be <= 4 or decoder_route(cfg.align_mask_width, Be, lq)[0]))
     if noise_override is None and B <= 4:
         noise_override = _randn((T,) + tuple(motion_at_T.shape), generator, dev)
 
@@ -502,18 +572,14 @@ def sample(
         dn = copy.deepcopy(dn).to(torch.bfloat16)
     memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
 
-    if (fused_decoder and B == 1 and dynamic_threshold is None and not cfg.no_use_learnable_pe
-            and not model.use_head_alpha and not guided):
+    if (fused_decoder and B == 1 and cfg.align_mask_width == 1 and dynamic_threshold is None
+            and not cfg.no_use_learnable_pe and not model.use_head_alpha and not guided):
         return _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise_override, audio_feat,
                               flexibility, ret_traj)
 
     fused = None
     if fused_decoder:
-        lq = 1 + stacks["prev_motion_in"].shape[1] + n_motions
-        pack = pack_decoder_weights(dn.transformer, dtype=model.dtype)
-        kmem, vmem = pack_memory_kv(memory_kv, dtype=model.dtype)
-        fused = dict(pack=pack, kmem=kmem, vmem=vmem, aux=person_rows(B * E, lq, dev),
-                     vmw=build_vmw(vmem, pack["wco"], lq, out_dtype=model.dtype))
+        fused = fused_decoder_args(dn, cfg, model.dtype, memory_kv, Be, n_prev, n_motions, dev, resident)
     # the XLA-decoder route's kernels (``msmd_tpu/models/diffusion.py``:627-650)
     fused_ffn = fused is None and model.dtype == torch.bfloat16
     fused_tail = fused_ffn and fused_tail and cfg.align_mask_width == 1

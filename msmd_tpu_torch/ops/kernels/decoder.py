@@ -21,14 +21,27 @@ compute what ``_layer_compute`` computes and round where it rounds:
 Layouts are the JAX package's: weights (L, in, out), memory K/V
 (L, Be*lm, F) batch-major with head-contiguous columns, entries
 entry-major in Be.
+
+The flat-mask mode (``fused_decoder_forward`` with ``self_mask``; the JAX
+kernel's ``_layer_compute`` with a self mask, ``decoder_kernel.py``
+:392-400 and :459-467) cuts the batch into tiles of ``tile_entries``
+whole entries and runs each attention over all of a tile's rows with an
+additive f32 mask from ``build_masks`` (``NEG`` where a query may not
+look): the self-attention over the tile's flattened rows, and either the
+identity-band cross (width 1: the person rows through the person mask,
+the motion rows through ``vmw``) or, at ``align_mask_width != 1``, the
+full masked cross-attention of every row. In the bf16 softmax the mask
+is added before the ``_clamp_unmasked`` floor test (scores at or below
+``MASK_FLOOR`` are not clamped, so their ``exp`` is exactly 0).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from msmd_tpu_torch import _build
@@ -83,6 +96,36 @@ def person_rows(n_entries: int, lq: int, device=None) -> torch.Tensor:
     return (torch.arange(n_entries, dtype=torch.int32, device=device) * lq).contiguous()
 
 
+NEG = -1e30  # the additive mask value (decoder_kernel.py:44)
+MASK_FLOOR = -1e29  # scores at or below are structural masks (decoder_kernel.py:151)
+
+
+def build_masks(tile: int, lq: int, lm: int, alignment_bool=None, device=None):
+    """Additive f32 masks over one tile's flattened rows, as
+    ``decoder_kernel.py::build_masks`` builds them: the self mask
+    (tile*lq, tile*lq) is block-diagonal (entry isolation); the cross mask
+    (tile*lq, tile*lm) is block-diagonal plus, where given, the
+    alignment band (bool (lq, lm), True = disallowed) tiled over all
+    blocks (NEG + NEG stays an effective -inf)."""
+    eye = np.eye(tile, dtype=np.float32)
+    self_mask = (1.0 - np.kron(eye, np.ones((lq, lq), np.float32))) * NEG
+    cross_mask = (1.0 - np.kron(eye, np.ones((lq, lm), np.float32))) * NEG
+    if alignment_bool is not None:
+        align = np.where(np.asarray(alignment_bool), np.float32(NEG), np.float32(0.0))
+        cross_mask = cross_mask + np.tile(align, (tile, tile))
+    return (torch.as_tensor(self_mask.astype(np.float32), device=device),
+            torch.as_tensor(cross_mask.astype(np.float32), device=device))
+
+
+def build_person_mask(tile: int, lm: int, device=None) -> torch.Tensor:
+    """The identity band's person mask (tile, tile*lm) f32: the person
+    row of entry e may attend only its own entry's memory block
+    (``build_identity_band_aux``'s ``person_mask``)."""
+    eye = np.eye(tile, dtype=np.float32)
+    return torch.as_tensor(((1.0 - np.kron(eye, np.ones((1, lm), np.float32))) * NEG).astype(np.float32),
+                           device=device)
+
+
 def build_vmw(vmem: torch.Tensor, wco: torch.Tensor, lq: int, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The hoisted, projected identity-band V-gather ``(sel_vm @ vm) @ wco``
     (``decoder_kernel.py::build_vmw``): motion row e*lq + 1 + i takes
@@ -113,7 +156,8 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
 
 
-def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str = "bf16") -> torch.Tensor:
+def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str = "bf16",
+                         self_mask=None, cross_mask=None, tile: int = 0) -> torch.Tensor:
     """The decoder stack in plain PyTorch with the kernels' rounding points
     and formula choices. x (Be, lq, F) -> (Be, lq, F) float32.
 
@@ -121,53 +165,85 @@ def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str
     ``csrc/decoder_common.cuh::CrossMode``: "bf16" (K1) adds bf16(person
     output @ wco) to a bf16 ``vmw``; "f32" (K3) keeps both in f32; "gather"
     (K4) takes [bf16(person output) | memory V rows] @ wco over all rows
-    and reads no ``vmw``."""
+    and reads no ``vmw``.
+
+    Flat-mask mode (``self_mask`` given, tiles of ``tile`` entries, 0 =
+    all): the self-attention runs over each tile's flattened rows with
+    ``self_mask``; with ``vmw`` the person rows attend the tile's memory
+    through the person mask ``cross_mask`` (tile, tile*lm), without it
+    every row attends through ``cross_mask`` (tile*lq, tile*lm) and the
+    result goes through wco (the full masked cross)."""
     Be, lq, F = x.shape
     L = pack["wqkv"].shape[0]
     H, dh = n_heads, F // n_heads
     lm = lq - 1
+    flat = self_mask is not None
+    T = tile or Be
+    nt = Be // T
     cdt = pack["wqkv"].dtype
     fast = cdt == torch.bfloat16
     scale = 1.0 / math.sqrt(dh)
     rnd = lambda a: a.to(cdt).float()  # the left-operand cast of every product
     dot = lambda a, w: rnd(a) @ w.float()
-    rows = aux.long()
 
-    def attend(q, k, v):
-        # q (.., Lq, dh), k/v (.., Lk, dh), all f32; returns f32 (.., Lq, dh)
+    def attend(q, k, v, mask=None):
+        # q (.., Lq, dh), k/v (.., Lk, dh), all f32; mask (Lq, Lk) additive;
+        # returns f32 (.., Lq, dh)
         s = rnd(q) @ rnd(k).transpose(-1, -2)
+        if mask is not None:
+            s = s + mask.float()
         if fast:
-            e = torch.exp(torch.clamp(s - 20.0, -80.0, 60.0))
+            sh = s - 20.0
+            e = torch.exp(torch.where(sh > MASK_FLOOR, torch.clamp(sh, -80.0, 60.0), sh))
             return (rnd(e) @ rnd(v)) * torch.reciprocal(e.sum(dim=-1, keepdim=True))
         return torch.softmax(s, dim=-1) @ v
+
+    def tiles(t, rows):  # (nt * rows, F) -> (nt, H, rows, dh)
+        return t.reshape(nt, rows, H, dh).transpose(1, 2)
+
+    def untile(t):  # (nt, H, rows, dh) -> (nt * rows, F)
+        return t.transpose(1, 2).reshape(-1, F)
 
     x = x.float().reshape(Be * lq, F)
     for l in range(L):
         ln_s, ln_b = pack["ln_scale"][l].float(), pack["ln_bias"][l].float()
         qkv = dot(x, pack["wqkv"][l]) + pack["bqkv"][l].float()
-        heads = lambda t: t.reshape(Be, lq, H, dh).transpose(1, 2)
-        q, k, v = heads(qkv[:, :F] * scale), heads(qkv[:, F:2 * F]), heads(qkv[:, 2 * F:])
-        sa = attend(q, k, v).transpose(1, 2).reshape(Be * lq, F)
+        q, k, v = qkv[:, :F] * scale, qkv[:, F:2 * F], qkv[:, 2 * F:]
+        if flat:
+            sa = untile(attend(tiles(q, T * lq), tiles(k, T * lq), tiles(v, T * lq), self_mask))
+        else:
+            heads = lambda t: t.reshape(Be, lq, H, dh).transpose(1, 2)
+            sa = attend(heads(q), heads(k), heads(v)).transpose(1, 2).reshape(Be * lq, F)
         sa = dot(sa, pack["wso"][l]) + pack["bso"][l].float()
         x = _layernorm(x + sa, ln_s[0], ln_b[0])
 
-        xp = rnd(x[rows])  # person rows, read through the bf16 copy of x
-        qp = dot(xp, pack["wcq"][l]) + pack["bcq"][l].float()
-        qh = (qp * scale).reshape(Be, H, 1, dh)
-        km = kmem[l].float().reshape(Be, lm, H, dh).transpose(1, 2)
-        vm = vmem[l].float().reshape(Be, lm, H, dh).transpose(1, 2)
-        person = attend(qh, km, vm).reshape(Be, F)
-        if cross == "gather":
-            ca = torch.empty(Be, lq, F, dtype=torch.float32, device=x.device)
-            ca[:, 0] = rnd(person)
-            ca[:, 1:] = vmem[l].float().reshape(Be, lm, F)
-            ca = dot(ca.reshape(Be * lq, F), pack["wco"][l]) + pack["bco"][l].float()
+        km, vm = kmem[l].float(), vmem[l].float()
+        if flat and vmw is None:  # full masked cross-attention of every row
+            qc = (dot(x, pack["wcq"][l]) + pack["bcq"][l].float()) * scale
+            ca = untile(attend(tiles(qc, T * lq), tiles(km, T * lm), tiles(vm, T * lm), cross_mask))
+            ca = dot(ca, pack["wco"][l]) + pack["bco"][l].float()
+            x = _layernorm(x + ca, ln_s[1], ln_b[1])
         else:
-            po = dot(person, pack["wco"][l])
-            ca = vmw[l].float().clone()
-            ca[rows] = ca[rows] + (rnd(po) if cross == "bf16" else po)
-            ca = ca + pack["bco"][l].float()
-        x = _layernorm(x + ca, ln_s[1], ln_b[1])
+            rows = aux.long()
+            xp = rnd(x[rows])  # person rows, read through the bf16 copy of x
+            qp = (dot(xp, pack["wcq"][l]) + pack["bcq"][l].float()) * scale
+            if flat:  # the tile's person rows against its memory, person-masked
+                person = untile(attend(tiles(qp, T), tiles(km, T * lm), tiles(vm, T * lm), cross_mask))
+            else:
+                kh = km.reshape(Be, lm, H, dh).transpose(1, 2)
+                vh = vm.reshape(Be, lm, H, dh).transpose(1, 2)
+                person = attend(qp.reshape(Be, H, 1, dh), kh, vh).reshape(Be, F)
+            if cross == "gather":
+                ca = torch.empty(Be, lq, F, dtype=torch.float32, device=x.device)
+                ca[:, 0] = rnd(person)
+                ca[:, 1:] = vm.reshape(Be, lm, F)
+                ca = dot(ca.reshape(Be * lq, F), pack["wco"][l]) + pack["bco"][l].float()
+            else:
+                po = dot(person, pack["wco"][l])
+                ca = vmw[l].float().clone()
+                ca[rows] = ca[rows] + (rnd(po) if cross == "bf16" else po)
+                ca = ca + pack["bco"][l].float()
+            x = _layernorm(x + ca, ln_s[1], ln_b[1])
 
         h1 = dot(x, pack["wf1"][l]) + pack["bf1"][l].float()
         h1 = gelu_tanh(h1) if fast else torch.nn.functional.gelu(h1)
@@ -176,14 +252,17 @@ def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str
     return x.reshape(Be, lq, F)
 
 
-def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw) -> torch.Tensor:
+def fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, self_mask=None, cross_mask=None,
+                                tile_entries: int = 0) -> torch.Tensor:
     """K1 in plain PyTorch: ``decoder_layers_plain`` with the bf16 cross
-    output. x (Be, lq, F) -> (Be, lq, F) float32."""
-    return decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads, vmw, cross="bf16")
+    output, per-entry or (``self_mask`` given) flat-mask mode. x (Be, lq,
+    F) -> (Be, lq, F) float32."""
+    return decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads, vmw, cross="bf16", self_mask=self_mask,
+                                cross_mask=cross_mask, tile=tile_entries)
 
 
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernel's wrappers
 # ---------------------------------------------------------------------------
 
 _PACK_KEYS = ("wqkv", "bqkv", "wso", "bso", "wcq", "bcq", "wco", "bco",
@@ -195,70 +274,119 @@ def _lib():
     if not getattr(lib, "_msmd_typed", False):
         lib.msmd_decoder_forward.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.msmd_decoder_forward.restype = ctypes.c_int
+        lib.msmd_decoder_forward_flat.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.msmd_decoder_forward_flat.restype = ctypes.c_int
         lib.msmd_decoder_workspace_bytes.argtypes = [ctypes.c_int] * 4
         lib.msmd_decoder_workspace_bytes.restype = ctypes.c_size_t
         lib._msmd_typed = True
     return lib
 
 
-def _check_inputs(pack, kmem, vmem, x, aux, n_heads, vmw):
+def check_decoder_inputs(name: str, pack, kmem, vmem, x, n_heads, **extra):
+    """Raise unless the pack, the memory K/V and x have the shapes, types
+    and layout the decoder kernels take (bf16 pack, head dim 64, F and
+    FFN multiples of 128, 2 <= lq <= 128), nor each of ``extra``'s
+    ``name=(tensor, shape, dtype)``."""
     Be, lq, F = x.shape
     L = pack["wqkv"].shape[0]
     FF = pack["wf1"].shape[-1]
     lm = lq - 1
+    bf, f32 = torch.bfloat16, torch.float32
     want = {
         "wqkv": (L, F, 3 * F), "bqkv": (L, 1, 3 * F), "wso": (L, F, F), "bso": (L, 1, F),
         "wcq": (L, F, F), "bcq": (L, 1, F), "wco": (L, F, F), "bco": (L, 1, F),
         "wf1": (L, F, FF), "bf1": (L, 1, FF), "wf2": (L, FF, F), "bf2": (L, 1, F),
         "ln_scale": (L, 3, F), "ln_bias": (L, 3, F),
     }
-    named = {k: pack[k] for k in _PACK_KEYS}
-    named.update(kmem=kmem, vmem=vmem, x=x, aux=aux, vmw=vmw)
-    want.update(kmem=(L, Be * lm, F), vmem=(L, Be * lm, F), x=(Be, lq, F), aux=(Be,), vmw=(L, Be * lq, F))
-    for name, t in named.items():
-        dtype = (torch.float32 if name in ("x", "ln_scale", "ln_bias")
-                 else torch.int32 if name == "aux" else torch.bfloat16)
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"fused_decoder_forward: {name} must be on {x.device}, got {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"fused_decoder_forward: {name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"fused_decoder_forward: {name} has shape {tuple(t.shape)}, expected {want[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_decoder_forward: {name} must be contiguous")
+    named = {k: (pack[k], want[k], f32 if k.startswith("ln") else bf) for k in _PACK_KEYS}
+    named.update(kmem=(kmem, (L, Be * lm, F), bf), vmem=(vmem, (L, Be * lm, F), bf), x=(x, (Be, lq, F), f32))
+    named.update(extra)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be on a CUDA device, got {x.device}")
+    _build.check_args(name, x.device, **named)
     if F // n_heads != 64 or F % n_heads or F % 128 or FF % 128:
-        raise ValueError(f"fused_decoder_forward: kernel needs head dim 64 and F, FFN multiples of 128 (F={F}, H={n_heads}, FFN={FF})")
+        raise ValueError(f"{name}: kernel needs head dim 64 and F, FFN multiples of 128 (F={F}, H={n_heads}, FFN={FF})")
     if not 2 <= lq <= 128:
-        raise ValueError(f"fused_decoder_forward: kernel needs 2 <= lq <= 128, got {lq}")
+        raise ValueError(f"{name}: kernel needs 2 <= lq <= 128, got {lq}")
+
+
+def _launch_args(pack, kmem, vmem, x, ws_bytes):
+    """(out, workspace, the leading pointer arguments of every entry point)."""
+    out = torch.empty_like(x)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    ptr = _build.ptr
+    return out, ws, [ptr(x), ptr(out), ptr(ws), *(ptr(pack[k]) for k in _PACK_KEYS), ptr(kmem), ptr(vmem)]
 
 
 def fused_decoder_forward(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, x: torch.Tensor,
-                          aux: torch.Tensor, n_heads: int, vmw: torch.Tensor) -> torch.Tensor:
-    """All decoder layers of one sampler step, per-entry identity-band
-    mode. x (Be, lq, F) f32 -> (Be, lq, F) f32.
+                          aux: Optional[torch.Tensor], n_heads: int, vmw: Optional[torch.Tensor],
+                          self_mask: Optional[torch.Tensor] = None, cross_mask: Optional[torch.Tensor] = None,
+                          tile_entries: int = 0) -> torch.Tensor:
+    """All decoder layers of one sampler step. x (Be, lq, F) f32 -> (Be,
+    lq, F) f32. Without ``self_mask``: the per-entry identity-band mode
+    (aux the person rows, vmw the hoisted projected V-gather). With it:
+    the flat-mask mode, ``fused_decoder_forward_flat``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     kernel (bf16 pack, head dim 64) or raises: there is no fallback."""
-    if x.device.type == "cpu":
+    if self_mask is not None:
+        return fused_decoder_forward_flat(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask,
+                                          tile_entries)
+    if _build.on_cpu("fused_decoder_forward", x):
         return fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads, vmw)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_decoder_forward: unsupported device {x.device}")
-    _check_inputs(pack, kmem, vmem, x, aux, n_heads, vmw)
     Be, lq, F = x.shape
     L, FF = pack["wqkv"].shape[0], pack["wf1"].shape[-1]
+    check_decoder_inputs("fused_decoder_forward", pack, kmem, vmem, x, n_heads,
+                         aux=(aux, (Be,), torch.int32), vmw=(vmw, (L, Be * lq, F), torch.bfloat16))
     lib = _lib()
-    out = torch.empty_like(x)
-    ws = torch.empty(lib.msmd_decoder_workspace_bytes(Be, lq, F, FF), dtype=torch.uint8, device=x.device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    rc = lib.msmd_decoder_forward(
-        ptr(x), ptr(out), ptr(ws), *(ptr(pack[k]) for k in _PACK_KEYS),
-        ptr(kmem), ptr(vmem), ptr(vmw), ptr(aux),
-        Be, lq, F, n_heads, L, FF,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+    out, ws, head = _launch_args(pack, kmem, vmem, x, lib.msmd_decoder_workspace_bytes(Be, lq, F, FF))
+    rc = lib.msmd_decoder_forward(*head, _build.ptr(vmw), _build.ptr(aux), Be, lq, F, n_heads, L, FF,
+                                  _build.stream(x.device))
     _build.check(lib, rc, "fused_decoder_forward")
     fused_decoder_forward.launches += 1
     return out
 
 
 fused_decoder_forward.launches = 0
+
+
+def fused_decoder_forward_flat(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, x: torch.Tensor,
+                               aux: Optional[torch.Tensor], n_heads: int, vmw: Optional[torch.Tensor],
+                               self_mask: torch.Tensor, cross_mask: torch.Tensor,
+                               tile_entries: int = 0) -> torch.Tensor:
+    """K1's flat-mask mode: tiles of ``tile_entries`` whole entries (0 =
+    all Be), ``self_mask`` (tile*lq, tile*lq) f32. With ``vmw`` (width
+    1): ``aux`` the person rows and ``cross_mask`` the person mask (tile,
+    tile*lm); without (aux None): ``cross_mask`` (tile*lq, tile*lm), the
+    full masked cross-attention. x (Be, lq, F) f32 -> (Be, lq, F) f32.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    if _build.on_cpu("fused_decoder_forward_flat", x):
+        return fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask,
+                                           tile_entries)
+    Be, lq, F = x.shape
+    L, FF = pack["wqkv"].shape[0], pack["wf1"].shape[-1]
+    T = tile_entries or Be
+    if Be % T:
+        raise ValueError(f"fused_decoder_forward_flat: tile {T} does not divide {Be} entries")
+    if (vmw is None) != (aux is None):
+        raise ValueError("fused_decoder_forward_flat: give vmw and aux together (width 1) or neither")
+    f32 = torch.float32
+    extra = dict(self_mask=(self_mask, (T * lq, T * lq), f32))
+    if vmw is not None:
+        extra.update(aux=(aux, (Be,), torch.int32), vmw=(vmw, (L, Be * lq, F), torch.bfloat16),
+                     cross_mask=(cross_mask, (T, T * (lq - 1)), f32))
+    else:
+        extra.update(cross_mask=(cross_mask, (T * lq, T * (lq - 1)), f32))
+    check_decoder_inputs("fused_decoder_forward_flat", pack, kmem, vmem, x, n_heads, **extra)
+    lib = _lib()
+    out, ws, head = _launch_args(pack, kmem, vmem, x, lib.msmd_decoder_workspace_bytes(Be, lq, F, FF))
+    opt = lambda t: _build.ptr(t) if t is not None else ctypes.c_void_p(None)
+    rc = lib.msmd_decoder_forward_flat(*head, opt(vmw), opt(aux), _build.ptr(self_mask), _build.ptr(cross_mask),
+                                       Be, lq, F, n_heads, L, FF, T, _build.stream(x.device))
+    _build.check(lib, rc, "fused_decoder_forward_flat")
+    fused_decoder_forward_flat.launches += 1
+    return out
+
+
+fused_decoder_forward_flat.launches = 0

@@ -27,6 +27,11 @@ Prints JSON lines:
   kernels (``csrc/ffn.cu``: its two GEMMs and its LayerNorm) apart from
   the torch ops around them, and the host gap (un-profiled wall time
   minus the summed device time: the card waiting on the host).
+- ``serving``: one round of ``StreamingBatcher`` at 48 slots (48 streams
+  of 4 s of seeded audio; HuBERT per window, 500 steps, the motion
+  fetched), measured as ``main_path`` is, once through K1 (per-entry) and
+  once with ``resident=True`` through K2, with the device time of the
+  decoder kernels apart from the torch ops around them and the host gap.
 - ``train``: one two-clip training step of the slice's training
   configuration (batch 16, bf16, ``fused_ffn_train``; see
   ``measure.build_train_path``), measured the same way, with the device
@@ -53,6 +58,8 @@ _SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cr
 _K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
 # the guided window runs no K1, so these are K6's (csrc/ffn.cu) there
 _K6_KERNELS = ("gemm_kernel", "ln_kernel")
+# a serving round through K2 launches only this of the decoder's kernels
+_K2_KERNELS = ("resident_kernel",)
 
 
 def _short(name: str) -> str:
@@ -60,7 +67,7 @@ def _short(name: str) -> str:
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
     m = re.search(r"(?<![a-z_])(tgemm|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
-                  r"cross_rows|colsum_partial|colsum_final|attn_mid)_kernel"
+                  r"cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|resident)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
@@ -132,8 +139,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from msmd_tpu_torch.measure import (BATCH, SEED, build_main_path, decoder_case, generate, sampler_case,
-                                        seeded_audio)
+    from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, generate,
+                                        sampler_case, seeded_audio)
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
@@ -203,7 +210,39 @@ def main() -> int:
         "device_busy_ms": busy, "device_busy_share": busy / wall_ms, "host_gap_ms": wall_ms - busy,
         "k6_kernels_ms": k6, "other_kernels_ms": busy - k6, "top_kernels_ms": dict(list(by_kernel.items())[:25]),
     }), flush=True)
-    del model, style, fused, inputs
+    del inputs
+
+    from msmd_tpu_torch.serving import StreamingBatcher
+
+    streams = [(f"s{i}", SEED + 300 + i, seeded_audio(cfg.n_motions / cfg.fps, SEED + 300 + i))
+               for i in range(BATCH)]
+    style_np = style.reshape(-1).cpu().numpy()
+
+    def serve_round(resident):
+        bat = StreamingBatcher(model, max_slots=BATCH, cfg_scale=CFG_SCALE, resident=resident, device=dev)
+        for sid, seed, audio in streams:
+            bat.add_stream(sid, seed, style=style_np)
+            bat.push_audio(sid, audio, final=True)
+        bat.run_until_drained()
+
+    for resident, family in ((False, _DECODER_KERNELS), (True, _K2_KERNELS)):
+        serve_round(resident)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_round(resident)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = profile_device_ms(lambda: serve_round(resident))
+        busy = sum(by_kernel.values())
+        stack = sum(v for k, v in by_kernel.items() if k.split("<")[0] in family)
+        print(json.dumps({
+            "phase": "serving", "slots": BATCH, "rounds": 1, "resident": resident, "diff_steps": cfg.n_diff_steps,
+            "wall_ms": wall_ms, "audio_s_per_s": BATCH * cfg.n_motions / cfg.fps / (wall_ms / 1e3),
+            "device_busy_ms": busy, "device_busy_share": busy / wall_ms, "host_gap_ms": wall_ms - busy,
+            "decoder_kernel_ms": stack, "other_kernels_ms": busy - stack,
+            "top_kernels_ms": dict(list(by_kernel.items())[:25]),
+        }), flush=True)
+    del model, style, fused
 
     from msmd_tpu_torch.measure import build_train_path, run_train_steps, train_batch
 

@@ -163,9 +163,16 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
     from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln
     from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail
 
+    from msmd_tpu_torch.ops.kernels.decoder import fused_decoder_forward_flat
+    from msmd_tpu_torch.ops.kernels.decoder_resident import fused_decoder_forward_resident
+
     x = torch.empty(2, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_decoder_forward({}, None, None, x, None, 1, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_decoder_forward_flat({}, None, None, x, None, 1, None, None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_decoder_forward_resident({}, None, None, x, None, 1, None)
     for fn in (fused_sampler_scan, fused_sampler_step):
         with pytest.raises(ValueError, match="unsupported device"):
             fn({}, None, None, torch.empty(8, 67, device="meta"), None, None, None, {}, 1, 2, 8, 67, 2, True,

@@ -7,7 +7,8 @@ file imports no JAX, so it runs where only PyTorch is installed:
 (``-s`` shows each K6, K8 and K9 case's max |err| / max |plain|.)
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
-suite.) Tolerances as in ``chip_smoke.py``: the decoder stack and the
+suite.) Tolerances as in ``chip_smoke.py``: the decoder stack (K1 in both
+modes, K2, which must also equal K1's kernel bit for bit) and the
 batch-1 sampler kernels, the training FFN block K7 (forward, and each
 of its seven gradients) and the guided window's layer kernels K6, K8 and
 K9 at bf16, max |err| / max |plain| <= 2e-2 (the same bf16 rounding
@@ -57,6 +58,68 @@ def test_decoder_wrapper_refuses_what_the_kernel_does_not_take():
         kd.fused_decoder_forward(pack, kmem, vmem, xt, aux, H, vmw)
     with pytest.raises(ValueError, match="must be on"):
         kd.fused_decoder_forward(pack, kmem.cpu(), vmem, x, aux, H, vmw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Be,lq,width,tile", [(2, 16, 1, 2), (4, 111, 1, 4), (2, 111, 0, 2), (6, 37, 0, 3),
+                                              (4, 16, 3, 2)])
+def test_decoder_flat_kernel_matches_plain(Be, lq, width, tile):
+    """K1's flat-mask mode: the identity band, the full masked cross with
+    and without the alignment band, one tile and several, lq not a
+    multiple of 16 or of the 64-row key blocks."""
+    from msmd_tpu_torch.measure import decoder_flat_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+
+    args = decoder_flat_case(_card(), Be=Be, lq=lq, width=width, tile=tile, L=2, seed=9)
+    before = (kd.fused_decoder_forward.launches, kd.fused_decoder_forward_flat.launches)
+    with torch.no_grad():
+        got = kd.fused_decoder_forward(*args[:7], self_mask=args[7], cross_mask=args[8], tile_entries=args[9])
+        want = kd.fused_decoder_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert (kd.fused_decoder_forward.launches, kd.fused_decoder_forward_flat.launches) == (before[0], before[1] + 1)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    print(f"K1 flat Be={Be} lq={lq} width={width} tile={tile} rel_err={_rel(got, want):.3e}")
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_decoder_flat_wrapper_refuses_what_the_kernel_does_not_take():
+    from msmd_tpu_torch.measure import decoder_flat_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+
+    pack, kmem, vmem, x, aux, H, vmw, sm, pm, tile = decoder_flat_case(_card(), Be=4, lq=16, tile=2, L=1)
+    with pytest.raises(ValueError, match="shape"):
+        kd.fused_decoder_forward_flat(pack, kmem, vmem, x, aux, H, vmw, sm[:-1], pm, tile)
+    with pytest.raises(ValueError, match="does not divide"):
+        kd.fused_decoder_forward_flat(pack, kmem, vmem, x, aux, H, vmw, sm, pm, 3)
+    with pytest.raises(ValueError, match="together"):
+        kd.fused_decoder_forward_flat(pack, kmem, vmem, x, None, H, vmw, sm, pm, tile)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        kd.fused_decoder_forward_flat(pack, kmem, vmem, x, aux, H, vmw, sm.bfloat16(), pm, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Be,lq", [(6, 37), (16, 111)])
+def test_resident_kernel_matches_plain_and_k1(Be, lq):
+    """K2 against its plain version, and bit for bit against K1's kernel:
+    the same device functions in the same order."""
+    from msmd_tpu_torch.measure import decoder_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+
+    args = decoder_case(_card(), Be=Be, lq=lq, L=2, seed=10)
+    before = kdr.fused_decoder_forward_resident.launches
+    with torch.no_grad():
+        got = kdr.fused_decoder_forward_resident(*args)
+        k1 = kd.fused_decoder_forward(*args)
+        want = kdr.fused_decoder_forward_resident_plain(*args)
+    torch.cuda.synchronize()
+    assert kdr.fused_decoder_forward_resident.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    print(f"K2 Be={Be} lq={lq} rel_err={_rel(got, want):.3e} max|K2-K1|={float((got - k1).abs().max()):.3e} "
+          f"grid={kdr.resident_grid(lq, args[5])}")
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, k1)
 
 
 @pytest.mark.cuda
