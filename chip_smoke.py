@@ -15,7 +15,14 @@ Phases, each printing one JSON line:
    larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type on an H100 SXM, 989 TFLOP/s bf16 or 67 TFLOP/s f32).
    - decoder stack (K1): Be = 96 (batch 48, two CFG entries), lq = 111,
-     8 x 512 layers, bf16 pack; max |err| / max |plain| <= 2e-2.
+     8 x 512 layers, bf16 pack; max |err| / max |plain| <= 2e-2; timed
+     warm and with the L2 flushed before each call (``ms_l2_flushed``).
+     Under ``products``: its four large products alone at R = 10656 rows
+     (QKV, self-out + LayerNorm, FFN1, FFN2 + LayerNorm) on the Hopper
+     GEMM that K1 runs, each gated the same way against the plain
+     product, with ms and TFLOP/s beside the wmma tile of earlier PRs and
+     ``torch.nn.functional.linear`` at the same shape (a yardstick the
+     port never calls).
    - batch-1 sampler scan (K3): two CFG entries, lq = 111, the same
      layers, 500 steps; gated at max |err| / max |plain| <= 2e-2 over all
      500 steps and over the last 10 (t = 10..1), and timed over all 500.
@@ -51,7 +58,8 @@ Phases, each printing one JSON line:
      ``fused_layer_tail`` over the 10560 motion rows; each at max |err| /
      max |plain| <= 2e-2. ``library_ms`` is ``scaled_dot_product_attention``
      on K8's inputs, and null for K6 and K9, whose unfused torch-op chains
-     are timed as ``chain_ms``.
+     are timed as ``chain_ms``. K8 and SDPA are also timed with the L2
+     flushed before each call.
 4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
@@ -185,14 +193,20 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+# K6, K8 and K9 take 0.02-0.5 ms: enough calls that the card's clocks have
+# risen before the timed ones (20 calls of K8 read slower than its
+# L2-flushed calls once)
+GUIDED_ITERS, GUIDED_WARMUP = 200, 50
+
+
 def _guided_entries(dev):
     """K6, K8 and K9 against their plain versions at the guided batch-48
     shapes, timed beside their bounds, the unfused torch-op chains (K6,
     K9) and ``scaled_dot_product_attention`` (K8)."""
     import torch
 
-    from msmd_tpu_torch.measure import (BF16_PEAK, attn_case, bound, cuda_ms, ffn_case, ffn_chain, sdpa_call,
-                                        tail_case, tail_chain)
+    from msmd_tpu_torch.measure import (BF16_PEAK, attn_case, bound, cuda_ms, cuda_ms_flushed, ffn_case, ffn_chain,
+                                        sdpa_call, tail_case, tail_chain)
     from msmd_tpu_torch.ops.kernels import attn as k8
     from msmd_tpu_torch.ops.kernels import ffn as k6
     from msmd_tpu_torch.ops.kernels import layer_tail as k9
@@ -224,30 +238,76 @@ def _guided_entries(dev):
                 flops, nbytes = k9.tail_work(x_m.shape[0] * x_m.shape[1], x_m.shape[2], w1.shape[0])
                 shape = {"rows": x_m.shape[0] * x_m.shape[1]}
             bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+            flushed = {}
             if chain is None:
                 sdpa, heads = sdpa_call(*args)
-                library_ms, library, chain_ms = cuda_ms(sdpa, 20), "scaled_dot_product_attention", None
+                library_ms, library, chain_ms = cuda_ms(sdpa, GUIDED_ITERS, GUIDED_WARMUP), \
+                    "scaled_dot_product_attention", None
+                flushed = {"ms_l2_flushed": cuda_ms_flushed(lambda: fn(*args), 50),
+                           "library_ms_l2_flushed": cuda_ms_flushed(sdpa, 50)}
                 del heads
             else:
                 library_ms, library = None, "none: no one call computes it"
-                chain_ms = cuda_ms(lambda: chain(*args), 20)
+                chain_ms = cuda_ms(lambda: chain(*args), GUIDED_ITERS, GUIDED_WARMUP)
             entries[key] = dict(
                 name=fn.__name__, route="cuda", source=source, replaces=replaces,
                 max_abs_err=float((got.float() - want.float()).abs().max()), rel_err=rel,
                 tolerance=f"max|err|/max|plain| <= {GATE}", **shape,
-                ms=cuda_ms(lambda: fn(*args), 20), plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
+                ms=cuda_ms(lambda: fn(*args), GUIDED_ITERS, GUIDED_WARMUP),
+                plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, library=library, chain_ms=chain_ms,
-                flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE,
+                flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE, **flushed,
             )
             del got, want, args
     return entries
 
 
+def _product_entries(dev, Be, lq, F, L, FF):
+    """K1's four large products alone at its shapes, on the route K1 takes
+    (the Hopper GEMM at these rows) and on the wmma tile, each against the
+    plain product, timed beside ``torch.nn.functional.linear`` at the same
+    shape (bf16 in and out, cuBLAS; a yardstick the port never calls; it
+    does not take the LayerNorm of the two residual products)."""
+    import torch
+    import torch.nn.functional as tf
+
+    from msmd_tpu_torch.measure import cuda_ms, decoder_products, gemm_case
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    out = {}
+    for name, p in decoder_products(Be, lq, F, L, FF).items():
+        M, N, K, epi = p["M"], p["N"], p["K"], p["epilogue"]
+        if epi is None:  # the person rows (Be rows, gathered) stay on the wmma tile inside K1
+            continue
+        args, kw = gemm_case(dev, M, N, K, epi)
+        call = lambda route: kg.gemm(*args[:3], epi, *args[3:], route=route, **kw)
+        got, want = call("auto"), kg.gemm_plain(*args[:3], epi, *args[3:], **kw)
+        old = call("wmma")
+        torch.cuda.synchronize()
+        if epi == "resid_ln":
+            rel = max(_rel(got[0], want[0]), _rel(got[1].float(), want[1].float()))
+            rel_wmma = _rel(old[0], want[0])
+        else:
+            rel, rel_wmma = _rel(got.float(), want.float()), _rel(old.float(), want.float())
+        w_t = args[1].t().contiguous()
+        flops = 2 * M * N * K
+        ms, wmma_ms = cuda_ms(lambda: call("auto"), 20), cuda_ms(lambda: call("wmma"), 20)
+        linear_ms = cuda_ms(lambda: tf.linear(args[0], w_t, args[2]), 20)
+        plan = kg.gemm_plan(M, N, K, epi)
+        out[name] = dict(M=M, N=N, K=K, epilogue=epi, calls_per_step=L, route=plan["route"], tile=plan["tile"],
+                         grid=plan["grid"], rel_err=rel, rel_err_wmma=rel_wmma, ms=ms, tflops=flops / ms / 1e9,
+                         wmma_ms=wmma_ms, wmma_tflops=flops / wmma_ms / 1e9, linear_ms=linear_ms,
+                         linear_tflops=flops / linear_ms / 1e9,
+                         ok=rel <= GATE and bool(torch.isfinite(got[0] if epi == "resid_ln" else got.float()).all()))
+        del args, got, want, old, w_t
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
-    from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, bound, cuda_ms, decoder_case, decoder_work,
-                                        lbs_case, lbs_work, sampler_case, sampler_work)
+    from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, bound, cuda_ms, cuda_ms_flushed, decoder_case,
+                                        decoder_work, lbs_case, lbs_work, sampler_case, sampler_work)
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
@@ -261,14 +321,18 @@ def phase_kernels(dev):
         err, rel = float((got - want).abs().max()), _rel(got, want)
         flops, nbytes = decoder_work(args)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        Be, lq, F = args[3].shape
+        L, FF = args[0]["wqkv"].shape[0], args[0]["wf1"].shape[-1]
+        products = _product_entries(dev, Be, lq, F, L, FF)
         out["decoder"] = dict(
             name="fused_decoder_forward", route="cuda", source="msmd_tpu_torch/csrc/decoder.cu",
             replaces="msmd_tpu/ops/pallas/decoder_kernel.py:560",
             max_abs_err=err, rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE}",
             ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20),
+            ms_l2_flushed=cuda_ms_flushed(lambda: kd.fused_decoder_forward(*args), 10),
             plain_ms=cuda_ms(lambda: kd.fused_decoder_forward_plain(*args), 3, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes, products=products,
+            ok=bool(torch.isfinite(got).all()) and rel <= GATE and all(p["ok"] for p in products.values()),
         )
         del args, got, want
 

@@ -19,19 +19,23 @@
 // ~0.56 ms on the tensor cores at 989 TFLOP/s vs ~0.11 ms at 3.35 TB/s.
 // It is compute-bound.
 //
-// Design, simple first: the products run on the tensor cores through
-// one tiled GEMM (wmma bf16 16x16x16 with f32 accumulation, BM x 128 x 32
-// block tiles with BM = 128 for the wide products and 64 for the N = 512
-// ones, a 4-deep cp.async ring) whose epilogue fuses the bias, the q scale
-// and bf16 cast, tanh-GELU, or the residual add. Attention runs one block
-// per (entry, head) with Q, K, V, the f32 scores and the bf16 numerators
-// all in shared memory, so the 111x111 score matrices never reach device
-// memory. The person-row cross-attention is one warp per (entry, head).
-// LayerNorm is one warp per row and also writes the bf16 copy of x the
-// next product reads. Not yet used: wgmma, TMA, persistent blocks, fusing
-// the LayerNorms into the GEMM epilogues; the GEMM's 128-wide tiles read
-// 43 to 64 FLOP per byte from L2, which caps it well below the tensor
-// cores' rate.
+// Design: at these shapes the four large products of each layer (QKV,
+// self-out, FFN1, FFN2) run on the Hopper GEMM of gemm_sm90.cuh (wgmma
+// m64n256k16 from 128-byte-swizzled shared memory, 128 x 256 tiles for QKV
+// and FFN1, 64 x 512 tiles for the two residual products, whose epilogue
+// takes the post-LayerNorm and writes x and its bf16 copy), so a layer is
+// nine launches. Products with fewer than SM90_MIN_ROWS rows (K3, K4, the
+// flat-mask mode, small batches) and the person rows' products stay on the
+// wmma tile of decoder_common.cuh (bf16 16x16x16, BM x 128 x 32 tiles, a
+// 4-deep cp.async ring) with a separate LayerNorm pass. Every epilogue
+// fuses the bias, the q scale and bf16 cast, tanh-GELU or the residual
+// add. Self-attention runs one block per (entry, head): Q, K, V in
+// swizzled shared memory, each warp's 16 x lq scores and bf16 numerators
+// in registers (mma.sync), so the 111x111 score matrices never leave the
+// SM. The person-row
+// cross-attention is one warp per (entry, head). The cross LayerNorm is
+// one warp per row and also writes the bf16 copy of x the next product
+// reads.
 //
 // Flat-mask mode (msmd_decoder_forward_flat; _layer_compute with a
 // self_mask, decoder_kernel.py:392-400, and at align_mask_width != 1 the
@@ -224,6 +228,10 @@ cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, c
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
   const bool band = p.vmw != nullptr;
+  DecoderMaps maps;
+  const bool hopper = decoder_uses_sm90(R, F, FF);
+  if (hopper) RETURN_IF_ERROR(make_decoder_maps(&maps, w, p, R, F, FF, L));
+  auto map = [&](const CUtensorMap& m) { return hopper ? &m : nullptr; };
   for (int l = 0; l < L; ++l) {
     const bf16* Wqkv = p.wqkv + (size_t)l * F * 3 * F;
     const bf16* Bqkv = p.bqkv + (size_t)l * 3 * F;
@@ -243,13 +251,12 @@ cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, c
     const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
 
     // self-attention over each tile's flattened rows, masked
-    RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, nullptr, Wqkv, Bqkv, nullptr, w.qkv, R, 3 * F, F, scale, F));
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wqkv), l, w.xb, F, Wqkv, Bqkv, w.qkv, R,
+                                            3 * F, F, scale, F));
     RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, w.qkv + F, w.qkv + 2 * F, 3L * F, 3L * F, 3L * F,
                                                    self_mask, w.sa, F, Rt, Rt}, H, n_tiles));
-    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wso, Bso, x, w.y, R, F, F));
-    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns, lnb, R, F, nullptr, nullptr,
-                                                             nullptr, nullptr, lq);
-    RETURN_IF_ERROR(cudaGetLastError());
+    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wso), l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R,
+                                  F, F));
 
     if (band) {
       // the person rows attend the tile's memory through the person mask;
@@ -264,20 +271,18 @@ cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, c
     } else {
       // every row attends the tile's memory through the cross mask; q in
       // w.qkv and the attention output in w.sa, both free here
-      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, nullptr, Wcq, Bcq, nullptr, w.qkv, R, F, F, scale, F));
+      RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wcq), l, w.xb, F, Wcq, Bcq, w.qkv, R, F, F,
+                                              scale, F));
       RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, Km, Vm, F, F, F, cross_mask, w.sa, F, Rt, Mt},
                                   H, n_tiles));
-      RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wco, Bco, x, w.y, R, F, F));
-      ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + F, lnb + F, R, F, nullptr,
-                                                               nullptr, nullptr, nullptr, lq);
+      RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wco), l, w.sa, F, Wco, Bco, x, w.xb, w.y, lns + F,
+                                    lnb + F, R, F, F));
     }
     RETURN_IF_ERROR(cudaGetLastError());
 
-    RETURN_IF_ERROR(gemm<EPI_GELU>(st, w.xb, F, nullptr, Wf1, Bf1, nullptr, w.h, R, FF, F));
-    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.h, FF, nullptr, Wf2, Bf2, x, w.y, R, F, FF));
-    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + 2 * F, lnb + 2 * F, R, F,
-                                                             nullptr, nullptr, nullptr, nullptr, lq);
-    RETURN_IF_ERROR(cudaGetLastError());
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_GELU>(st, map(maps.xb), map(maps.wf1), l, w.xb, F, Wf1, Bf1, w.h, R, FF, F));
+    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.h), map(maps.wf2), l, w.h, FF, Wf2, Bf2, x, w.xb, w.y, lns + 2 * F,
+                                  lnb + 2 * F, R, F, FF));
   }
   return cudaSuccess;
 }
@@ -350,4 +355,69 @@ extern "C" int msmd_decoder_forward_flat(const void* x_in, void* x_out, void* ws
   return decoder_layers_flat(st, w, x, weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux),
                              static_cast<const float*>(self_mask), static_cast<const float*>(cross_mask), Be, lq,
                              F, H, L, FF, tile);
+}
+
+
+// What msmd_gemm's route 0 (the decoder's choice) runs for one product:
+// out = {1 for the Hopper GEMM or 0 for the wmma tile, tile rows, tile
+// columns, tiles, grid blocks, dynamic shared-memory bytes}; all -1 for a
+// shape or epilogue that neither takes.
+extern "C" void msmd_gemm_plan(int M, int N, int K, int epi, long* out) {
+  for (int i = 0; i < 6; ++i) out[i] = -1;
+  const bool ln = epi == EPI_RESID_LN;
+  if (M < 1 || N % BN || K % BK || (!ln && epi != EPI_BF16 && epi != EPI_GELU)) return;
+  if (ln ? sm90_ln_ok(M, N, K) : sm90_wide_ok(M, N, K)) {
+    const int wgm = ln ? 1 : 2, tiles = sm90_tiles(M, N, wgm), sms = sm_count();
+    const long smem = ln ? Sm90Tile<1>::SMEM : Sm90Tile<2>::SMEM;
+    const long plan[6] = {1, 64 * wgm, 256 * (2 / wgm), tiles, tiles < sms ? tiles : sms, smem};
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  } else {
+    const int bm = N > 512 ? 128 : 64, tiles = (N / BN) * ((M + bm - 1) / bm);
+    const long plan[6] = {0, bm, BN, tiles, tiles,
+                          static_cast<long>(N > 512 ? gemm_smem_bytes<128>() : gemm_smem_bytes<64>())};
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  }
+}
+
+// One product of the decoder alone, for the card tests and the per-product
+// timing: route 0 runs what the decoder runs at this shape, 1 the Hopper
+// GEMM (refused where the shape does not take it), 2 the wmma tile. A (M,
+// K) and B (K, N) bf16 row-major, bias (N) bf16. epi EPI_BF16 (columns <
+// scale_cols scaled) or EPI_GELU: C (M, N) bf16. EPI_RESID_LN: C (M, N)
+// f32 x and Cb its bf16 copy, LayerNorm(res + A B + bias) with ln_scale,
+// ln_bias (N) f32; y is an (M, N) f32 scratch for the wmma route. Launches
+// on `stream`; returns the first CUDA error or 0.
+extern "C" int msmd_gemm(int route, int epi, const void* A, const void* B, const void* bias, const void* res, void* C,
+                         void* Cb, const void* ln_scale, const void* ln_bias, void* y, int M, int N, int K,
+                         float scale, int scale_cols, void* stream) {
+  long plan[6];
+  msmd_gemm_plan(M, N, K, epi, plan);
+  if (plan[0] < 0 || route < 0 || route > 2) return cudaErrorInvalidValue;
+  const bool ln = epi == EPI_RESID_LN;
+  const bool fits = ln ? sm90_ln_ok(M, N, K) : sm90_wide_ok(M, N, K);
+  if (route == 1 && !fits) return cudaErrorInvalidValue;
+  const bool hopper = route == 1 || (route == 0 && fits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RETURN_IF_ERROR(set_kernel_attributes());
+  const bf16 *a = static_cast<const bf16*>(A), *b = static_cast<const bf16*>(B), *bi = static_cast<const bf16*>(bias);
+  const float *lns = static_cast<const float*>(ln_scale), *lnb = static_cast<const float*>(ln_bias);
+  CUtensorMap ma, mb;
+  if (hopper) {
+    RETURN_IF_ERROR(make_a_map(&ma, a, K, M, K, ln ? 64 : 128));
+    RETURN_IF_ERROR(make_b_map(&mb, b, K, N, 1));
+  }
+  if (ln) {
+    if (hopper)
+      return gemm_sm90<EPI_RESID_LN>(st, ma, mb, Sm90Args{nullptr, nullptr, 0, bi, static_cast<const float*>(res), C,
+                                                          static_cast<bf16*>(Cb), lns, lnb, M, N, K, 1.0f, 0});
+    RETURN_IF_ERROR(gemm<EPI_RESID>(st, a, K, nullptr, b, bi, static_cast<const float*>(res), y, M, N, K));
+    ln_kernel<false, bf16><<<(M * 32 + LN_THREADS - 1) / LN_THREADS, LN_THREADS, 0, st>>>(
+        static_cast<const float*>(y), static_cast<float*>(C), static_cast<bf16*>(Cb), lns, lnb, M, N, nullptr,
+        nullptr, nullptr, nullptr, 1);
+    return cudaGetLastError();
+  }
+  const Sm90Args g{nullptr, nullptr, 0, bi, nullptr, C, nullptr, nullptr, nullptr, M, N, K, scale, scale_cols};
+  if (hopper) return epi == EPI_GELU ? gemm_sm90<EPI_GELU>(st, ma, mb, g) : gemm_sm90<EPI_BF16>(st, ma, mb, g);
+  return epi == EPI_GELU ? gemm<EPI_GELU>(st, a, K, nullptr, b, bi, nullptr, C, M, N, K)
+                         : gemm<EPI_BF16>(st, a, K, nullptr, b, bi, nullptr, C, M, N, K, scale, scale_cols);
 }

@@ -1,8 +1,10 @@
 // Device code shared by the decoder-stack kernel (decoder.cu, K1), the
 // batch-1 sampler kernels (sampler.cu, K3 and K4) and the layer kernels of
 // the XLA-decoder route (ffn.cu K6, attn.cu K8, layer_tail.cu K9): the
-// tiled bf16 GEMM with fused epilogues (its B operand in the (in, out)
-// layout, or in the nn.Linear (out, in) layout with BT), per-(entry, head)
+// tiled wmma bf16 GEMM with fused epilogues (its B operand in the (in, out)
+// layout, or in the nn.Linear (out, in) layout with BT), the Hopper wgmma
+// GEMM of the decoder's large products (gemm_sm90.cuh, included below,
+// chosen per product by gemm_bf16_out and gemm_resid_ln), per-(entry, head)
 // self-attention, the identity-band person-row cross-attention, the
 // LayerNorm variants, and the host loop that launches one decoder stack on
 // a stream.
@@ -314,114 +316,180 @@ cudaError_t gemm_attrs() {
   return gemm_attr<EPI, 128, BT>();
 }
 
+}  // namespace
+
+#include "gemm_sm90.cuh"
+
+namespace {
+
 // --------------------------------------------------------------------------
-// per-entry self-attention: one block per (head, entry)
+// mma.sync building blocks (K8 and the per-entry self-attention)
 // --------------------------------------------------------------------------
 
-constexpr int ATT_THREADS = 256;
-constexpr int QK_LD = DH + 8;  // bf16 row stride of Q, K, V in shared memory
-constexpr int O_LD = DH + 4;   // f32 row stride of the PV output
+// byte offset of 16-byte chunk c of row r in a [rows][64] bf16 tile with
+// the 128-byte XOR swizzle (chunk c of row r at c ^ (r % 8)), which makes
+// the ldmatrix loads below free of bank conflicts
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 
-__host__ __device__ inline int att_lp(int lq) { return (lq + 15) / 16 * 16; }
-__host__ __device__ inline int att_s_cols(int lp) { return lp + 4 > O_LD ? lp + 4 : O_LD; }
-
-// Q, K, V (bf16), then the f32 scores (later the PV output), then the row
-// sums; the bf16 numerators P reuse the Q and K rows once S is taken
-// (lp * (lp + 8) <= 2 * lp * QK_LD for lp <= 128).
-inline size_t att_smem_bytes(int lq) {
-  const int lp = att_lp(lq);
-  return (size_t)3 * lp * QK_LD * 2 + (size_t)lp * att_s_cols(lp) * 4 + lp * 4;
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
 }
 
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a (16 x 16 bf16, row) b (16 x 8 bf16, col), f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// --------------------------------------------------------------------------
+// per-entry self-attention: one (entry, head) per block, scores in registers
+// --------------------------------------------------------------------------
+
+constexpr int MAX_LM = 128;       // the longest rows the decoder kernels take
+constexpr int ATT_THREADS = 256;  // 8 warps: one per 16 query rows, lq <= MAX_LM
+
+__host__ __device__ inline int att_lp(int lq) { return (lq + 15) / 16 * 16; }
+
+// Q, K, V of one head, each [lp][64] bf16 in the swizzle.
+inline size_t att_smem_bytes(int lq) { return (size_t)3 * att_lp(lq) * 128; }
+
 // qkv: (Be*lq, 3F) bf16 with q already scaled; out: (Be*lq, F) bf16.
-// Rows are zero-padded to a multiple of 16 in shared memory and the padded
-// keys get no weight, as the TPU kernels' pad-row key mask gives them none.
-// Entry e, head h, by the whole block of ATT_THREADS threads in `smem`
-// (att_smem_bytes).
+// Entry e, head h, by a block of ATT_THREADS threads in `smem`
+// (att_smem_bytes). Q, K, V come in by cp.async (rows past lq
+// zero-filled; V lands while S is computed); warp w < ceil(lq / 16) holds
+// the 16 x lp scores of query rows 16w.. in registers (mma.sync m16n8k16,
+// f32), takes the bf16 "fast" numerators exp(clamp(s - 20, -80, 60)) of
+// the lq real keys (padded keys get no weight, as the TPU kernels' pad-row
+// key mask gives them none) with their f32 row sums over the lane quads,
+// feeds the bf16 numerators to P V as the A operand and divides by the
+// row sum after it, as the wmma design of earlier PRs did.
 __device__ __forceinline__ void self_attn_block(const bf16* __restrict__ qkv, bf16* __restrict__ out, int lq,
                                                 int F, int h, int e, unsigned char* smem) {
+  constexpr int NT = MAX_LM / 16;  // register tiles for the longest rows; tiles past nt are skipped
   __syncthreads();  // the previous item of this block is done with smem
   const int nt = (lq + 15) / 16, lp = nt * 16;
-  const int s_ld = lp + 4, p_ld = lp + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + lp * QK_LD;
-  bf16* Vs = Ks + lp * QK_LD;
-  float* Ss = reinterpret_cast<float*>(Vs + lp * QK_LD);  // scores, then the PV output
-  float* rs = Ss + lp * att_s_cols(lp);
-  bf16* Ps = Qs;  // written only after every warp has read Q and K
-
+  unsigned char* Qs = smem;
+  unsigned char* Ks = Qs + lp * 128;
+  unsigned char* Vs = Ks + lp * 128;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long row0 = (long)e * lq, ld = 3L * F;
 
-  for (int i = tid; i < lp * (DH / 8); i += ATT_THREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
-    if (r < lq) {
-      const bf16* base = qkv + (row0 + r) * ld + h * DH + c;
-      q = *reinterpret_cast<const uint4*>(base);
-      k = *reinterpret_cast<const uint4*>(base + F);
-      v = *reinterpret_cast<const uint4*>(base + 2 * F);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * QK_LD + c) = q;
-    *reinterpret_cast<uint4*>(Ks + r * QK_LD + c) = k;
-    *reinterpret_cast<uint4*>(Vs + r * QK_LD + c) = v;
+  for (int i = tid; i < lp * 8; i += ATT_THREADS) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r < lq;
+    const bf16* base = qkv + (row0 + (ok ? r : 0)) * ld + h * DH + c * 8;
+    cp_async16(Qs + swz(r, c), base, ok);
+    cp_async16(Ks + swz(r, c), base + F, ok);
   }
+  cp_async_commit();
+  for (int i = tid; i < lp * 8; i += ATT_THREADS) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r < lq;
+    cp_async16(Vs + swz(r, c), qkv + (row0 + (ok ? r : 0)) * ld + 2 * F + h * DH + c * 8, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  // S = Q K^T (f32)
-  for (int t = warp; t < nt * nt; t += ATT_THREADS / 32) {
-    const int ti = t / nt, tj = t % nt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+  const bool active = warp < nt;
+  const int qr = warp * 16, lr = (lane & 7) + ((lane >> 3) & 1) * 8, c2 = 2 * (lane & 3);
+  uint32_t p[NT][4];  // bf16 numerators as the A fragments of keys 16j .. 16j + 15
+  float l_lo = 0.0f, l_hi = 0.0f;
+  if (active) {
+    float s[2 * NT][4];
 #pragma unroll
-    for (int k = 0; k < DH; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qs + ti * 16 * QK_LD + k, QK_LD);
-      wmma::load_matrix_sync(b, Ks + tj * 16 * QK_LD + k, QK_LD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(Ss + ti * 16 * s_ld + tj * 16, acc, s_ld, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // unnormalised numerators (bf16 for the PV product) and f32 row sums
-  for (int r = warp; r < lp; r += ATT_THREADS / 32) {
-    float sum = 0.0f;
-    for (int c = lane; c < lp; c += 32) {
-      float p = 0.0f;
-      if (r < lq && c < lq) {
-        p = fast_exp(Ss[r * s_ld + c]);
-        sum += p;
+    for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(smem_u32(Qs + swz(qr + lr, kk * 2 + (lane >> 4))), a[0], a[1], a[2], a[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(smem_u32(Ks + swz(j * 16 + (lane & 7) + (lane >> 4) * 8, kk * 2 + ((lane >> 3) & 1))), b0, b1,
+                  b2, b3);
+          mma_bf16(s[2 * j], a, b0, b1);
+          mma_bf16(s[2 * j + 1], a, b2, b3);
+        }
       }
-      Ps[r * p_ld + c] = __float2bfloat16(p);
     }
-    sum = warp_sum(sum);
-    if (lane == 0) rs[r] = sum;
-  }
-  __syncthreads();
-
-  // O = P V (f32), written over the scores
-  for (int t = warp; t < nt * (DH / 16); t += ATT_THREADS / 32) {
-    const int ti = t / (DH / 16), tj = t % (DH / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < lp; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, Ps + ti * 16 * p_ld + k, p_ld);
-      wmma::load_matrix_sync(b, Vs + k * QK_LD + tj * 16, QK_LD);
-      wmma::mma_sync(acc, a, b, acc);
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const bool key = 8 * j + c2 + t < lq;
+        s[j][t] = key ? fast_exp(s[j][t]) : 0.0f;
+        s[j][2 + t] = key ? fast_exp(s[j][2 + t]) : 0.0f;
+        l_lo += s[j][t];
+        l_hi += s[j][2 + t];
+      }
     }
-    __syncwarp();
-    wmma::store_matrix_sync(Ss + ti * 16 * O_LD + tj * 16, acc, O_LD, wmma::mem_row_major);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      p[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      p[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      p[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      p[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+    }
   }
+  cp_async_wait<0>();  // V
   __syncthreads();
+  if (!active) return;
 
-  for (int i = tid; i < lq * DH; i += ATT_THREADS) {
-    const int r = i / DH, c = i % DH;
-    const float inv = 1.0f / rs[r];
-    out[(row0 + r) * F + h * DH + c] = __float2bfloat16(Ss[r * O_LD + c] * inv);
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int nd = 0; nd < DH / 16; ++nd) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(smem_u32(Vs + swz(j * 16 + lr, nd * 2 + (lane >> 4))), b0, b1, b2, b3);
+        mma_bf16(o[2 * nd], p[j], b0, b1);
+        mma_bf16(o[2 * nd + 1], p[j], b2, b3);
+      }
+    }
+  }
+  // O / row sum in bf16 over this warp's own Q rows, then 16-byte row stores
+  const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+  const int g = lane >> 2;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(Qs + swz(qr + g, n) + 2 * c2) = pack_bf16(o[n][0] * i_lo, o[n][1] * i_lo);
+    *reinterpret_cast<uint32_t*>(Qs + swz(qr + g + 8, n) + 2 * c2) = pack_bf16(o[n][2] * i_hi, o[n][3] * i_hi);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * 8; i += 32) {
+    const int r = i >> 3, c = i & 7;
+    if (qr + r < lq)
+      *reinterpret_cast<uint4*>(out + (row0 + qr + r) * F + h * DH + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz(qr + r, c));
   }
 }
 
@@ -435,7 +503,6 @@ __global__ void __launch_bounds__(ATT_THREADS) self_attn_kernel(const bf16* __re
 // identity-band person-row cross-attention: block per entry, warp per head
 // --------------------------------------------------------------------------
 
-constexpr int MAX_LM = 128;
 
 // Entry e's person row, one warp per head (warps loop over the H heads),
 // each warp with DH + MAX_LM floats of `psm`. qp: (Be, F) bf16, scaled;
@@ -564,6 +631,43 @@ __global__ void __launch_bounds__(LN_THREADS) ln_kernel(const float* y, float* x
 }
 
 // --------------------------------------------------------------------------
+// a product on the Hopper GEMM where its shape takes it (gemm_sm90.cuh),
+// else on the wmma tile
+// --------------------------------------------------------------------------
+
+// C (bf16) = EPI(A @ B + bias): EPI_BF16 (columns < scale_cols scaled) or
+// EPI_GELU. The Hopper GEMM reads A and B through the tensor maps ma and
+// mb (B's layer `layer`); the wmma tile through the pointers.
+template <int EPI>
+cudaError_t gemm_bf16_out(cudaStream_t st, const CUtensorMap* ma, const CUtensorMap* mb, int layer, const bf16* A,
+                          long lda, const bf16* B, const bf16* bias, bf16* C, int M, int N, int K,
+                          float scale = 1.0f, int scale_cols = 0) {
+  if (sm90_wide_ok(M, N, K)) {
+    if (ma == nullptr || mb == nullptr) return cudaErrorInvalidValue;
+    return gemm_sm90<EPI>(st, *ma, *mb, Sm90Args{nullptr, nullptr, layer, bias, nullptr, C, nullptr, nullptr,
+                                                 nullptr, M, N, K, scale, scale_cols});
+  }
+  return gemm<EPI>(st, A, lda, nullptr, B, bias, nullptr, C, M, N, K, scale, scale_cols);
+}
+
+// x, xb = LayerNorm(x + (A @ B + bias)) * lns + lnb: one launch with the
+// LayerNorm in the Hopper GEMM's epilogue where it takes the shape, else
+// the wmma tile into the scratch y and a LayerNorm pass.
+cudaError_t gemm_resid_ln(cudaStream_t st, const CUtensorMap* ma, const CUtensorMap* mb, int layer, const bf16* A,
+                          long lda, const bf16* B, const bf16* bias, float* x, bf16* xb, float* y, const float* lns,
+                          const float* lnb, int M, int N, int K) {
+  if (sm90_ln_ok(M, N, K)) {
+    if (ma == nullptr || mb == nullptr) return cudaErrorInvalidValue;
+    return gemm_sm90<EPI_RESID_LN>(st, *ma, *mb, Sm90Args{nullptr, nullptr, layer, bias, x, x, xb, lns, lnb, M, N, K,
+                                                          1.0f, 0});
+  }
+  RETURN_IF_ERROR(gemm<EPI_RESID>(st, A, lda, nullptr, B, bias, x, y, M, N, K));
+  ln_kernel<false, bf16><<<(M * 32 + LN_THREADS - 1) / LN_THREADS, LN_THREADS, 0, st>>>(
+      y, x, xb, lns, lnb, M, N, nullptr, nullptr, nullptr, nullptr, 1);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
 // the decoder stack on a stream
 // --------------------------------------------------------------------------
 
@@ -593,12 +697,40 @@ Workspace carve(void* ws, int Be, int lq, int F, int FF, size_t* total) {
                    (bf16*)ptrs[4], (bf16*)ptrs[5], ptrs[6], (float*)ptrs[7]};
 }
 
+// The tensor maps of one decoder call's Hopper products: the activations
+// read as A (xb by QKV, FFN1 and the flat mode's full-cross q in 128-row
+// boxes; sa and h by the residual products in 64-row boxes) and each
+// weight stack over the L layers. Built on the host once per call (the
+// workspace is the call's).
+struct DecoderMaps {
+  CUtensorMap xb, sa, h, wqkv, wso, wcq, wco, wf1, wf2;
+};
+
 struct DecoderWeights {
   const bf16 *wqkv, *bqkv, *wso, *bso, *wcq, *bcq, *wco, *bco, *wf1, *bf1, *wf2, *bf2;
   const float *ln_scale, *ln_bias;
   const bf16 *kmem, *vmem;
   const void* vmw;  // (L, Be*lq, F): bf16 for CROSS_BF16, f32 for CROSS_F32, unused for CROSS_GATHER
 };
+
+// Whether any of a layer's four large products takes the Hopper GEMM at R
+// rows.
+__host__ __device__ inline bool decoder_uses_sm90(int R, int F, int FF) {
+  return sm90_wide_ok(R, 3 * F, F) || sm90_wide_ok(R, FF, F) || sm90_ln_ok(R, F, F) || sm90_ln_ok(R, F, FF);
+}
+
+cudaError_t make_decoder_maps(DecoderMaps* m, const Workspace& w, const DecoderWeights& p, int R, int F, int FF,
+                              int L) {
+  RETURN_IF_ERROR(make_a_map(&m->xb, w.xb, F, R, F, 128));
+  RETURN_IF_ERROR(make_a_map(&m->sa, w.sa, F, R, F, 64));
+  RETURN_IF_ERROR(make_a_map(&m->h, w.h, FF, R, FF, 64));
+  RETURN_IF_ERROR(make_b_map(&m->wqkv, p.wqkv, F, 3 * F, L));
+  RETURN_IF_ERROR(make_b_map(&m->wso, p.wso, F, F, L));
+  RETURN_IF_ERROR(make_b_map(&m->wcq, p.wcq, F, F, L));
+  RETURN_IF_ERROR(make_b_map(&m->wco, p.wco, F, F, L));
+  RETURN_IF_ERROR(make_b_map(&m->wf1, p.wf1, F, FF, L));
+  return make_b_map(&m->wf2, p.wf2, FF, F, L);
+}
 
 // How the identity-band cross output of a layer is formed:
 // CROSS_BF16   (K1)  ca = scatter(bf16(bf16(person_out) @ wco)) + bf16 vmw + bco
@@ -631,12 +763,18 @@ cudaError_t set_kernel_attributes() {
 }
 
 // All L layers on x (Be*lq, F) f32, whose bf16 copy w.xb is already
-// written; rows (Be,) are the person rows e*lq. Eleven launches per layer.
+// written; rows (Be,) are the person rows e*lq. Eleven launches per layer,
+// nine where the Hopper GEMM takes the residual products with their
+// LayerNorms (R >= SM90_MIN_ROWS).
 cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const DecoderWeights& p,
                            const int* rows, int Be, int lq, int F, int H, int L, int FF, CrossMode mode) {
   const int R = Be * lq, lm = lq - 1;
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
+  DecoderMaps maps;
+  const bool hopper = decoder_uses_sm90(R, F, FF);
+  if (hopper) RETURN_IF_ERROR(make_decoder_maps(&maps, w, p, R, F, FF, L));
+  auto map = [&](const CUtensorMap& m) { return hopper ? &m : nullptr; };
   for (int l = 0; l < L; ++l) {
     const bf16* Wqkv = p.wqkv + (size_t)l * F * 3 * F;
     const bf16* Bqkv = p.bqkv + (size_t)l * 3 * F;
@@ -656,13 +794,12 @@ cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const 
     const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
 
     // self-attention
-    RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, nullptr, Wqkv, Bqkv, nullptr, w.qkv, R, 3 * F, F, scale, F));
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wqkv), l, w.xb, F, Wqkv, Bqkv, w.qkv, R,
+                                            3 * F, F, scale, F));
     self_attn_kernel<<<dim3(H, Be), ATT_THREADS, att_smem_bytes(lq), st>>>(w.qkv, w.sa, lq, F);
     RETURN_IF_ERROR(cudaGetLastError());
-    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wso, Bso, x, w.y, R, F, F));
-    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns, lnb, R, F, nullptr, nullptr,
-                                                             nullptr, nullptr, lq);
-    RETURN_IF_ERROR(cudaGetLastError());
+    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wso), l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R,
+                                  F, F));
 
     // identity-band cross-attention: person rows attend, motion rows take
     // their memory row
@@ -684,18 +821,15 @@ cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const 
       // the gathered rows go into w.sa, free once the self-out product has read it
       cross_rows_kernel<<<R, 64, 0, st>>>(w.pa, Vm, w.sa, lq, F);
       RETURN_IF_ERROR(cudaGetLastError());
-      RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.sa, F, nullptr, Wco, Bco, x, w.y, R, F, F));
-      ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + F, lnb + F, R, F, nullptr,
-                                                               nullptr, nullptr, nullptr, lq);
+      RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wco), l, w.sa, F, Wco, Bco, x, w.xb, w.y, lns + F,
+                                    lnb + F, R, F, F));
     }
     RETURN_IF_ERROR(cudaGetLastError());
 
     // FFN
-    RETURN_IF_ERROR(gemm<EPI_GELU>(st, w.xb, F, nullptr, Wf1, Bf1, nullptr, w.h, R, FF, F));
-    RETURN_IF_ERROR(gemm<EPI_RESID>(st, w.h, FF, nullptr, Wf2, Bf2, x, w.y, R, F, FF));
-    ln_kernel<false, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(w.y, x, w.xb, lns + 2 * F, lnb + 2 * F, R, F,
-                                                             nullptr, nullptr, nullptr, nullptr, lq);
-    RETURN_IF_ERROR(cudaGetLastError());
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_GELU>(st, map(maps.xb), map(maps.wf1), l, w.xb, F, Wf1, Bf1, w.h, R, FF, F));
+    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.h), map(maps.wf2), l, w.h, FF, Wf2, Bf2, x, w.xb, w.y, lns + 2 * F,
+                                  lnb + 2 * F, R, F, FF));
   }
   return cudaSuccess;
 }

@@ -27,16 +27,19 @@
 // another ~50 MB, against the 50 MB L2: x and its bf16 copy stay in L2
 // between phases, the FFN hidden state mostly does not. No persisting L2
 // access-policy window is set. The work items are K1's own device
-// functions (decoder_common.cuh: gemm_tile, self_attn_block,
-// person_attn_block, ln_row) in the same K order, so K2 computes the same
-// bits as K1 and differs only in scheduling: 1 launch per step instead of
-// 1 + 11 per layer, and no idle tail between launches. Dynamic shared
-// memory is the largest phase's (the 111-row attention tile, ~101 KB);
-// the registers (255) allow one 256-thread block per SM.
+// functions (decoder_common.cuh and gemm_sm90.cuh: sm90_tiles_loop, gemm_tile,
+// self_attn_block, person_attn_block, ln_row), chosen by the same shape
+// rules (sm90_wide_ok, sm90_ln_ok) and summed in the same K order, so K2
+// computes the same bits as K1 and differs only in scheduling: 1 launch
+// per step instead of 1 + 9 per layer, and no idle tail between
+// launches. At Be * lq >= SM90_MIN_ROWS the residual products take their
+// LayerNorm in the Hopper GEMM's epilogue, so those phases lose their
+// LayerNorm phase and its grid barrier. Dynamic shared memory is the
+// largest phase's (the Hopper GEMM's 64 x 512 ring, ~218 KB); the
+// registers (255) allow one 256-thread block per SM.
 //
-// What bounds it: the same ~556 GFLOP of bf16 products per step as K1
-// (~0.56 ms at 989 TFLOP/s); simple first, no wgmma, TMA or fused
-// LayerNorms yet.
+// What bounds it: the same ~537 GFLOP of bf16 products per step as K1
+// (~0.54 ms at 989 TFLOP/s).
 
 #include <cooperative_groups.h>
 
@@ -47,6 +50,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 struct ResidentArgs {
+  DecoderMaps maps;  // the Hopper products' tensor maps (built where decoder_uses_sm90)
   const float* x_in;
   float* x;
   Workspace w;
@@ -69,6 +73,20 @@ __device__ __forceinline__ void gemm_phase(const GemmArgs& g, unsigned char* sme
   }
 }
 
+// QKV or FFN1 (bf16 out): the Hopper GEMM's tiles (A and B through the
+// tensor maps ma, mb in the kernel's parameters, B's layer `layer`) where
+// it takes the shape, as gemm_bf16_out chooses in K1, else the wmma tiles.
+template <int EPI>
+__device__ __forceinline__ void bf16_out_phase(const GemmArgs& g, const CUtensorMap* ma, const CUtensorMap* mb,
+                                               int layer, unsigned char* smem) {
+  if (sm90_wide_ok(g.M, g.N, g.K))
+    sm90_tiles_loop<EPI>(Sm90Args{ma, mb, layer, g.bias, nullptr, g.C, nullptr, nullptr, nullptr, g.M, g.N, g.K,
+                                  g.scale, g.scale_cols},
+                         smem);
+  else
+    gemm_phase<EPI>(g, smem);
+}
+
 template <bool CROSS>
 __device__ __forceinline__ void ln_phase(const ResidentArgs& a, const float* y, const float* scale,
                                          const float* bias, const bf16* vmw, const bf16* bco) {
@@ -79,10 +97,28 @@ __device__ __forceinline__ void ln_phase(const ResidentArgs& a, const float* y, 
                         bco, a.rows, a.lq);
 }
 
+// x, xb = LayerNorm(x + A @ B + bias) with the grid barriers after it: the
+// Hopper GEMM's LayerNorm epilogue where it takes the shape (as
+// gemm_resid_ln chooses in K1), else the wmma tiles into y and a
+// LayerNorm phase.
+__device__ __forceinline__ void resid_ln_phase(const ResidentArgs& a, const CUtensorMap* ma, const CUtensorMap* mb,
+                                               int layer, const bf16* A, long lda, const bf16* B, const bf16* bias,
+                                               int K, const float* lns, const float* lnb, unsigned char* smem) {
+  const int R = a.Be * a.lq, F = a.F;
+  if (sm90_ln_ok(R, F, K)) {
+    sm90_tiles_loop<EPI_RESID_LN>(Sm90Args{ma, mb, layer, bias, a.x, a.x, a.w.xb, lns, lnb, R, F, K, 1.0f, 0}, smem);
+  } else {
+    gemm_phase<EPI_RESID>(GemmArgs{A, lda, nullptr, B, bias, nullptr, a.x, a.w.y, R, F, K, 1.0f, 0, nullptr}, smem);
+    cg::this_grid().sync();
+    ln_phase<false>(a, a.w.y, lns, lnb, nullptr, nullptr);
+  }
+  cg::this_grid().sync();
+}
+
 // No minimum of blocks per SM: asked for two (128 registers), ptxas
 // spills (1220 bytes of spill stores, 9004 of loads, a 664-byte stack) and
 // the kernel runs slower than with one block of 255 registers per SM.
-__global__ void __launch_bounds__(GEMM_THREADS) resident_kernel(ResidentArgs a) {
+__global__ void __launch_bounds__(GEMM_THREADS) resident_kernel(const __grid_constant__ ResidentArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int Be = a.Be, lq = a.lq, F = a.F, H = a.H, FF = a.FF, R = Be * lq, lm = lq - 1;
@@ -105,18 +141,14 @@ __global__ void __launch_bounds__(GEMM_THREADS) resident_kernel(ResidentArgs a) 
     const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
 
     // self-attention
-    gemm_phase<EPI_BF16>(GemmArgs{w.xb, F, nullptr, p.wqkv + (size_t)l * F * 3 * F, p.bqkv + (size_t)l * 3 * F,
-                                  nullptr, nullptr, w.qkv, R, 3 * F, F, scale, F, nullptr},
-                         smem);
+    bf16_out_phase<EPI_BF16>(GemmArgs{w.xb, F, nullptr, p.wqkv + (size_t)l * F * 3 * F, p.bqkv + (size_t)l * 3 * F,
+                                      nullptr, nullptr, w.qkv, R, 3 * F, F, scale, F, nullptr},
+                             &a.maps.xb, &a.maps.wqkv, l, smem);
     grid.sync();
     for (int i = blockIdx.x; i < Be * H; i += gridDim.x) self_attn_block(w.qkv, w.sa, lq, F, i % H, i / H, smem);
     grid.sync();
-    gemm_phase<EPI_RESID>(GemmArgs{w.sa, F, nullptr, p.wso + (size_t)l * F * F, p.bso + (size_t)l * F, nullptr,
-                                   a.x, w.y, R, F, F, 1.0f, 0, nullptr},
-                          smem);
-    grid.sync();
-    ln_phase<false>(a, w.y, lns, lnb, nullptr, nullptr);
-    grid.sync();
+    resid_ln_phase(a, &a.maps.sa, &a.maps.wso, l, w.sa, F, p.wso + (size_t)l * F * F, p.bso + (size_t)l * F, F, lns,
+                   lnb, smem);
 
     // identity-band cross-attention: the person rows attend, the motion
     // rows take vmw
@@ -138,21 +170,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) resident_kernel(ResidentArgs a) 
     grid.sync();
 
     // FFN
-    gemm_phase<EPI_GELU>(GemmArgs{w.xb, F, nullptr, p.wf1 + (size_t)l * F * FF, p.bf1 + (size_t)l * FF, nullptr,
-                                  nullptr, w.h, R, FF, F, 1.0f, 0, nullptr},
-                         smem);
+    bf16_out_phase<EPI_GELU>(GemmArgs{w.xb, F, nullptr, p.wf1 + (size_t)l * F * FF, p.bf1 + (size_t)l * FF,
+                                      nullptr, nullptr, w.h, R, FF, F, 1.0f, 0, nullptr},
+                             &a.maps.xb, &a.maps.wf1, l, smem);
     grid.sync();
-    gemm_phase<EPI_RESID>(GemmArgs{w.h, FF, nullptr, p.wf2 + (size_t)l * FF * F, p.bf2 + (size_t)l * F, nullptr,
-                                   a.x, w.y, R, F, FF, 1.0f, 0, nullptr},
-                          smem);
-    grid.sync();
-    ln_phase<false>(a, w.y, lns + 2 * F, lnb + 2 * F, nullptr, nullptr);
-    grid.sync();
+    resid_ln_phase(a, &a.maps.h, &a.maps.wf2, l, w.h, FF, p.wf2 + (size_t)l * FF * F, p.bf2 + (size_t)l * F, FF,
+                   lns + 2 * F, lnb + 2 * F, smem);
   }
 }
 
 size_t resident_smem_bytes(int lq, int H) {
-  size_t b = gemm_smem_bytes<128>();
+  size_t b = Sm90Tile<1>::SMEM > Sm90Tile<2>::SMEM ? Sm90Tile<1>::SMEM : Sm90Tile<2>::SMEM;
+  if (gemm_smem_bytes<128>() > b) b = gemm_smem_bytes<128>();
   if (gemm_smem_bytes<64>() > b) b = gemm_smem_bytes<64>();
   if (att_smem_bytes(lq) > b) b = att_smem_bytes(lq);
   const size_t person = (size_t)(GEMM_THREADS / 32) * (DH + MAX_LM) * sizeof(float);
@@ -204,7 +233,10 @@ extern "C" int msmd_decoder_forward_resident(const void* x_in, void* x_out, void
   const int grid = msmd_resident_grid(lq, H);
   if (grid < 0) return -grid;
   size_t total = 0;
-  ResidentArgs a{static_cast<const float*>(x_in), static_cast<float*>(x_out), carve(ws, Be, lq, F, FF, &total),
+  ResidentArgs a{{},
+                 static_cast<const float*>(x_in),
+                 static_cast<float*>(x_out),
+                 carve(ws, Be, lq, F, FF, &total),
                  DecoderWeights{static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
                                 static_cast<const bf16*>(wso), static_cast<const bf16*>(bso),
                                 static_cast<const bf16*>(wcq), static_cast<const bf16*>(bcq),
@@ -214,6 +246,7 @@ extern "C" int msmd_decoder_forward_resident(const void* x_in, void* x_out, void
                                 static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
                                 static_cast<const bf16*>(kmem), static_cast<const bf16*>(vmem), vmw},
                  static_cast<const int*>(aux), Be, lq, F, H, L, FF};
+  if (decoder_uses_sm90(Be * lq, F, FF)) RETURN_IF_ERROR(make_decoder_maps(&a.maps, a.w, a.p, Be * lq, F, FF, L));
   void* args[] = {&a};
   RETURN_IF_ERROR(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(resident_kernel), dim3(grid),
                                               dim3(GEMM_THREADS), args, resident_smem_bytes(lq, H),

@@ -49,6 +49,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_FLUSH_BYTES = 256 << 20  # written between calls: five times the H100's 50 MB L2
+
+
+def cuda_ms_flushed(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of ``fn`` with the L2 cache flushed
+    before each call (a 256 MB buffer written in between), each call
+    timed alone by CUDA events, as a caller finds its inputs when other
+    work ran in between."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        buf.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    del buf
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
 def bound(flops: int, nbytes: int, peak: float):
     """(bound in ms, what bounds it)."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
@@ -84,6 +106,32 @@ def decoder_work(args):
     nbytes = sum(t.numel() * t.element_size() for t in pack.values())
     nbytes += sum(t.numel() * t.element_size() for t in (kmem, vmem, vmw, x, aux)) + x.numel() * 4
     return L * per_layer, nbytes
+
+
+def decoder_products(Be: int, lq: int, F: int, L: int, FF: int) -> dict:
+    """The bf16 products of one call of the per-entry decoder stack, by
+    name: (M, N, K) of one layer's product, its epilogue in
+    ``ops/kernels/gemm.py``'s terms (None for the person rows, which stay
+    on the wmma tile), and its operations over all L layers. Their sum is
+    ``decoder_work``'s operations less the attention's."""
+    R = Be * lq
+    shapes = {"qkv": (R, 3 * F, F, "bf16"), "self_out": (R, F, F, "resid_ln"), "ffn1": (R, FF, F, "gelu"),
+              "ffn2": (R, F, FF, "resid_ln"), "person_q": (Be, F, F, None), "person_out": (Be, F, F, None)}
+    return {name: {"M": M, "N": N, "K": K, "epilogue": epi, "flops": L * 2 * M * N * K}
+            for name, (M, N, K, epi) in shapes.items()}
+
+
+def gemm_case(dev, M: int, N: int, K: int, epilogue: str, seed=SEED):
+    """Seeded operands of one decoder product for ``ops/kernels/gemm.gemm``:
+    (a, b, bias) and, for "resid_ln", (res, ln_scale, ln_bias); a keyword
+    dict for the call (the q-column scale for "bf16", as QKV takes it)."""
+    rn = _seeded(seed + 50)
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    args = (bf(rn(M, K)), bf(rn(K, N) / K ** 0.5), bf(rn(N) * 0.1))
+    if epilogue == "resid_ln":
+        return args + (f32(rn(M, N)), f32(1.0 + 0.1 * rn(N)), f32(0.1 * rn(N))), {}
+    return args, ({"scale": 0.125, "scale_cols": N // 3} if epilogue == "bf16" else {})
 
 
 def decoder_flat_case(dev, Be=4, lq=111, width=1, tile=0, F=512, H=8, L=8, FF=2048, seed=SEED):

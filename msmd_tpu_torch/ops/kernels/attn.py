@@ -11,11 +11,12 @@ max (``jax.nn.softmax``) and is normalised before the PV product, with P
 cast to the input dtype; the PV sums are f32; the output takes the input
 dtype.
 
-The kernel takes bf16 with head dim 64, any B, and lq up to what one
-block's shared memory holds (it raises past it, naming the shape). q, k
-and v may be column slices of one (B, lq, 3F) projection. The JAX layer
-takes its kernel only where ``attn_middle_viable`` finds an 8-aligned
-row tile (a TPU sublane limit, ``msmd_tpu/models/transformer.py``:177).
+The kernel takes bf16 with head dim 64, any B, and lq up to 256 (one
+warp per 16 query rows; it raises past it, naming the shape). The scores
+and P never leave registers (``csrc/attn.cu``). q, k and v may be column
+slices of one (B, lq, 3F) projection. The JAX layer takes its kernel
+only where ``attn_middle_viable`` finds an 8-aligned row tile (a TPU
+sublane limit, ``msmd_tpu/models/transformer.py``:177).
 """
 
 from __future__ import annotations
@@ -27,7 +28,22 @@ import torch
 
 from msmd_tpu_torch import _build
 
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+MAX_LQ = 256  # rows per entry the kernel takes: 16 warps of 16 query rows
+
+
+def attn_plan(B: int, lq: int, n_heads: int) -> dict:
+    """The launch ``csrc/attn.cu`` makes for (B, lq, heads): B x heads
+    (entry, head) items walked by a persistent grid (as many blocks as the
+    card holds at once, from the occupancy query, at most one per item),
+    one warp per 16 query rows, two buffers of q, k and v of a head in
+    shared memory (2 x 3 x lp x 128 bytes, lp = lq rounded up to 16).
+    Raises for a shape the kernel does not take, naming it."""
+    if B < 1 or n_heads < 1:
+        raise ValueError(f"attention_middle: B={B}, heads={n_heads} must be positive")
+    if not 1 <= lq <= MAX_LQ:
+        raise ValueError(f"attention_middle: lq={lq} (B={B}) is outside the kernel's 1..{MAX_LQ} rows per entry")
+    nt = (lq + 15) // 16
+    return {"items": B * n_heads, "warps": nt, "threads": 32 * nt, "smem": 2 * 3 * 16 * nt * 128}
 
 
 def attention_middle_plain(q, k, v, n_heads: int) -> torch.Tensor:
@@ -82,11 +98,8 @@ def attention_middle(q, k, v, n_heads: int) -> torch.Tensor:
         return attention_middle_plain(q, k, v, n_heads)
     ld = _check(q, k, v, n_heads)
     B, lq, F = q.shape
+    attn_plan(B, lq, n_heads)
     lib = _lib()
-    smem = lib.msmd_attn_smem_bytes(lq)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"attention_middle: lq={lq} (B={B}, F={F}) needs {smem} bytes of shared memory per "
-                         f"block, above the card's {SMEM_LIMIT}")
     out = torch.empty(B, lq, F, dtype=q.dtype, device=q.device)
     rc = lib.msmd_attn_forward(_build.ptr(q), _build.ptr(k), _build.ptr(v), ld, _build.ptr(out), B, lq, F,
                                n_heads, _build.stream(q.device))

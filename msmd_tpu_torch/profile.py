@@ -8,7 +8,10 @@ Prints JSON lines:
 
 - ``decoder``: device time per call of each kernel of the decoder stack
   (``csrc/decoder.cu``) at the batch-48 flagship shapes, from
-  ``torch.profiler`` over 5 calls.
+  ``torch.profiler`` over 5 calls, and the same summed by part of K1: the
+  Hopper GEMM's QKV, FFN1 and residual products (self-out and FFN2 with
+  their LayerNorms), the wmma person-row products, the self- and person
+  attention, the cross LayerNorm.
 - ``sampler``: device time per step of each kernel of the batch-1 sampler
   scan K3 (``csrc/sampler.cu``) at the flagship shapes, over one 20-step
   call.
@@ -52,9 +55,21 @@ import time
 
 import torch
 
-_DECODER_KERNELS = ("gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel", "cast_kernel")
+_DECODER_KERNELS = ("gemm_sm90_kernel", "gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel",
+                    "cast_kernel")
 # K3 launches the decoder's sub-kernels and these; at batch 1 K1 does not run
 _SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
+# K1's parts at the batch-48 shapes: the Hopper GEMM by epilogue (EPI_BF16
+# is QKV, EPI_GELU FFN1, EPI_RESID_LN self-out and FFN2 with their
+# LayerNorms), the wmma tile (the person rows' two products), the rest
+_K1_PARTS = (("gemm_sm90_kernel<0>", "qkv"), ("gemm_sm90_kernel<2>", "ffn1"),
+             ("gemm_sm90_kernel<6>", "self_out_ffn2_layernorm"), ("gemm_kernel", "person_row_products_wmma"),
+             ("self_attn_kernel", "self_attention"), ("person_attn_kernel", "person_attention"),
+             ("ln_kernel", "cross_layernorm"), ("cast_kernel", "cast"))
+
+
+def _k1_part(key: str) -> str:
+    return next((part for prefix, part in _K1_PARTS if key.startswith(prefix)), "other")
 _K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
 # the guided window runs no K1, so these are K6's (csrc/ffn.cu) there
 _K6_KERNELS = ("gemm_kernel", "ln_kernel")
@@ -66,7 +81,7 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
                   r"cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|resident)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
@@ -151,7 +166,10 @@ def main() -> int:
         kd.fused_decoder_forward(*args)
         by_kernel = profile_device_ms(lambda: [kd.fused_decoder_forward(*args) for _ in range(calls)])
     per_call = {k: v / calls for k, v in by_kernel.items()}
-    print(json.dumps({"phase": "decoder", "calls": calls, "ms_per_call": per_call,
+    by_part = {}
+    for k, v in per_call.items():
+        by_part[_k1_part(k)] = by_part.get(_k1_part(k), 0.0) + v
+    print(json.dumps({"phase": "decoder", "calls": calls, "ms_per_call": per_call, "ms_per_call_by_part": by_part,
                       "total_ms_per_call": sum(per_call.values()),
                       "device_time_seen": bool(per_call)}), flush=True)
     del args

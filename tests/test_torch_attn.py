@@ -2,7 +2,9 @@
 Pallas kernel in interpret mode, and the decoder with ``attn_kernel``
 against the JAX decoder under ``MSMD_ATTN_KERNEL=1``.
 
-- ``attention_middle_plain`` at B in {2, 8}: f32 atol 1e-5; bf16 (q scaled
+- ``attention_middle_plain`` at B in {2, 8}, and at B = 8 over the lq
+  edges of the CUDA kernel's 16-row tiles (1, 15, 16, 17, 64, 111, 128):
+  f32 atol 1e-5; bf16 (q scaled
   in f32 then cast, exact max-subtracting softmax, P cast before P v, as
   ``_attn_mid_kernel`` rounds; other f32 summation orders) max |err| /
   max |ref| <= 1e-2.
@@ -41,6 +43,29 @@ def test_plain_matches_pallas_kernel(dtype, B):
     got = tattn.attention_middle(*(torch.as_tensor(a).to(tdt) for a in (q, k, v)), H)
     want = np.asarray(want.astype(jnp.float32))
     assert got.dtype == tdt and got.shape == want.shape == (B, LQ, F)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:
+        assert rel_err(got.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lq", [1, 15, 16, 17, 64, 111, 128])
+def test_plain_matches_pallas_kernel_at_lq_edges(lq, dtype):
+    """The lq edges of the CUDA kernel's 16-row warp tiles (one row, one
+    short of a tile, whole tiles, one past) and the guided lq 111, each
+    a shape JAX's gate ``attn_middle_viable`` opens at B = 8; the same
+    bounds as above."""
+    B = 8
+    rs = np.random.RandomState(100 + lq)
+    q, k, v = (rs.randn(B, lq, F).astype(np.float32) * s for s in (2.0, 2.0, 1.0))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert jattn.attn_middle_viable(B, lq, F, H)
+    want = jattn.attention_middle(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)), n_heads=H, interpret=True)
+    got = tattn.attention_middle(*(torch.as_tensor(a).to(tdt) for a in (q, k, v)), H)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == tdt and got.shape == want.shape == (B, lq, F)
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     else:

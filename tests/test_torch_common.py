@@ -165,6 +165,7 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
 
     from msmd_tpu_torch.ops.kernels.decoder import fused_decoder_forward_flat
     from msmd_tpu_torch.ops.kernels.decoder_resident import fused_decoder_forward_resident
+    from msmd_tpu_torch.ops.kernels.gemm import gemm
 
     x = torch.empty(2, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -187,15 +188,18 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
         attention_middle(x, x, x, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_layer_tail(x, x, x, *([None] * 10))
+    with pytest.raises(ValueError, match="unsupported device"):
+        gemm(w, w.t(), None, "bf16")
 
 
 TRAINING_MODULES = ("losses", "train/loop.py", "train/scheduler.py", "train/checkpoint.py", "train/trainer.py",
                     "utils/logging.py", "data/synthetic.py", "data/pickle_dataset.py", "training_script.py",
                     "ops/kernels/ffn_train.py")
 GUIDED_MODULES = ("ops/kernels/ffn.py", "ops/kernels/attn.py", "ops/kernels/layer_tail.py")
+DECODER_MODULES = ("ops/kernels/gemm.py",)
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + GUIDED_MODULES)
+@pytest.mark.parametrize("module", TRAINING_MODULES + GUIDED_MODULES + DECODER_MODULES)
 def test_training_modules_import_nothing_of_jax(module):
     """The training and guided-sampling slices' modules (also under the
     package-wide scan above) import neither JAX nor the JAX package."""

@@ -8,7 +8,8 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
 suite.) Tolerances as in ``chip_smoke.py``: the decoder stack (K1 in both
-modes, K2, which must also equal K1's kernel bit for bit) and the
+modes, K2, which must also equal K1's kernel bit for bit), the decoder's
+Hopper GEMM alone against the f32 product of its bf16 operands, and the
 batch-1 sampler kernels, the training FFN block K7 (forward, and each
 of its seven gradients) and the guided window's layer kernels K6, K8 and
 K9 at bf16, max |err| / max |plain| <= 2e-2 (the same bf16 rounding
@@ -99,7 +100,83 @@ def test_decoder_flat_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Be,lq", [(6, 37), (16, 111)])
+@pytest.mark.parametrize("Be,lq", [(17, 111), (96, 111)])
+def test_decoder_kernel_on_the_hopper_gemm(Be, lq):
+    """K1 where its four large products run on the Hopper GEMM with the
+    LayerNorm fold: R = 1887 rows, a multiple of no tile height (64, 128),
+    and the batch-48 shape."""
+    from msmd_tpu_torch.measure import decoder_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    args = decoder_case(_card(), Be=Be, lq=lq, L=2, seed=11)
+    assert kg.gemm_plan(Be * lq, 512, 2048, "resid_ln")["route"] == "wgmma"
+    with torch.no_grad():
+        got = kd.fused_decoder_forward(*args)
+        want = kd.fused_decoder_forward_plain(*args)
+    torch.cuda.synchronize()
+    print(f"K1 Be={Be} lq={lq} rel_err={_rel(got, want):.3e}")
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,epilogue", [(10656, 1536, 512, "bf16"), (10656, 512, 512, "resid_ln"),
+                                            (10656, 2048, 512, "gelu"), (10656, 512, 2048, "resid_ln"),
+                                            (1887, 1536, 512, "bf16"), (1887, 512, 2048, "resid_ln")])
+def test_gemm_matches_f32_reference(M, N, K, epilogue):
+    """The Hopper GEMM at K1's four product shapes (R = 10656) and at a
+    ragged R, against the f32 product of the same bf16 operands with the
+    same epilogue; the wmma route of the same call within the same bound."""
+    from msmd_tpu_torch.measure import gemm_case
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    args, kw = gemm_case(_card(), M, N, K, epilogue, seed=12)
+    before = kg.gemm.launches
+    got = kg.gemm(*args[:3], epilogue, *args[3:], route="wgmma", **kw)
+    auto = kg.gemm(*args[:3], epilogue, *args[3:], **kw)
+    old = kg.gemm(*args[:3], epilogue, *args[3:], route="wmma", **kw)
+    want = kg.gemm_plain(*args[:3], epilogue, *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert kg.gemm.launches == before + 3
+    if epilogue == "resid_ln":
+        (got, got_b), (auto, _), (old, _), (want, want_b) = got, auto, old, want
+        assert got_b.dtype == torch.bfloat16 and _rel(got_b, want_b) <= 2e-2
+    assert torch.equal(got, auto) and bool(torch.isfinite(got.float()).all())
+    print(f"GEMM {M}x{N}x{K} {epilogue} rel_err={_rel(got, want):.3e} wmma={_rel(old, want):.3e}")
+    assert _rel(got, want) <= 2e-2 and _rel(old, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,epilogue", [(10656, 1536, 512, "bf16"), (10656, 512, 2048, "resid_ln"),
+                                            (1887, 2048, 512, "gelu"), (1023, 512, 512, "resid_ln"),
+                                            (222, 1536, 512, "bf16"), (10656, 384, 512, "resid_ln")])
+def test_gemm_plan_matches_the_library(M, N, K, epilogue):
+    """The pure-Python launch plan equals what the library launches on this
+    card (route, tile, tiles, grid, shared memory)."""
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kg.kernel_plan(M, N, K, epilogue) == kg.gemm_plan(M, N, K, epilogue, sms=sms)
+
+
+@pytest.mark.cuda
+def test_gemm_wrapper_refuses_what_the_kernel_does_not_take():
+    from msmd_tpu_torch.measure import gemm_case
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    args, kw = gemm_case(_card(), 222, 1536, 512, "bf16")
+    with pytest.raises(ValueError, match="does not take M=222"):
+        kg.gemm(*args, "bf16", route="wgmma", **kw)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        kg.gemm(args[0].float(), *args[1:], "bf16", **kw)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kg.gemm(args[0], args[1][:, :100].contiguous(), args[2][:100], "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Be,lq", [(6, 37), (16, 111), (96, 111)])
 def test_resident_kernel_matches_plain_and_k1(Be, lq):
     """K2 against its plain version, and bit for bit against K1's kernel:
     the same device functions in the same order."""
@@ -270,6 +347,25 @@ def test_attn_kernel_matches_plain(B, lq):
     assert _rel(got, want) <= 2e-2
     contiguous = k8.attention_middle(q.contiguous(), k.contiguous(), v.contiguous(), H)
     assert torch.equal(contiguous, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 96])
+@pytest.mark.parametrize("lq", [1, 15, 16, 17, 64, 111, 128])
+def test_attn_kernel_at_lq_edges(lq, B):
+    """K8 at the edges of its 16-row warp tiles (one row, a tile short by
+    one, whole tiles, one past) and at the guided shape, one entry and 96;
+    its shared memory as ``attn_plan`` gives it."""
+    from msmd_tpu_torch.measure import attn_case
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    q, k, v, H = attn_case(_card(), B=B, lq=lq, seed=13)
+    got, want = k8.attention_middle(q, k, v, H), k8.attention_middle_plain(q, k, v, H)
+    torch.cuda.synchronize()
+    assert k8._lib().msmd_attn_smem_bytes(lq) == k8.attn_plan(B, lq, H)["smem"]
+    assert got.shape == want.shape == q.shape and bool(torch.isfinite(got.float()).all())
+    print(f"K8 B={B} lq={lq} rel_err={_rel(got, want):.3e}")
+    assert _rel(got, want) <= 2e-2
 
 
 @pytest.mark.cuda
