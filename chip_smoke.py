@@ -58,8 +58,14 @@ Phases, each printing one JSON line:
      ``fused_layer_tail`` over the 10560 motion rows; each at max |err| /
      max |plain| <= 2e-2. ``library_ms`` is ``scaled_dot_product_attention``
      on K8's inputs, and null for K6 and K9, whose unfused torch-op chains
-     are timed as ``chain_ms``. K8 and SDPA are also timed with the L2
-     flushed before each call.
+     are timed as ``chain_ms``. K6 and K9 run with their weights prepared
+     once, as the guided path runs them. K6, K8 and K9 are also timed with
+     the L2 flushed before each call (SDPA too). Under ``products``: K6's
+     two and K9's four products alone at their shapes, on the route the
+     kernel takes (the warp-specialized GEMM of ``csrc/gemm_ws.cuh`` at
+     these rows) and on the wmma tile of earlier PRs, each gated at max
+     |err| / max |plain| <= 2e-2 against the plain product, with ms and
+     TFLOP/s beside ``torch.nn.functional.linear`` at the same shape.
 4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
@@ -199,10 +205,50 @@ def _timed_once(fn):
 GUIDED_ITERS, GUIDED_WARMUP = 200, 50
 
 
+def _guided_products(dev, products):
+    """K6's or K9's products alone (``ffn_products``, ``tail_products``) on
+    the route the kernel takes at their shapes and on the wmma tile, each
+    against the plain product, timed beside ``torch.nn.functional.linear``
+    at the same shape (bf16, the weight in the same nn.Linear layout,
+    cuBLAS; a yardstick the port never calls; it takes neither the GELU nor
+    the residual and LayerNorm)."""
+    import torch
+    import torch.nn.functional as tf
+
+    from msmd_tpu_torch.measure import cuda_ms, gemm_ws_case
+    from msmd_tpu_torch.ops.kernels import gemm_ws as kw
+
+    out = {}
+    for name, p in products.items():
+        M, N, K, epi, plan = p["M"], p["N"], p["K"], p["epilogue"], p["plan"]
+        res_dtype = {None: None, "bf16": torch.bfloat16, "f32": torch.float32}[p["res"]]
+        args, kwargs = gemm_ws_case(dev, M, N, K, epi, res_dtype, p["out"])
+        call = lambda route: kw.gemm_ws(*args, epi, route=route, **kwargs)
+        got, old, want = call("auto"), call("wmma"), kw.gemm_ws_plain(*args, epi, **kwargs)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        rel = max(_rel(a.float(), b.float()) for a, b in pairs)
+        rel_wmma = max(_rel(a.float(), b.float()) for a, b in (zip(old, want) if isinstance(old, tuple)
+                                                                  else [(old, want)]))
+        flops = 2 * M * N * K
+        ms = cuda_ms(lambda: call("auto"), GUIDED_ITERS, GUIDED_WARMUP)
+        wmma_ms = cuda_ms(lambda: call("wmma"), GUIDED_ITERS, GUIDED_WARMUP)
+        linear_ms = cuda_ms(lambda: tf.linear(args[0], args[1], args[2]), GUIDED_ITERS, GUIDED_WARMUP)
+        out[name] = dict(M=M, N=N, K=K, epilogue=epi, res=p["res"], out=p["out"], route=plan["route"],
+                         tile=plan["tile"], cluster=plan["cluster"], grid=plan["grid"], rel_err=rel,
+                         rel_err_wmma=rel_wmma, ms=ms, tflops=flops / ms / 1e9, wmma_ms=wmma_ms,
+                         wmma_tflops=flops / wmma_ms / 1e9, linear_ms=linear_ms,
+                         linear_tflops=flops / linear_ms / 1e9,
+                         ok=rel <= GATE and all(bool(torch.isfinite(a.float()).all()) for a, _ in pairs))
+        del args, kwargs, got, old, want, pairs
+    return out
+
+
 def _guided_entries(dev):
     """K6, K8 and K9 against their plain versions at the guided batch-48
     shapes, timed beside their bounds, the unfused torch-op chains (K6,
-    K9) and ``scaled_dot_product_attention`` (K8)."""
+    K9) and ``scaled_dot_product_attention`` (K8); K6's and K9's products
+    alone."""
     import torch
 
     from msmd_tpu_torch.measure import (BF16_PEAK, attn_case, bound, cuda_ms, cuda_ms_flushed, ffn_case, ffn_chain,
@@ -211,34 +257,47 @@ def _guided_entries(dev):
     from msmd_tpu_torch.ops.kernels import ffn as k6
     from msmd_tpu_torch.ops.kernels import layer_tail as k9
 
+    bf = torch.bfloat16
+    ffn_args, tail_args = ffn_case(dev), tail_case(dev)
+    ffn_w = k6.prepare_ffn_weights(*ffn_args[1:], dtype=bf)
+    tail_w = k9.prepare_tail_weights(*tail_args[3:11], list(tail_args[11]), list(tail_args[12]), dtype=bf)
     cases = {
-        "ffn": (k6.fused_ffn_ln, k6.ffn_ln_plain, ffn_case(dev), ffn_chain, "msmd_tpu_torch/csrc/ffn.cu",
-                "msmd_tpu/ops/pallas/ffn_kernel.py:61"),
+        # (kernel call, plain call, inputs, torch-op chain, source, TPU kernel); K8 (0.02 ms) first:
+        # right after K6's and K9's products at full power its warm time, and SDPA's, read ~1.5x
         "attn": (k8.attention_middle, k8.attention_middle_plain, attn_case(dev), None,
                  "msmd_tpu_torch/csrc/attn.cu", "msmd_tpu/ops/pallas/attn_kernel.py:88"),
-        "tail": (k9.fused_layer_tail, k9.layer_tail_plain, tail_case(dev), tail_chain,
+        "ffn": (lambda *a: k6.fused_ffn_ln(a[0], *ffn_w), k6.ffn_ln_plain, ffn_args, ffn_chain,
+                "msmd_tpu_torch/csrc/ffn.cu", "msmd_tpu/ops/pallas/ffn_kernel.py:61"),
+        "tail": (lambda *a: k9.fused_layer_tail(*a[:3], *tail_w), k9.layer_tail_plain, tail_args, tail_chain,
                  "msmd_tpu_torch/csrc/layer_tail.cu", "msmd_tpu/ops/pallas/layer_tail_kernel.py:77"),
     }
+    names = {"ffn": k6.fused_ffn_ln.__name__, "attn": k8.attention_middle.__name__,
+             "tail": k9.fused_layer_tail.__name__}
     entries = {}
     with torch.no_grad():
         for key, (fn, plain, args, chain, source, replaces) in cases.items():
             got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
             rel = _rel(got.float(), want.float())
+            products = {}
             if key == "ffn":
                 x, w1 = args[0], args[1]
                 flops, nbytes = k6.ffn_work(x.shape[0], x.shape[1], w1.shape[0])
                 shape = {"rows": x.shape[0]}
+                products = _guided_products(dev, k6.ffn_products(x.shape[0], x.shape[1], w1.shape[0]))
             elif key == "attn":
                 q = args[0]
                 flops, nbytes = k8.attn_work(q.shape[0], q.shape[1], q.shape[2])
                 shape = {"entries": q.shape[0], "lq": q.shape[1], "heads": args[3]}
             else:
                 x_m, w1 = args[1], args[7]
-                flops, nbytes = k9.tail_work(x_m.shape[0] * x_m.shape[1], x_m.shape[2], w1.shape[0])
-                shape = {"rows": x_m.shape[0] * x_m.shape[1]}
+                R = x_m.shape[0] * x_m.shape[1]
+                flops, nbytes = k9.tail_work(R, x_m.shape[2], w1.shape[0])
+                shape = {"rows": R}
+                products = _guided_products(dev, k9.tail_products(R, x_m.shape[2], w1.shape[0]))
             bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
-            flushed = {}
+            # warm times first: the L2 flushes write 256 MB between calls
+            ms = cuda_ms(lambda: fn(*args), GUIDED_ITERS, GUIDED_WARMUP)
             if chain is None:
                 sdpa, heads = sdpa_call(*args)
                 library_ms, library, chain_ms = cuda_ms(sdpa, GUIDED_ITERS, GUIDED_WARMUP), \
@@ -249,16 +308,19 @@ def _guided_entries(dev):
             else:
                 library_ms, library = None, "none: no one call computes it"
                 chain_ms = cuda_ms(lambda: chain(*args), GUIDED_ITERS, GUIDED_WARMUP)
+                flushed = {"ms_l2_flushed": cuda_ms_flushed(lambda: fn(*args), 50)}
+            extra = {"products": products} if products else {}
             entries[key] = dict(
-                name=fn.__name__, route="cuda", source=source, replaces=replaces,
+                name=names[key], route="cuda", source=source, replaces=replaces,
                 max_abs_err=float((got.float() - want.float()).abs().max()), rel_err=rel,
-                tolerance=f"max|err|/max|plain| <= {GATE}", **shape,
-                ms=cuda_ms(lambda: fn(*args), GUIDED_ITERS, GUIDED_WARMUP),
+                tolerance=f"max|err|/max|plain| <= {GATE}", **shape, ms=ms,
                 plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, library=library, chain_ms=chain_ms,
-                flops=flops, bytes=nbytes, ok=bool(torch.isfinite(got).all()) and rel <= GATE, **flushed,
+                flops=flops, bytes=nbytes, **flushed, **extra,
+                ok=bool(torch.isfinite(got).all()) and rel <= GATE and all(p["ok"] for p in products.values()),
             )
-            del got, want, args
+            del got, want
+        del cases, ffn_args, tail_args, ffn_w, tail_w
     return entries
 
 

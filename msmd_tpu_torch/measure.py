@@ -134,6 +134,21 @@ def gemm_case(dev, M: int, N: int, K: int, epilogue: str, seed=SEED):
     return args, ({"scale": 0.125, "scale_cols": N // 3} if epilogue == "bf16" else {})
 
 
+def gemm_ws_case(dev, M: int, N: int, K: int, epilogue: str, res_dtype=None, out: str = "bf16", seed=SEED):
+    """Seeded operands of one K6 / K9 product for
+    ``ops/kernels/gemm_ws.gemm_ws``: (a, w, bias), w (N, K) in the
+    nn.Linear layout, and a keyword dict: for "resid_ln" the residual in
+    ``res_dtype``, ln_scale, ln_bias and ``out``."""
+    rn = _seeded(seed + 51)
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    f32 = lambda t: t.to(dev, torch.float32).contiguous()
+    args = (bf(rn(M, K)), bf(rn(N, K) / K ** 0.5), bf(rn(N) * 0.1))
+    if epilogue != "resid_ln":
+        return args, {}
+    return args, {"res": rn(M, N).to(dev, res_dtype).contiguous(), "ln_scale": f32(1.0 + 0.1 * rn(N)),
+                  "ln_bias": f32(0.1 * rn(N)), "out": out}
+
+
 def decoder_flat_case(dev, Be=4, lq=111, width=1, tile=0, F=512, H=8, L=8, FF=2048, seed=SEED):
     """Seeded arguments of K1's flat-mask mode in tiles of ``tile`` entries
     (0: one tile of all Be): (pack, kmem, vmem, x, aux, H, vmw, self_mask,

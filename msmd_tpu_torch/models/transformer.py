@@ -34,6 +34,13 @@ XLA-decoder route (``msmd_tpu/models/transformer.py``:400-423):
   ``MSMD_FUSED_TAIL=1``. It takes the place of the whole layer, so
   ``attn_kernel`` and ``fused_ffn`` have no effect under it.
 
+K6 and K9 take their weights as their modules' ``prepare_*_weights`` make
+them (the f32 LayerNorm parameters, K9's stacked into tables, and the
+weights' tensor maps; the weights themselves are the parameters, which
+``sample`` has made bf16). A layer makes them once and keeps them until
+one of the parameters changes (its data pointer or its version), so the
+4000 K6 or K9 calls of a guided window cast none of the kernel's weights.
+
 The JAX package keeps its flax or XLA ops where a TPU tile does not fit:
 no row tile of at most 2048 dividing the rows (K6 and K7,
 ``msmd_tpu/models/transformer.py``:274 and :307; K9,
@@ -60,9 +67,9 @@ from torch import nn
 
 from msmd_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu, in_dtype, uniform
 from msmd_tpu_torch.ops.kernels.attn import attention_middle
-from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln
+from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln, prepare_ffn_weights
 from msmd_tpu_torch.ops.kernels.ffn_train import fused_ffn_ln_train
-from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail
+from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail, prepare_tail_weights
 
 Rng = Optional[torch.Generator]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (k, v): (B, L, H, Dh)
@@ -199,6 +206,25 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.norm3 = LayerNorm(dim, dtype=dtype)
+        self._kernel_weights = {}  # name -> (parameter state, prepared weights)
+
+    def __getstate__(self):
+        # a copy's parameters are other tensors, and the prepared weights'
+        # tensor maps (ctypes pointers) cannot be copied: it prepares its own
+        state = dict(super().__getstate__())
+        state["_kernel_weights"] = {}
+        return state
+
+    def _prepared(self, name: str, params, prepare):
+        """``prepare(*params)``, made again only when a parameter's data
+        pointer or version has changed since the last call."""
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._kernel_weights.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, prepare(*params))
+            self._kernel_weights[name] = hit
+        return hit[1]
 
     def memory_kv(self, memory: torch.Tensor) -> KVCache:
         return self.cross_attn.project_kv(memory)
@@ -214,10 +240,10 @@ class TransformerDecoderLayer(nn.Module):
 
     def _fused_ffn_ln(self, x: torch.Tensor) -> torch.Tensor:
         """LN(x + FFN(x)) through K6 (``_fused_ffn_ln`` of the JAX layer)."""
-        dt = self.dtype
         l1, l2 = self.ffn.linear1, self.ffn.linear2
-        return fused_ffn_ln(x, l1.weight.to(dt), l1.bias.to(dt), l2.weight.to(dt), l2.bias.to(dt),
-                            self.norm3.weight.float(), self.norm3.bias.float())
+        weights = self._prepared("k6", (l1.weight, l1.bias, l2.weight, l2.bias, self.norm3.weight, self.norm3.bias),
+                                 lambda *p: prepare_ffn_weights(*p, dtype=self.dtype))
+        return fused_ffn_ln(x, *weights)
 
     def _fused_tail(self, x: torch.Tensor, kv_cache: KVCache) -> torch.Tensor:
         """The layer under the width-1 band in eval mode (``_fused_tail`` of
@@ -234,11 +260,11 @@ class TransformerDecoderLayer(nn.Module):
 
         so, co, l1, l2 = self.self_attn.out_proj, self.cross_attn.out_proj, self.ffn.linear1, self.ffn.linear2
         norms = (self.norm1, self.norm2, self.norm3)
-        out_m = fused_layer_tail(
-            sa_pre[:, 1:].contiguous(), x[:, 1:].contiguous(), vh.reshape(B * kh.shape[1], F).to(dt),
-            *(t.to(dt) for t in (so.weight, so.bias, co.weight, co.bias, l1.weight, l1.bias, l2.weight, l2.bias)),
-            torch.stack([n.weight for n in norms]).float(), torch.stack([n.bias for n in norms]).float(),
-        )
+        params = (so.weight, so.bias, co.weight, co.bias, l1.weight, l1.bias, l2.weight, l2.bias,
+                  *(n.weight for n in norms), *(n.bias for n in norms))
+        weights = self._prepared("k9", params, lambda *p: prepare_tail_weights(*p[:8], p[8:11], p[11:], dtype=dt))
+        out_m = fused_layer_tail(sa_pre[:, 1:].contiguous(), x[:, 1:].contiguous(),
+                                 vh.reshape(B * kh.shape[1], F).to(dt), *weights)
         return torch.cat([out_p.to(out_m.dtype), out_m], dim=1)
 
     def forward(self, x, memory=None, memory_mask=None, memory_kv: Optional[KVCache] = None,

@@ -22,17 +22,27 @@ parameters are stacked (3, F) f32: LN1, LN2, LN3. The kernel takes bf16
 and any row count; the JAX sampler keeps the K6 route when
 ``tail_rows_tile`` finds no row tile of at most 2048 (a TPU VMEM limit,
 ``msmd_tpu/models/diffusion.py``:648).
+
+The kernel is four products (``tail_products``): self-out and cross-out
+with LN1 and LN2 in their epilogues, FFN1 with the erf GELU, FFN2 with LN3,
+each on the warp-specialized GEMM of ``csrc/gemm_ws.cuh`` where that takes
+its shape (``ops/kernels/gemm_ws.py``), else on the wmma tile with a
+LayerNorm pass. ``prepare_tail_weights`` makes the kernel's weights (bf16
+copies, the stacked LayerNorm tables, the weights' tensor maps) once, for
+the many calls of a sampling window.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from msmd_tpu_torch import _build
 from msmd_tpu_torch.ops.kernels.decoder import _layernorm
 from msmd_tpu_torch.ops.kernels.ffn_train import gelu_erf
+from msmd_tpu_torch.ops.kernels.gemm_ws import WeightMaps, gemm_ws_plan, gemm_ws_work
 
 
 def layer_tail_plain(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias) -> torch.Tensor:
@@ -56,18 +66,21 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.msmd_tail_workspace_bytes.argtypes = [ci] * 3
         lib.msmd_tail_workspace_bytes.restype = ctypes.c_size_t
-        lib.msmd_tail_forward.argtypes = [vp] * 15 + [ci] * 3 + [vp]
+        lib.msmd_tail_forward.argtypes = [vp] * 15 + [ci] * 3 + [vp] * 5
         lib.msmd_tail_forward.restype = ci
         lib._msmd_typed = True
     return lib
 
 
-def fused_layer_tail(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias) -> torch.Tensor:
+def fused_layer_tail(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias,
+                     maps: Optional[WeightMaps] = None) -> torch.Tensor:
     """The motion-row layer tail; sa_m (the self-attention output before its
     out-projection) and x_m (the layer input) (Be, lm, F), v_rows (Be*lm, F)
     -> (Be, lm, F). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (bf16 activations and weights, f32 LayerNorm
-    parameters, F and FFN multiples of 128, F <= 1024) or raises."""
+    parameters, F and FFN multiples of 128, F <= 1024) or raises. ``maps``:
+    the weights' tensor maps (``prepare_tail_weights``), or None to make
+    them in the call."""
     if _build.on_cpu("fused_layer_tail", x_m):
         return layer_tail_plain(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias)
     Be, lm, F = x_m.shape
@@ -81,12 +94,13 @@ def fused_layer_tail(sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_s
     if F % 128 or FF % 128 or F > 1024:
         raise ValueError(f"fused_layer_tail: the kernel needs F and FFN multiples of 128 and F <= 1024 "
                          f"(F={F}, FFN={FF})")
+    map_args = maps.for_weights(wso, wco, w1, w2) if maps is not None else (None,) * 4
     R = Be * lm
     lib = _lib()
     out = torch.empty_like(x_m)
     ws = torch.empty(lib.msmd_tail_workspace_bytes(R, F, FF), dtype=torch.uint8, device=x_m.device)
     tensors = (sa_m, x_m, v_rows, wso, bso, wco, bco, w1, b1, w2, b2, ln_scale, ln_bias, out, ws)
-    rc = lib.msmd_tail_forward(*(_build.ptr(t) for t in tensors), R, F, FF, _build.stream(x_m.device))
+    rc = lib.msmd_tail_forward(*(_build.ptr(t) for t in tensors), R, F, FF, *map_args, _build.stream(x_m.device))
     _build.check(lib, rc, "fused_layer_tail")
     fused_layer_tail.launches += 1
     return out
@@ -103,3 +117,54 @@ def tail_work(rows: int, F: int, FF: int):
     flops = 2 * rows * F * (2 * F + 2 * FF)
     nbytes = 4 * rows * F * 2 + (2 * F * F + 2 * F * FF) * 2 + (3 * F + FF) * 2 + 6 * F * 4
     return flops, nbytes
+
+
+def tail_products(rows: int, F: int, FF: int) -> dict:
+    """K9's four products at ``rows`` motion rows, in the order the kernel
+    runs them: (M, N, K), the epilogue and its residual (bf16 x, then the
+    f32 x1 and x2) and output (f32 x1; f32 x2 with its bf16 copy, FFN1's
+    left operand; then bf16 out)
+    in ``gemm_ws``'s terms, the launch plan (``gemm_ws_plan``) and the work
+    (``gemm_ws_work``: the products' operations sum to ``tail_work``'s;
+    their bytes also count x1, x2 and h, written and read again)."""
+    shapes = {"self_out": (rows, F, F, "resid_ln", 2, "x"), "cross_out": (rows, F, F, "resid_ln", 4, "x_xb"),
+              "ffn1": (rows, FF, F, "gelu_erf", None, "bf16"), "ffn2": (rows, F, FF, "resid_ln", 4, "bf16")}
+    out = {}
+    for name, (M, N, K, epi, res_bytes, o) in shapes.items():
+        flops, nbytes = gemm_ws_work(M, N, K, epi, res_bytes or 0, o)
+        out[name] = {"M": M, "N": N, "K": K, "epilogue": epi, "res": {None: None, 2: "bf16", 4: "f32"}[res_bytes],
+                     "out": o, "plan": gemm_ws_plan(M, N, K, epi), "flops": flops, "bytes": nbytes}
+    return out
+
+
+class TailWeights(NamedTuple):
+    """K9's weights as the kernel takes them: ``fused_layer_tail(sa_m, x_m,
+    v_rows, *weights)``."""
+    wso: torch.Tensor
+    bso: torch.Tensor
+    wco: torch.Tensor
+    bco: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    maps: Optional[WeightMaps]
+
+
+def prepare_tail_weights(wso, bso, wco, bco, w1, b1, w2, b2, ln_scales, ln_biases, dtype) -> TailWeights:
+    """K9's weights made once: ``dtype`` copies of the weights and biases
+    (the nn.Linear layout; no copy where they are ``dtype`` already), the
+    three LayerNorms' parameters (``ln_scales``, ``ln_biases``: LN1, LN2,
+    LN3) stacked into (3, F) f32 tables and, for bf16 weights on the card,
+    the weights' tensor maps. Detached: the kernel runs in eval mode only."""
+    ws = [t.detach().to(dtype).contiguous() for t in (wso, bso, wco, bco, w1, b1, w2, b2)]
+    ln_scale = torch.stack([t.detach() for t in ln_scales]).float()
+    ln_bias = torch.stack([t.detach() for t in ln_biases]).float()
+    maps = None
+    if ws[0].device.type == "cuda" and dtype == torch.bfloat16:
+        F, FF = ws[0].shape[0], ws[4].shape[0]
+        maps = WeightMaps((ws[0], ws[2], ws[4], ws[6]),
+                          ((F, F, "resid_ln"), (F, F, "resid_ln"), (FF, F, "gelu_erf"), (F, FF, "resid_ln")))
+    return TailWeights(*ws, ln_scale, ln_bias, maps)

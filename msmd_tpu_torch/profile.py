@@ -12,6 +12,12 @@ Prints JSON lines:
   Hopper GEMM's QKV, FFN1 and residual products (self-out and FFN2 with
   their LayerNorms), the wmma person-row products, the self- and person
   attention, the cross LayerNorm.
+- ``gemm_ws``: K6's and K9's products at the guided batch-48 shapes on
+  the warp-specialized GEMM (``csrc/gemm_ws.cuh``), each also at 16 times
+  its depth K (the same tiles, 16 times the main loop), timed with CUDA
+  events: with t(K) = fixed + k-steps x per-k-step, the two depths split a
+  product's time into its main loop (microseconds per 64-deep k-step of a
+  block) and the rest (the epilogue, the pipeline's fill, the launch).
 - ``sampler``: device time per step of each kernel of the batch-1 sampler
   scan K3 (``csrc/sampler.cu``) at the flagship shapes, over one 20-step
   call.
@@ -25,11 +31,14 @@ Prints JSON lines:
   device time of K3's kernels apart from the torch ops around them.
 - ``guided``: one 4 s window of ``sample_with_guide`` at batch 48 (the
   inputs of ``chip_smoke.py``'s phase ``guided``: HuBERT, 500 steps through
-  the decoder modules with K6 in every layer, FLAME decode), default
-  route, measured as ``main_path`` is, with the device time of K6's
-  kernels (``csrc/ffn.cu``: its two GEMMs and its LayerNorm) apart from
-  the torch ops around them, and the host gap (un-profiled wall time
-  minus the summed device time: the card waiting on the host).
+  the decoder modules with K6 in every layer, FLAME decode), on the
+  default route and on the ``fused_tail`` route (K9 in place of K6),
+  each measured as ``main_path`` is, with the device time of K6's (or
+  K9's) kernels (``csrc/ffn.cu``, ``csrc/layer_tail.cu``: the
+  warp-specialized GEMM of ``csrc/gemm_ws.cuh`` at these shapes, the wmma
+  tile and its LayerNorm pass elsewhere) apart from the torch ops around
+  them, and the host gap (un-profiled wall time minus the summed device
+  time: the card waiting on the host).
 - ``serving``: one round of ``StreamingBatcher`` at 48 slots (48 streams
   of 4 s of seeded audio; HuBERT per window, 500 steps, the motion
   fetched), measured as ``main_path`` is, once through K1 (per-entry) and
@@ -71,8 +80,9 @@ _K1_PARTS = (("gemm_sm90_kernel<0>", "qkv"), ("gemm_sm90_kernel<2>", "ffn1"),
 def _k1_part(key: str) -> str:
     return next((part for prefix, part in _K1_PARTS if key.startswith(prefix)), "other")
 _K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
-# the guided window runs no K1, so these are K6's (csrc/ffn.cu) there
-_K6_KERNELS = ("gemm_kernel", "ln_kernel")
+# the guided window runs no K1, so these are K6's (csrc/ffn.cu) there, or
+# K9's (csrc/layer_tail.cu) on the fused_tail route, which runs no K6
+_GUIDED_LAYER_KERNELS = ("gemm_ws_kernel", "gemm_kernel", "ln_kernel")
 # a serving round through K2 launches only this of the decoder's kernels
 _K2_KERNELS = ("resident_kernel",)
 
@@ -81,7 +91,7 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
                   r"cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|resident)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
@@ -148,6 +158,34 @@ def _train_host_split(path: dict, batch) -> dict:
             "synchronising_calls": len(syncs), "synchronising_examples": sorted(set(syncs))[:10]}
 
 
+def _gemm_ws_split(dev) -> dict:
+    """Each K6 / K9 product's ms at its depth K and at 16 K, and the split
+    of the first into main loop and the rest (see the module docstring)."""
+    from msmd_tpu_torch.measure import cuda_ms, gemm_ws_case
+    from msmd_tpu_torch.ops.kernels import ffn as k6
+    from msmd_tpu_torch.ops.kernels import gemm_ws as kw
+    from msmd_tpu_torch.ops.kernels import layer_tail as k9
+
+    dtypes = {None: None, "bf16": torch.bfloat16, "f32": torch.float32}
+    out = {}
+    for kernel, products in (("k6", k6.ffn_products(96 * 111, 512, 2048)),
+                             ("k9", k9.tail_products(96 * 110, 512, 2048))):
+        for name, p in products.items():
+            M, N, K, epi = p["M"], p["N"], p["K"], p["epilogue"]
+            ms = {}
+            for depth in (K, 16 * K):
+                args, kwargs = gemm_ws_case(dev, M, N, depth, epi, dtypes[p["res"]], p["out"])
+                ms[depth] = cuda_ms(lambda: kw.gemm_ws(*args, epi, route="wgmma_ws", **kwargs), 50, 10)
+                del args, kwargs
+            plan = kw.gemm_ws_plan(M, N, K, epi)
+            ksteps = -(-plan["tiles"] // plan["grid"]) * K // 64  # of the busiest block at depth K
+            per_kstep = (ms[16 * K] - ms[K]) / (15 * ksteps)
+            out[f"{kernel}.{name}"] = {"M": M, "N": N, "K": K, "ms": ms[K], "ms_16k": ms[16 * K],
+                                       "main_loop_us_per_kstep": per_kstep * 1e3,
+                                       "main_loop_ms": per_kstep * ksteps, "rest_ms": ms[K] - per_kstep * ksteps}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("msmd_tpu_torch.profile needs an NVIDIA card", file=sys.stderr)
@@ -173,6 +211,9 @@ def main() -> int:
                       "total_ms_per_call": sum(per_call.values()),
                       "device_time_seen": bool(per_call)}), flush=True)
     del args
+
+    with torch.no_grad():
+        print(json.dumps({"phase": "gemm_ws", "products": _gemm_ws_split(dev)}), flush=True)
 
     steps = 20
     with torch.no_grad():
@@ -212,22 +253,24 @@ def main() -> int:
     from msmd_tpu_torch.measure import guided_inputs, run_guided
 
     inputs = guided_inputs(cfg, dev)
-    with torch.no_grad():
-        run = lambda: run_guided(model, style, inputs, dev)
-        run()  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = profile_device_ms(run)
-    busy = sum(by_kernel.values())
-    k6 = sum(v for k, v in by_kernel.items() if k.split("<")[0] in _K6_KERNELS)
-    print(json.dumps({
-        "phase": "guided", "batch": BATCH, "windows": 1, "diff_steps": cfg.n_diff_steps, "wall_ms": wall_ms,
-        "device_busy_ms": busy, "device_busy_share": busy / wall_ms, "host_gap_ms": wall_ms - busy,
-        "k6_kernels_ms": k6, "other_kernels_ms": busy - k6, "top_kernels_ms": dict(list(by_kernel.items())[:25]),
-    }), flush=True)
+    for route, key in (({}, "k6_kernels_ms"), ({"fused_tail": True}, "k9_kernels_ms")):
+        with torch.no_grad():
+            run = lambda: run_guided(model, style, inputs, dev, **route)
+            run()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            by_kernel = profile_device_ms(run)
+        busy = sum(by_kernel.values())
+        layer = sum(v for k, v in by_kernel.items() if k.split("<")[0] in _GUIDED_LAYER_KERNELS)
+        print(json.dumps({
+            "phase": "guided", "route": "fused_tail" if route else "default", "batch": BATCH, "windows": 1,
+            "diff_steps": cfg.n_diff_steps, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms, "host_gap_ms": wall_ms - busy, key: layer,
+            "other_kernels_ms": busy - layer, "top_kernels_ms": dict(list(by_kernel.items())[:25]),
+        }), flush=True)
     del inputs
 
     from msmd_tpu_torch.serving import StreamingBatcher

@@ -4,7 +4,8 @@ file imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
-(``-s`` shows each K6, K8 and K9 case's max |err| / max |plain|.)
+(``-s`` shows each K6, K8 and K9 case's max |err| / max |plain|, and each
+product of the warp-specialized GEMM that K6 and K9 run.)
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the rest of the
 suite.) Tolerances as in ``chip_smoke.py``: the decoder stack (K1 in both
@@ -12,9 +13,9 @@ modes, K2, which must also equal K1's kernel bit for bit), the decoder's
 Hopper GEMM alone against the f32 product of its bf16 operands, and the
 batch-1 sampler kernels, the training FFN block K7 (forward, and each
 of its seven gradients) and the guided window's layer kernels K6, K8 and
-K9 at bf16, max |err| / max |plain| <= 2e-2 (the same bf16 rounding
-points, other f32 summation orders); K7's mask bits exactly; the FLAME
-decode in f32, atol 1e-4.
+K9 and each product of their warp-specialized GEMM at bf16, max |err| /
+max |plain| <= 2e-2 (the same bf16 rounding points, other f32 summation
+orders); K7's mask bits exactly; the FLAME decode in f32, atol 1e-4.
 """
 
 import pytest
@@ -312,21 +313,31 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,F,FF", [(100, 128, 256), (96 * 111, 512, 2048)])
-def test_ffn_kernel_matches_plain(rows, F, FF):
-    """K6 at a row count that no GEMM tile divides and at the guided
-    batch-48 shape."""
+@pytest.mark.parametrize("rows,F,FF,route", [(100, 128, 256, "wmma"), (96 * 111, 512, 2048, "wgmma_ws"),
+                                             (1887, 512, 2048, "wgmma_ws"), (96 * 111 + 1, 512, 2048, "wgmma_ws")])
+def test_ffn_kernel_matches_plain(rows, F, FF, route):
+    """K6 at a row count that no GEMM tile divides (the wmma route), at the
+    guided batch-48 shape, at 17 entries of 111 rows (fewer row blocks than
+    SM pairs) and one row past the guided shape (a last row block whose
+    second half lies wholly past the rows), the last three on the
+    warp-specialized GEMM; with its weights' tensor maps made once
+    (``prepare_ffn_weights``) and made in the call."""
     from msmd_tpu_torch.measure import ffn_case
     from msmd_tpu_torch.ops.kernels import ffn as k6
 
     args = ffn_case(_card(), rows=rows, F=F, FF=FF, seed=6)
+    assert {p["plan"]["route"] for p in k6.ffn_products(rows, F, FF).values()} == {route}
+    prepared = k6.prepare_ffn_weights(*args[1:], dtype=torch.bfloat16)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(prepared[:6], args[1:]))  # bf16 already: no copies
     before = k6.fused_ffn_ln.launches
     got, want = k6.fused_ffn_ln(*args), k6.ffn_ln_plain(*args)
+    got_prepared = k6.fused_ffn_ln(args[0], *prepared)
     torch.cuda.synchronize()
-    assert k6.fused_ffn_ln.launches == before + 1
+    assert k6.fused_ffn_ln.launches == before + 2
     assert got.shape == want.shape == (rows, F) and got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
-    print(f"K6 rows={rows} rel_err={_rel(got, want):.3e}")
+    print(f"K6 rows={rows} route={route} rel_err={_rel(got, want):.3e}")
     assert _rel(got, want) <= 2e-2
+    assert torch.equal(got_prepared, got)
 
 
 @pytest.mark.cuda
@@ -369,19 +380,82 @@ def test_attn_kernel_at_lq_edges(lq, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Be,lm,F,FF", [(3, 15, 128, 256), (96, 110, 512, 2048)])
-def test_layer_tail_kernel_matches_plain(Be, lm, F, FF):
+@pytest.mark.parametrize("Be,lm,F,FF,route", [(3, 15, 128, 256, "wmma"), (96, 110, 512, 2048, "wgmma_ws"),
+                                              (17, 111, 512, 2048, "wgmma_ws")])
+def test_layer_tail_kernel_matches_plain(Be, lm, F, FF, route):
+    """K9 on the wmma route, at the guided batch-48 shape and at 17 entries
+    of 111 rows on the warp-specialized GEMM; with its weights' tensor maps
+    made once (``prepare_tail_weights``) and made in the call."""
     from msmd_tpu_torch.measure import tail_case
     from msmd_tpu_torch.ops.kernels import layer_tail as k9
 
     args = tail_case(_card(), Be=Be, lm=lm, F=F, FF=FF, seed=8)
+    assert {p["plan"]["route"] for p in k9.tail_products(Be * lm, F, FF).values()} == {route}
+    ln_s, ln_b = args[11], args[12]
+    prepared = k9.prepare_tail_weights(*args[3:11], list(ln_s), list(ln_b), dtype=torch.bfloat16)
+    assert torch.equal(prepared.ln_scale, ln_s) and torch.equal(prepared.ln_bias, ln_b)
     before = k9.fused_layer_tail.launches
     got, want = k9.fused_layer_tail(*args), k9.layer_tail_plain(*args)
+    got_prepared = k9.fused_layer_tail(*args[:3], *prepared)
     torch.cuda.synchronize()
-    assert k9.fused_layer_tail.launches == before + 1
+    assert k9.fused_layer_tail.launches == before + 2
     assert got.shape == want.shape == (Be, lm, F) and got.dtype == torch.bfloat16
-    print(f"K9 rows={Be * lm} rel_err={_rel(got, want):.3e}")
+    print(f"K9 rows={Be * lm} route={route} rel_err={_rel(got, want):.3e}")
     assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 2e-2
+    assert torch.equal(got_prepared, got)
+
+
+# K6's and K9's products at the guided batch-48 shapes (10656 and 10560
+# rows) and at 17 entries of 111 rows: (M, N, K, epilogue, residual dtype, output)
+GUIDED_PRODUCTS = [
+    (10656, 2048, 512, "gelu", None, "bf16"), (10656, 512, 2048, "resid_ln", torch.bfloat16, "bf16"),
+    (10560, 512, 512, "resid_ln", torch.bfloat16, "x"), (10560, 512, 512, "resid_ln", torch.float32, "x_xb"),
+    (10560, 2048, 512, "gelu_erf", None, "bf16"), (10560, 512, 2048, "resid_ln", torch.float32, "bf16"),
+    (1887, 2048, 512, "gelu_erf", None, "bf16"), (1887, 512, 2048, "resid_ln", torch.float32, "x_xb"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,epilogue,res_dtype,out", GUIDED_PRODUCTS)
+def test_gemm_ws_product_matches_plain(M, N, K, epilogue, res_dtype, out):
+    """Each product of K6 and K9 alone on the warp-specialized GEMM against
+    its plain version (the same bf16 operands, f32 sums), and on the wmma
+    route within the same bound."""
+    from msmd_tpu_torch.measure import gemm_ws_case
+    from msmd_tpu_torch.ops.kernels import gemm_ws as kw
+
+    args, kwargs = gemm_ws_case(_card(), M, N, K, epilogue, res_dtype, out, seed=14)
+    before = kw.gemm_ws.launches
+    got = kw.gemm_ws(*args, epilogue, route="wgmma_ws", **kwargs)
+    auto = kw.gemm_ws(*args, epilogue, **kwargs)
+    old = kw.gemm_ws(*args, epilogue, route="wmma", **kwargs)
+    want = kw.gemm_ws_plain(*args, epilogue, **kwargs)
+    torch.cuda.synchronize()
+    assert kw.gemm_ws.launches == before + 3
+    if out == "x_xb":
+        (got, got_b), (auto, _), (old, _), (want, want_b) = got, auto, old, want
+        assert got.dtype == torch.float32 and got_b.dtype == torch.bfloat16 and _rel(got_b, want_b) <= 2e-2
+    assert got.dtype == (torch.float32 if out != "bf16" else torch.bfloat16)
+    assert got.shape == (M, N) and torch.equal(got, auto) and bool(torch.isfinite(got.float()).all())
+    print(f"gemm_ws {M}x{N}x{K} {epilogue} res={res_dtype} out={out} rel_err={_rel(got, want):.3e} "
+          f"wmma={_rel(old, want):.3e}")
+    assert _rel(got, want) <= 2e-2 and _rel(old, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,epilogue", [(10656, 2048, 512, "gelu"), (10656, 512, 2048, "resid_ln"),
+                                            (10560, 512, 512, "resid_ln"), (1887, 2048, 512, "gelu_erf"),
+                                            (1023, 512, 512, "resid_ln"), (100, 256, 128, "gelu"),
+                                            (10656, 384, 512, "resid_ln"), (10656, 640, 512, "gelu")])
+def test_gemm_ws_plan_matches_the_library(M, N, K, epilogue):
+    """The pure-Python launch plan of K6's and K9's products equals what
+    the library launches on this card (route, tile, cluster, tiles, grid,
+    shared memory)."""
+    from msmd_tpu_torch.ops.kernels import gemm_ws as kw
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kw.kernel_plan(M, N, K, epilogue) == kw.gemm_ws_plan(M, N, K, epilogue, sms=sms)
 
 
 @pytest.mark.cuda
@@ -412,3 +486,92 @@ def test_guided_wrappers_refuse_what_the_kernels_do_not_take():
         k9.fused_layer_tail(*args[:11], args[11].bfloat16(), args[12])
     with pytest.raises(ValueError, match="must be on"):
         k9.fused_layer_tail(args[0], args[1], args[2].cpu(), *args[3:])
+
+
+@pytest.mark.cuda
+def test_gemm_ws_wrapper_refuses_what_the_kernel_does_not_take():
+    from msmd_tpu_torch.measure import ffn_case, gemm_ws_case
+    from msmd_tpu_torch.ops.kernels import ffn as k6
+    from msmd_tpu_torch.ops.kernels import gemm_ws as kw
+
+    dev = _card()
+    args, kwargs = gemm_ws_case(dev, 222, 512, 512, "resid_ln", torch.float32, "bf16")
+    with pytest.raises(ValueError, match="does not take M=222"):
+        kw.gemm_ws(*args, "resid_ln", route="wgmma_ws", **kwargs)
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        kw.gemm_ws(args[0], args[1].float(), args[2], "resid_ln", **kwargs)
+    with pytest.raises(ValueError, match="shape"):
+        kw.gemm_ws(args[0], args[1][:, :256].contiguous(), args[2], "resid_ln", **kwargs)
+    with pytest.raises(TypeError, match="needs res"):
+        kw.gemm_ws(*args, "resid_ln", **{**kwargs, "res": kwargs["res"].double()})
+    with pytest.raises(ValueError, match="unknown route"):
+        kw.gemm_ws(*args, "resid_ln", route="cublas", **kwargs)
+    x, w1, b1, w2, b2, g, b = ffn_case(dev, rows=1100, F=512, FF=2048)
+    other = k6.prepare_ffn_weights(w1.clone(), b1, w2, b2, g, b, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not those the maps were made for"):
+        k6.fused_ffn_ln(x, w1, b1, w2, b2, g, b, other.maps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused_ffn", "fused_tail"])
+def test_guided_layer_call_launches_no_weight_cast(route):
+    """A bf16 decoder layer at the guided batch-48 shapes, converted to bf16
+    as ``sample`` converts the denoiser: once its K6 (or K9) weights are
+    prepared, a layer call casts, detaches and stacks none of the kernel's
+    parameters for the kernel (every ``Tensor.to``, ``Tensor.float``,
+    ``Tensor.detach`` and ``torch.stack`` call that makes a new tensor is
+    seen; K9's person rows run the plain LayerNorm modules, which cast
+    their six parameters to f32 as on every route) and reuses the prepared
+    tensors; a parameter changed in place makes them again; a deep copy of
+    the layer starts without them."""
+    import copy
+
+    from torch.overrides import TorchFunctionMode
+
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.models.transformer import TransformerDecoderLayer
+
+    dev = _card()
+    F, FF, Be, lq = 512, 2048, 96, 111
+    layer = init_params(TransformerDecoderLayer(F, 8, FF, dtype=torch.bfloat16), 3).to(dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(Be, lq, F, generator=g).to(dev, torch.bfloat16)
+    kv = layer.memory_kv(torch.randn(Be, lq - 1, F, generator=g).to(dev))
+    kw = dict(memory_kv=kv, cross_identity_band=True, **{route: True})
+    l1, l2 = layer.ffn.linear1, layer.ffn.linear2
+    owned = [l1.weight, l1.bias, l2.weight, l2.bias, layer.norm3.weight, layer.norm3.bias]
+    if route == "fused_tail":
+        owned += [layer.self_attn.out_proj.weight, layer.self_attn.out_proj.bias, layer.cross_attn.out_proj.weight,
+                  layer.cross_attn.out_proj.bias, layer.norm1.weight, layer.norm1.bias, layer.norm2.weight,
+                  layer.norm2.bias]
+    owned_ids = {id(p) for p in owned}
+
+    class Casts(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.Tensor.to, torch.Tensor.float, torch.Tensor.detach, torch.stack):
+                flat = list(args[0]) if func is torch.stack else [args[0]]
+                self.seen += [func.__name__ for t in flat if id(t) in owned_ids and out is not t]
+            return out
+
+    with torch.no_grad():
+        first = layer(x, **kw)
+        prepared = dict(layer._kernel_weights)
+        with Casts() as casts:
+            second = layer(x, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second) and prepared
+    assert all(layer._kernel_weights[k][1] is v[1] for k, v in prepared.items())
+    assert casts.seen == (["float"] * 6 if route == "fused_tail" else [])
+    with torch.no_grad():
+        twin = copy.deepcopy(layer)  # as sample() copies the denoiser: the tensor maps stay behind
+        assert twin._kernel_weights == {} and torch.equal(twin(x, **kw), first)
+        l1.weight.mul_(1.0)
+        with Casts() as casts:
+            layer(x, **kw)
+    name = "k6" if route == "fused_ffn" else "k9"
+    assert layer._kernel_weights[name][1] is not prepared[name][1] and casts.seen
