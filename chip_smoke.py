@@ -29,7 +29,17 @@ Phases, each printing one JSON line:
      The gates read the denoiser because they end at t = 1, where
      x_0 = target; over the first steps (t = 500..491) the output is
      almost all x_T and z, which both sides share, and a wrong decoder
-     would read well below the gate.
+     would read well below the gate. K3 is one cooperative launch of the
+     persistent small-row stack (``csrc/decoder_small.cuh``) a window; its
+     entry also gives its grid and phases a step (the plan the library
+     reports), its launches a step as the card ran them
+     (``launches_per_step``: the kernel's device events in torch.profiler
+     over one call, divided by the steps; the plan's number beside it as
+     ``planned_launches_per_step``), its registers and spills (``-Xptxas
+     -v``), whether two calls are bit-equal (``deterministic``, gated), the
+     window with the L2 flushed, the weight-streaming floor (500 x the
+     pack's bytes / 3.35 TB/s), and K4's ms x 500 as the window of the
+     chain of launches K3 was before (``old_chain_ms``).
    - batch-1 sampler step (K4): one step at t = 1; the same gate.
    - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
      no TF32).
@@ -41,16 +51,22 @@ Phases, each printing one JSON line:
      call computes K7 (``library_ms`` null); the unfused torch-op chain
      (F.linear, gelu, dropout, layer_norm, and its autograd backward) is
      timed beside it as ``chain_ms``.
-   - K1's flat-mask mode (``decoder_flat``) in its two cross forms, one
-     tile of all entries, lq = 111, the same layers: the identity band at
-     Be = 4 (the 2-slot serving round) and the full masked cross at Be = 2
-     (batch 1 of a model without the alignment mask); each at max |err| /
-     max |plain| <= 2e-2. The entry's ``ms`` is the identity band's; both
-     forms' numbers are under ``forms``.
+   - K1's flat-mask mode (``decoder_flat``) in its two cross forms, lq =
+     111, the same layers, in the tiles the denoiser picks: the identity
+     band at Be = 4 (the 2-slot serving round) and the full masked cross at
+     Be = 2 (batch 1 of a model without the alignment mask), both one tile
+     on the persistent small-row stack, and the full masked cross at Be =
+     96 (batch 48 of that model, tiles of 8, 10656 rows: the chain of
+     launches on the Hopper GEMM); each at max |err| / max |plain| <= 2e-2
+     and bit-equal across two calls. The entry's ``ms`` is the identity
+     band's; every form's numbers are under ``forms``, with its ``route``,
+     the small-row stack's launch facts as K3's (the chain: the kernels the
+     card ran in one call), bit-equality and L2-flushed time.
    - K2 (``resident``) at K1's Be = 96 shapes: max |err| / max |plain| <=
      2e-2, and its largest difference from K1's kernel on the same inputs
      (printed, not gated: the same device functions in the same order
-     should give the same bits), timed beside K1 in the same call.
+     should give the same bits), timed beside K1 in the same call, and at
+     Be = 2 and 4 (``small_rows``) beside K1 per-entry.
    - the guided window's layer kernels at its batch-48 shapes (two CFG
      entries, Be = 96, lq = 111): K6 ``fused_ffn_ln`` over 10656 rows (F
      512, FFN 2048), K8 ``attention_middle`` over 96 entries of 111 rows (8
@@ -60,7 +76,9 @@ Phases, each printing one JSON line:
      on K8's inputs, and null for K6 and K9, whose unfused torch-op chains
      are timed as ``chain_ms``. K6 and K9 run with their weights prepared
      once, as the guided path runs them. K6, K8 and K9 are also timed with
-     the L2 flushed before each call (SDPA too). Under ``products``: K6's
+     the L2 flushed before each call (SDPA too), and K8 and SDPA also by
+     their kernels' device time alone (``device_ms``,
+     ``library_device_ms``, torch.profiler). Under ``products``: K6's
      two and K9's four products alone at their shapes, on the route the
      kernel takes (the warp-specialized GEMM of ``csrc/gemm_ws.cuh`` at
      these rows) and on the wmma tile of earlier PRs, each gated at max
@@ -167,6 +185,7 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every kernel; returns each library's ``-Xptxas -v`` output."""
     from msmd_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -177,6 +196,31 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     emit({"phase": "build", "seconds": seconds, "built": sorted(logs)})
+    return logs
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of the entry function whose
+    name holds ``kernel`` in one library's ``-Xptxas -v`` output, and the
+    most spill bytes of any function that library compiles (the small-row
+    stack's phase functions are not inlined)."""
+    import re
+
+    out, entry, most = {}, None, {"spill_stores": 0, "spill_loads": 0}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)'?", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            stack, st, ld = (int(g) for g in m.groups())
+            most = {"spill_stores": max(most["spill_stores"], st), "spill_loads": max(most["spill_loads"], ld)}
+            if entry and kernel in entry:
+                out.update(stack_frame=stack, spill_stores=st, spill_loads=ld)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and kernel in entry:
+            out["registers"] = int(m.group(1))
+    return {**out, "most_spill_any_function": most}
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +288,23 @@ def _guided_products(dev, products):
     return out
 
 
+def _device_ms_per_call(fn, calls: int = 50) -> float:
+    """The device time of one call of ``fn``: its kernels' durations in
+    torch.profiler over ``calls`` back-to-back calls, summed, over
+    ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
 def _guided_entries(dev):
     """K6, K8 and K9 against their plain versions at the guided batch-48
     shapes, timed beside their bounds, the unfused torch-op chains (K6,
@@ -302,8 +363,13 @@ def _guided_entries(dev):
                 sdpa, heads = sdpa_call(*args)
                 library_ms, library, chain_ms = cuda_ms(sdpa, GUIDED_ITERS, GUIDED_WARMUP), \
                     "scaled_dot_product_attention", None
+                # K8 is ~0.02 ms of device work a call: the warm ms (CUDA
+                # events over back-to-back calls) also holds the host's time
+                # to launch each call, which the device time alone does not
                 flushed = {"ms_l2_flushed": cuda_ms_flushed(lambda: fn(*args), 50),
-                           "library_ms_l2_flushed": cuda_ms_flushed(sdpa, 50)}
+                           "library_ms_l2_flushed": cuda_ms_flushed(sdpa, 50),
+                           "device_ms": _device_ms_per_call(lambda: fn(*args)),
+                           "library_device_ms": _device_ms_per_call(sdpa)}
                 del heads
             else:
                 library_ms, library = None, "none: no one call computes it"
@@ -365,11 +431,42 @@ def _product_entries(dev, Be, lq, F, L, FF):
     return out
 
 
-def phase_kernels(dev):
+def _device_launches(call, kernel: str) -> dict:
+    """The kernels the card ran in one ``call``, from torch.profiler's
+    device events: those of ``kernel`` and the others (the wrapper's own
+    torch ops, such as the row-index tensors it builds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    ours = sum(kernel in n for n in names)
+    return {"kernel": ours, "other_kernels": len(names) - ours}
+
+
+def _small_stack_fields(plan: dict, usage: dict, launched: dict, steps: int, planned) -> dict:
+    """The persistent small-row stack's launch facts for a kernel entry:
+    ``launched`` from ``_device_launches`` over one call of ``steps``
+    sampler steps, beside the plan's launches a step."""
+    return dict(grid_blocks=plan["grid"], blocks_per_sm=plan["per_sm"], smem_bytes=plan["smem"],
+                phases_per_step=len(plan["rows"]), launches_per_step=launched["kernel"] / steps,
+                device_kernels_per_call=launched, planned_launches_per_step=planned,
+                registers=usage.get("registers"), spill_stores=usage.get("spill_stores"),
+                spill_loads=usage.get("spill_loads"), stack_frame=usage.get("stack_frame"),
+                most_spill_any_function=usage.get("most_spill_any_function"))
+
+
+def phase_kernels(dev, logs):
     import torch
 
-    from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, bound, cuda_ms, cuda_ms_flushed, decoder_case,
-                                        decoder_work, lbs_case, lbs_work, sampler_case, sampler_work)
+    from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, HBM_RATE, bound, cuda_ms, cuda_ms_flushed,
+                                        decoder_case, decoder_work, lbs_case, lbs_work, sampler_case, sampler_work)
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
@@ -407,21 +504,34 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         err, rel = float((got - want).abs().max()), _rel(got, want)
         got_full = ks.fused_sampler_scan(*scan, **kw)
+        again = ks.fused_sampler_scan(*scan, **kw)
         want_full, plain_ms = _timed_once(lambda: ks.fused_sampler_scan_plain(*scan, **kw))
         rel_full = _rel(got_full, want_full)
         flops, nbytes = sampler_work(scan, kw)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        T = int(z.shape[0])
+        L, F, FF = pack["wqkv"].shape[0], pack["wso"].shape[-1], pack["wf1"].shape[-1]
+        lq = const["pe_flat"].shape[0] // kw["n_entries"]
+        plan = ks.scan_plan(lq, F, kw["n_heads"], L, FF, kw["n_cur"], kw["d_motion"], kw["num_basis"],
+                            const["wd1"].shape[-1], kw["use_indicator"], kw["n_entries"])
         out["scan"] = dict(
             name="fused_sampler_scan", route="cuda", source="msmd_tpu_torch/csrc/sampler.cu",
             replaces="msmd_tpu/ops/pallas/decoder_kernel.py:1142",
             max_abs_err=float((got_full - want_full).abs().max()), rel_err=rel_full,
-            tolerance=f"max|err|/max|plain| <= {GATE} over all {int(z.shape[0])} steps and over t = {n}..1",
-            steps=int(z.shape[0]), max_abs_err_last_steps=err, rel_err_last_steps=rel,
-            ms=cuda_ms(lambda: ks.fused_sampler_scan(*scan, **kw), 3, warmup=1), plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes,
-            ok=bool(torch.isfinite(got_full).all()) and rel_full <= GATE and rel <= GATE,
+            tolerance=f"max|err|/max|plain| <= {GATE} over all {T} steps and over t = {n}..1",
+            steps=T, max_abs_err_last_steps=err, rel_err_last_steps=rel,
+            ms=cuda_ms(lambda: ks.fused_sampler_scan(*scan, **kw), 3, warmup=1),
+            ms_l2_flushed=cuda_ms_flushed(lambda: ks.fused_sampler_scan(*scan, **kw), 3),
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            weight_stream_floor_ms=T * sum(t.numel() * t.element_size() for t in pack.values()) / HBM_RATE * 1e3,
+            library_ms=None, flops=flops, bytes=nbytes, deterministic=bool(torch.equal(got_full, again)),
+            **_small_stack_fields(plan, ptxas_usage(logs.get("sampler", ""), "scan_kernel"),
+                                  _device_launches(lambda: ks.fused_sampler_scan(*scan, **kw), "scan_kernel"), T,
+                                  1 / T),
+            ok=bool(torch.isfinite(got_full).all()) and rel_full <= GATE and rel <= GATE
+            and bool(torch.equal(got_full, again)),
         )
-        del got, want, got_full, want_full
+        del got, want, got_full, want_full, again
 
         got = ks.fused_sampler_step(*step, **kw)
         want = ks.fused_sampler_step_plain(*step, **kw)
@@ -438,6 +548,9 @@ def phase_kernels(dev):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes,
             ok=bool(torch.isfinite(got).all()) and rel <= GATE,
         )
+        # K4 is one step of the chain of launches K3 ran before PR 8: 500 of
+        # them in this call are the old chain's window
+        out["scan"]["old_chain_ms"] = out["step"]["ms"] * out["scan"]["steps"]
         del scan, step, got, want
 
         fused, (betas_ext, rt) = lbs_case(dev)
@@ -458,7 +571,7 @@ def phase_kernels(dev):
             library_ms=None, flops=flops, bytes=nbytes, ok=ok,
         )
         del got, want
-        out.update(_flat_and_resident_entries(dev))
+        out.update(_flat_and_resident_entries(dev, logs))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
     emit({"phase": "kernels", **out})
@@ -471,38 +584,63 @@ def phase_kernels(dev):
 NO_LIBRARY = "none: no one call computes a decoder stack"
 
 
-def _flat_and_resident_entries(dev):
+def _flat_and_resident_entries(dev, logs):
     """K1's flat-mask mode in both cross forms and K2, each against its
-    plain version, timed beside its bound; K2 also beside K1's kernel."""
+    plain version, timed beside its bound; K2 also beside K1's kernel, and
+    at the small-row shapes (Be = 2 and 4) beside K1 per-entry."""
     import torch
 
-    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, decoder_case, decoder_flat_case, \
-        decoder_flat_work, decoder_work
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, cuda_ms_flushed, decoder_case, \
+        decoder_flat_case, decoder_flat_work, decoder_work
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
 
+    from msmd_tpu_torch.models.diffusion import decoder_route
+    from msmd_tpu_torch.ops.kernels.small_stack import flat_uses_chain
+
+    usage = ptxas_usage(logs.get("decoder", ""), "flat_kernel")
     forms = {}
-    for form, Be, width in (("identity_band", 4, 1), ("full_cross", 2, 0)):
-        args = decoder_flat_case(dev, Be=Be, width=width)
-        got, want = kd.fused_decoder_forward_flat(*args), kd.fused_decoder_forward_plain(*args)
+    # the 2-slot round, batch 1 without the alignment mask (both on the
+    # small stack), and batch 48 without it (Be = 96 in tiles of 8: the
+    # chain on the Hopper GEMM)
+    for form, Be, width in (("identity_band", 4, 1), ("full_cross", 2, 0), ("full_cross_batch48", 96, 0)):
+        args = decoder_flat_case(dev, Be=Be, width=width, tile=decoder_route(width, Be, 111)[1])
+        call = lambda: kd.fused_decoder_forward_flat(*args)
+        got, again = call(), call()
+        want = kd.fused_decoder_forward_plain(*args)
         torch.cuda.synchronize()
         rel = _rel(got, want)
         flops, nbytes = decoder_flat_work(args)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
-        forms[form] = dict(entries=Be, lq=int(args[3].shape[1]), align_mask_width=width,
+        lq, F, L, FF = int(args[3].shape[1]), int(args[3].shape[2]), args[0]["wqkv"].shape[0], args[0]["wf1"].shape[-1]
+        if flat_uses_chain(Be, lq, F, FF):
+            launched = _device_launches(call, "_kernel")
+            route = dict(route="chain", device_kernels_per_call=launched["kernel"] + launched["other_kernels"])
+        else:
+            plan = kd.flat_plan(Be, lq, F, args[5], L, FF, args[9], width == 1)
+            route = dict(route="small_stack", **_small_stack_fields(plan, usage, _device_launches(call, "flat_kernel"),
+                                                                    1, 1))
+        forms[form] = dict(entries=Be, tile=args[9], lq=lq, align_mask_width=width,
                            max_abs_err=float((got - want).abs().max()), rel_err=rel,
-                           ms=cuda_ms(lambda: kd.fused_decoder_forward_flat(*args), 20),
+                           ms=cuda_ms(call, 20), ms_l2_flushed=cuda_ms_flushed(call, 10),
                            plain_ms=cuda_ms(lambda: kd.fused_decoder_forward_plain(*args), 3, warmup=1),
                            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
-                           ok=bool(torch.isfinite(got).all()) and rel <= GATE)
-        del args, got, want
+                           deterministic=bool(torch.equal(got, again)), **route,
+                           ok=bool(torch.isfinite(got).all()) and rel <= GATE and bool(torch.equal(got, again)))
+        del args, got, want, again, call
     band = forms["identity_band"]
+    facts = {k: band[k] for k in ("grid_blocks", "blocks_per_sm", "smem_bytes", "phases_per_step",
+                                   "launches_per_step", "device_kernels_per_call", "planned_launches_per_step",
+                                   "registers", "spill_stores", "spill_loads", "stack_frame",
+                                   "most_spill_any_function")}
     out = {"decoder_flat": dict(
         name="fused_decoder_forward_flat", route="cuda", source="msmd_tpu_torch/csrc/decoder.cu",
         replaces="msmd_tpu/ops/pallas/decoder_kernel.py:560",
         max_abs_err=max(f["max_abs_err"] for f in forms.values()), tolerance=f"max|err|/max|plain| <= {GATE}",
-        ms=band["ms"], plain_ms=band["plain_ms"], bound_ms=band["bound_ms"], bound_by=band["bound_by"],
-        library_ms=None, library=NO_LIBRARY, forms=forms, ok=all(f["ok"] for f in forms.values()))}
+        ms=band["ms"], ms_l2_flushed=band["ms_l2_flushed"], plain_ms=band["plain_ms"], bound_ms=band["bound_ms"],
+        bound_by=band["bound_by"], library_ms=None, library=NO_LIBRARY, **facts,
+        deterministic=all(f["deterministic"] for f in forms.values()), forms=forms,
+        ok=all(f["ok"] for f in forms.values()))}
 
     args = decoder_case(dev)
     got = kdr.fused_decoder_forward_resident(*args)
@@ -523,6 +661,13 @@ def _flat_and_resident_entries(dev):
         plain_ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident_plain(*args), 3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, library=NO_LIBRARY, flops=flops, bytes=nbytes,
         ok=bool(torch.isfinite(got).all()) and rel <= GATE)
+    small = {}
+    for Be in (2, 4):  # K2's cooperative schedule at the small-row shapes, beside K1 per-entry
+        args = decoder_case(dev, Be=Be)
+        small[f"be{Be}"] = dict(ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20),
+                                k1_ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20))
+        del args
+    out["resident"]["small_rows"] = small
     return out
 
 
@@ -994,8 +1139,8 @@ def main() -> int:
     from msmd_tpu_torch.measure import build_main_path
 
     dev = torch.device("cuda", 0)
-    phase_build()
-    kernels = phase_kernels(dev)
+    logs = phase_build()
+    kernels = phase_kernels(dev, logs)
     built = build_main_path(dev)
     main_launches = phase_main(dev, smi, built)
     b1_launches, traj_launches = phase_batch1(dev, smi, built)

@@ -24,8 +24,8 @@
 // m64n256k16 from 128-byte-swizzled shared memory, 128 x 256 tiles for QKV
 // and FFN1, 64 x 512 tiles for the two residual products, whose epilogue
 // takes the post-LayerNorm and writes x and its bf16 copy), so a layer is
-// nine launches. Products with fewer than SM90_MIN_ROWS rows (K3, K4, the
-// flat-mask mode, small batches) and the person rows' products stay on the
+// nine launches. Products with fewer than SM90_MIN_ROWS rows (small
+// batches; K4 shares this chain) and the person rows' products stay on the
 // wmma tile of decoder_common.cuh (bf16 16x16x16, BM x 128 x 32 tiles, a
 // 4-deep cp.async ring) with a separate LayerNorm pass. Every epilogue
 // fuses the bias, the q scale and bf16 cast, tanh-GELU or the residual
@@ -42,25 +42,33 @@
 // full masked cross-attention, :459-467): the batch is cut into tiles of
 // `tile` whole entries, and every attention of a tile runs over all of
 // the tile's rows with an additive f32 mask shared by the tiles (NEG =
-// -1e30 where a query may not look). The GEMMs and LayerNorms are the
-// per-entry mode's. What is new is one masked attention kernel for the
-// self-attention (the tile's Rt = tile * lq rows against themselves, an
-// (Rt, Rt) mask), for the full cross-attention (the Rt rows against the
-// tile's Mt = tile * lm memory rows, an (Rt, Mt) mask), and, at width 1,
-// for the person rows (tile rows against the Mt memory rows, the (tile,
-// Mt) person mask), whose cross output then takes the per-entry mode's
-// bf16 scatter with vmw. At Be = 4, lq = 111 a head's scores are 444 x
-// 444 f32 (0.79 MB), beyond shared memory, so a block holds 64 query rows
-// and streams the keys through shared memory 64 at a time. The bf16
-// softmax has no running max (exp(clamp(s - 20, -80, 60)), a fixed
-// shift), so numerators and row sums simply accumulate over the key
-// blocks; a key block whose mask is all at or below _MASK_FLOOR = -1e29
-// adds exactly 0 and is skipped, which leaves ~1 / tile of the
-// block-diagonal self mask's blocks to compute. Bound: at Be = 4 a step
-// is ~25 GFLOP (~0.03 ms) against ~60 MB of weights (~0.02 ms); the ~11
-// launches per layer on grids of 8-112 blocks make it latency-bound.
+// -1e30 where a query may not look): the self-attention (the tile's Rt =
+// tile * lq rows against themselves), the full cross-attention (the Rt
+// rows against the tile's Mt = tile * lm memory rows) or, at width 1, the
+// person rows (tile rows against the Mt memory rows through the person
+// mask), whose cross output then takes the per-entry mode's bf16 scatter
+// with vmw. A block of the masked attention holds 64 query rows and
+// streams the keys 64 at a time; the bf16 softmax has no running max (a
+// fixed shift), so numerators and row sums accumulate over the key
+// blocks, and a key block whose mask is all at or below MASK_FLOOR =
+// -1e29 adds exactly 0 and is skipped. The mode takes one of two routes,
+// by its row count R = Be * lq:
+// - below SM90_MIN_ROWS (decoder_uses_sm90 false: the 2-slot round at Be =
+//   4, batch 1 at Be = 2, up to Be = 8 at lq = 111): one cooperative launch
+//   of the persistent small-row stack (decoder_small.cuh), whose phases
+//   cut every product, attention and LayerNorm into about as many items as
+//   the card holds blocks. At Be = 4 a step is ~25 GFLOP (~0.03 ms) against
+//   ~60 MB of weights (~0.02 ms); the chain of ~89 launches on grids of
+//   8-112 blocks that ran there took ~2 ms.
+// - at SM90_MIN_ROWS and above (Be >= 10 at lq = 111, e.g. batch 48 of a
+//   model with align_mask_width != 1): the chain of launches below, whose
+//   four large products run on the Hopper GEMM of gemm_sm90.cuh with the
+//   LayerNorm in the residual epilogues, as K1 per-entry's do, and whose
+//   masked attentions are the small stack's work items, one block each. On
+//   an H100 the small stack's 64 x 64 tiles lose there (Be = 10: 1.91 vs
+//   1.83 ms; Be = 96: 11.3 vs 6.9 ms a call).
 
-#include "decoder_common.cuh"
+#include "decoder_small.cuh"
 
 namespace {
 
@@ -70,221 +78,6 @@ __global__ void cast_kernel(const float* __restrict__ x_in, float* __restrict__ 
     x[i] = v;
     xb[i] = __float2bfloat16(v);
   }
-}
-
-// --------------------------------------------------------------------------
-// masked attention over a tile: block (query block, head, tile)
-// --------------------------------------------------------------------------
-
-constexpr float MASK_FLOOR = -1e29f;  // scores at or below are structural masks
-constexpr int MA_BQ = 64, MA_BK = 64, MA_THREADS = 256;
-constexpr int MA_LD = DH + 8;      // bf16 row stride of Q, K, V, P
-constexpr int MA_SLD = MA_BK + 4;  // f32 row stride of the scores, the mask tile and the output
-
-constexpr size_t masked_attn_smem_bytes() {
-  return (size_t)4 * MA_BQ * MA_LD * sizeof(bf16) + (size_t)2 * MA_BQ * MA_SLD * sizeof(float) +
-         MA_BQ * sizeof(float);
-}
-
-struct MaskedAttnArgs {
-  const bf16 *q, *k, *v;  // row r of head h at base + r * ld + h * DH
-  long ldq, ldk, ldv;
-  const float* mask;  // (rq, rk) additive f32, the same for every tile
-  bf16* out;          // row r of head h at out + r * ldo + h * DH
-  long ldo;
-  int rq, rk;  // query rows and key rows per tile
-};
-
-// out = (exp(clamp_unmasked(q k^T + mask - 20)) v) / rowsum, with q already
-// scaled and every product on bf16 operands with f32 accumulation. Tile
-// t's query rows are t * rq .. and its key rows t * rk ..
-__global__ void __launch_bounds__(MA_THREADS) masked_attn_kernel(MaskedAttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + MA_BQ * MA_LD;
-  bf16* Vs = Ks + MA_BK * MA_LD;
-  bf16* Ps = Vs + MA_BK * MA_LD;
-  float* Ss = reinterpret_cast<float*>(Ps + MA_BQ * MA_LD);  // scores, then the output
-  float* Ms = Ss + MA_BQ * MA_SLD;                            // the mask tile
-  float* rs = Ms + MA_BQ * MA_SLD;                            // row sums
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * MA_BQ, h = blockIdx.y, t = blockIdx.z;
-  const long qrow0 = (long)t * a.rq + q0, krow0 = (long)t * a.rk;
-
-  for (int i = tid; i < MA_BQ * (DH / 8); i += MA_THREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    uint4 q = make_uint4(0, 0, 0, 0);
-    if (q0 + r < a.rq) q = *reinterpret_cast<const uint4*>(a.q + (qrow0 + r) * a.ldq + h * DH + c);
-    *reinterpret_cast<uint4*>(Qs + r * MA_LD + c) = q;
-  }
-  if (tid < MA_BQ) rs[tid] = 0.0f;
-
-  // each warp owns one 16-row strip of the output and two of its four
-  // 16-column fragments, summed over the key blocks in registers
-  const int oi = warp / 2, oj = (warp % 2) * 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-
-  for (int kb = 0; kb < a.rk; kb += MA_BK) {
-    __syncthreads();  // the previous key block is done with Ks, Vs, Ps, Ms
-    int live = 0;
-    for (int i = tid; i < MA_BQ * MA_BK; i += MA_THREADS) {
-      const int r = i / MA_BK, c = i % MA_BK;
-      float m = -1e30f;  // rows and keys past the edge get no weight
-      if (q0 + r < a.rq && kb + c < a.rk) {
-        m = a.mask[(long)(q0 + r) * a.rk + kb + c];
-        live |= m > MASK_FLOOR;
-      }
-      Ms[r * MA_SLD + c] = m;
-    }
-    if (!__syncthreads_or(live)) continue;  // every score of this block is masked: it adds exactly 0
-
-    for (int i = tid; i < MA_BK * (DH / 8); i += MA_THREADS) {
-      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-      uint4 k = make_uint4(0, 0, 0, 0), v = k;
-      if (kb + r < a.rk) {
-        k = *reinterpret_cast<const uint4*>(a.k + (krow0 + kb + r) * a.ldk + h * DH + c);
-        v = *reinterpret_cast<const uint4*>(a.v + (krow0 + kb + r) * a.ldv + h * DH + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * MA_LD + c) = k;
-      *reinterpret_cast<uint4*>(Vs + r * MA_LD + c) = v;
-    }
-    __syncthreads();
-
-    // S = Q K^T (f32): 4 x 4 fragments, two per warp
-    for (int f = warp; f < (MA_BQ / 16) * (MA_BK / 16); f += MA_THREADS / 32) {
-      const int ti = f / (MA_BK / 16), tj = f % (MA_BK / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-      for (int k = 0; k < DH; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + ti * 16 * MA_LD + k, MA_LD);
-        wmma::load_matrix_sync(fb, Ks + tj * 16 * MA_LD + k, MA_LD);
-        wmma::mma_sync(s, fa, fb, s);
-      }
-      wmma::store_matrix_sync(Ss + ti * 16 * MA_SLD + tj * 16, s, MA_SLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // numerators: the mask is added before the floor test, the -20 shift
-    // after it (-1e30 - 20 == -1e30 in f32); a masked score's exp is 0
-    for (int r = warp * (MA_BQ / 8); r < (warp + 1) * (MA_BQ / 8); ++r) {
-      float sum = 0.0f;
-      for (int c = lane; c < MA_BK; c += 32) {
-        const float sh = (Ss[r * MA_SLD + c] + Ms[r * MA_SLD + c]) - 20.0f;
-        const float p = sh > MASK_FLOOR ? expf(fminf(fmaxf(sh, -80.0f), 60.0f)) : 0.0f;
-        sum += p;
-        Ps[r * MA_LD + c] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) rs[r] += sum;
-    }
-    __syncthreads();
-
-    // O += P V
-#pragma unroll
-    for (int k = 0; k < MA_BK; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, Ps + oi * 16 * MA_LD + k, MA_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Vs + k * MA_LD + (oj + j) * 16, MA_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Ss + oi * 16 * MA_SLD + (oj + j) * 16, acc[j], MA_SLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < MA_BQ * DH; i += MA_THREADS) {
-    const int r = i / DH, c = i % DH;
-    if (q0 + r < a.rq) {
-      const float inv = 1.0f / rs[r];
-      a.out[(qrow0 + r) * a.ldo + h * DH + c] = __float2bfloat16(Ss[r * MA_SLD + c] * inv);
-    }
-  }
-}
-
-cudaError_t masked_attn(cudaStream_t st, const MaskedAttnArgs& a, int H, int n_tiles) {
-  masked_attn_kernel<<<dim3((a.rq + MA_BQ - 1) / MA_BQ, H, n_tiles), MA_THREADS, masked_attn_smem_bytes(), st>>>(a);
-  return cudaGetLastError();
-}
-
-// All L layers in flat-mask mode on x (Be*lq, F) f32 with its bf16 copy in
-// w.xb. Width 1 (vmw != null): identity-band cross through the person mask
-// (tile, tile*lm) and the hoisted vmw, person rows `rows`. Otherwise the
-// full masked cross with cross_mask (tile*lq, tile*lm).
-cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, const DecoderWeights& p,
-                                const int* rows, const float* self_mask, const float* cross_mask, int Be, int lq,
-                                int F, int H, int L, int FF, int tile) {
-  const int R = Be * lq, lm = lq - 1, n_tiles = Be / tile, Rt = tile * lq, Mt = tile * lm;
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
-  const bool band = p.vmw != nullptr;
-  DecoderMaps maps;
-  const bool hopper = decoder_uses_sm90(R, F, FF);
-  if (hopper) RETURN_IF_ERROR(make_decoder_maps(&maps, w, p, R, F, FF, L));
-  auto map = [&](const CUtensorMap& m) { return hopper ? &m : nullptr; };
-  for (int l = 0; l < L; ++l) {
-    const bf16* Wqkv = p.wqkv + (size_t)l * F * 3 * F;
-    const bf16* Bqkv = p.bqkv + (size_t)l * 3 * F;
-    const bf16* Wso = p.wso + (size_t)l * F * F;
-    const bf16* Bso = p.bso + (size_t)l * F;
-    const bf16* Wcq = p.wcq + (size_t)l * F * F;
-    const bf16* Bcq = p.bcq + (size_t)l * F;
-    const bf16* Wco = p.wco + (size_t)l * F * F;
-    const bf16* Bco = p.bco + (size_t)l * F;
-    const bf16* Wf1 = p.wf1 + (size_t)l * F * FF;
-    const bf16* Bf1 = p.bf1 + (size_t)l * FF;
-    const bf16* Wf2 = p.wf2 + (size_t)l * FF * F;
-    const bf16* Bf2 = p.bf2 + (size_t)l * F;
-    const float* lns = p.ln_scale + (size_t)l * 3 * F;
-    const float* lnb = p.ln_bias + (size_t)l * 3 * F;
-    const bf16* Km = p.kmem + (size_t)l * Be * lm * F;
-    const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
-
-    // self-attention over each tile's flattened rows, masked
-    RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wqkv), l, w.xb, F, Wqkv, Bqkv, w.qkv, R,
-                                            3 * F, F, scale, F));
-    RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, w.qkv + F, w.qkv + 2 * F, 3L * F, 3L * F, 3L * F,
-                                                   self_mask, w.sa, F, Rt, Rt}, H, n_tiles));
-    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wso), l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R,
-                                  F, F));
-
-    if (band) {
-      // the person rows attend the tile's memory through the person mask;
-      // motion rows take vmw, as in the per-entry mode
-      const bf16* Vmw = static_cast<const bf16*>(p.vmw) + (size_t)l * R * F;
-      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, rows, Wcq, Bcq, nullptr, w.qp, Be, F, F, scale, F));
-      RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qp, Km, Vm, F, F, F, cross_mask, w.pa, F, tile, Mt},
-                                  H, n_tiles));
-      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
-      ln_kernel<true, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
-                                                              static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
-    } else {
-      // every row attends the tile's memory through the cross mask; q in
-      // w.qkv and the attention output in w.sa, both free here
-      RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wcq), l, w.xb, F, Wcq, Bcq, w.qkv, R, F, F,
-                                              scale, F));
-      RETURN_IF_ERROR(masked_attn(st, MaskedAttnArgs{w.qkv, Km, Vm, F, F, F, cross_mask, w.sa, F, Rt, Mt},
-                                  H, n_tiles));
-      RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wco), l, w.sa, F, Wco, Bco, x, w.xb, w.y, lns + F,
-                                    lnb + F, R, F, F));
-    }
-    RETURN_IF_ERROR(cudaGetLastError());
-
-    RETURN_IF_ERROR(gemm_bf16_out<EPI_GELU>(st, map(maps.xb), map(maps.wf1), l, w.xb, F, Wf1, Bf1, w.h, R, FF, F));
-    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.h), map(maps.wf2), l, w.h, FF, Wf2, Bf2, x, w.xb, w.y, lns + 2 * F,
-                                  lnb + 2 * F, R, F, FF));
-  }
-  return cudaSuccess;
 }
 
 DecoderWeights weights(const void* const* w, const void* kmem, const void* vmem, const void* vmw) {
@@ -325,38 +118,294 @@ extern "C" int msmd_decoder_forward(const void* x_in, void* x_out, void* ws, con
                         FF, CROSS_BF16);
 }
 
+namespace {
+
+// Flat-mask mode: the persistent small-row stack of decoder_small.cuh in
+// one cooperative launch: x_in copied into x and its bf16 copy, and the
+// live 64 x 64 blocks of the masks the masked attentions read, then the L
+// layers.
+__global__ void __launch_bounds__(SMALL_THREADS, SMALL_MIN_BLOCKS) flat_kernel(const __grid_constant__ SmallArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  PhaseClock clk{a.stamps, 0};
+  clk.start();
+  const long n = (long)a.Be * a.lq * a.F;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n; i += (long)gridDim.x * blockDim.x) {
+    const float v = a.x_in[i];
+    a.x[i] = v;
+    a.w.xb[i] = __float2bfloat16(v);
+  }
+  const int Rt = a.tile * a.lq, Mt = a.tile * (a.lq - 1), ns = blocks64(Rt) * blocks64(Rt);
+  const int nc = a.w.live_cross ? blocks64(Rt) * blocks64(Mt) : 0;
+  for (int i = blockIdx.x; i < ns + nc; i += gridDim.x) {
+    if (i < ns)
+      mask_live_block(a.self_mask, Rt, Rt, i / blocks64(Rt), i % blocks64(Rt), a.w.live_self);
+    else
+      mask_live_block(a.cross_mask, Rt, Mt, (i - ns) / blocks64(Mt), (i - ns) % blocks64(Mt), a.w.live_cross);
+  }
+  clk.sync();
+  small_layers(a, clk, smem, true);
+}
+
+bool flat_attr_set = false;
+
+int flat_fit() { return small_grid(flat_kernel, &flat_attr_set); }
+
+// whole entries a tile, dividing Be, and a tile's rows within the masked
+// attention's list of live key blocks (MAX_LM of 64)
+bool flat_tile_ok(int Be, int lq, int tile) { return tile >= 1 && Be % tile == 0 && tile * lq <= MAX_LM * MA_BK; }
+
+SmallPlan flat_plan(int Be, int lq, int F, int FF, int band, int grid) {
+  return make_small_plan(band ? SMALL_FLAT_BAND : SMALL_FLAT_FULL, Be, lq, F, FF, grid, 0, 0);
+}
+
+// --------------------------------------------------------------------------
+// the flat mode's chain of launches, at SM90_MIN_ROWS rows and above
+// --------------------------------------------------------------------------
+
+bool flat_chain(int Be, int lq, int F, int FF) { return decoder_uses_sm90(Be * lq, F, FF); }
+
+// decoder_common.cuh's workspace, then the live 64 x 64 blocks of the self
+// mask (Rt, Rt) and of the cross mask (Cq, Mt): Cq = Rt for the full cross,
+// the tile's person rows for the band
+Workspace carve_chain(void* base, int Be, int lq, int F, int FF, int tile, bool band, int** live_self,
+                      int** live_cross, size_t* total) {
+  const int Rt = tile * lq, Mt = tile * (lq - 1), Cq = band ? tile : Rt;
+  Workspace w = carve(base, Be, lq, F, FF, total);
+  char* p = static_cast<char*>(base);
+  size_t off = align256(*total);
+  *live_self = p ? reinterpret_cast<int*>(p + off) : nullptr;
+  off += align256((size_t)blocks64(Rt) * blocks64(Rt) * sizeof(int));
+  *live_cross = p ? reinterpret_cast<int*>(p + off) : nullptr;
+  *total = off + align256((size_t)blocks64(Cq) * blocks64(Mt) * sizeof(int));
+  return w;
+}
+
+// x_in into x and its bf16 copy, and the live blocks of both masks, one
+// 64 x 64 mask block a block (the blocks after those of the two masks cast)
+__global__ void __launch_bounds__(SMALL_THREADS) chain_load_kernel(const float* __restrict__ x_in,
+                                                                   float* __restrict__ x, bf16* __restrict__ xb,
+                                                                   long n, const float* self_mask, int Rt,
+                                                                   int* live_self, const float* cross_mask, int Cq,
+                                                                   int Mt, int* live_cross) {
+  const int ns = blocks64(Rt) * blocks64(Rt), nc = blocks64(Cq) * blocks64(Mt), i = blockIdx.x;
+  if (i < ns) {
+    mask_live_block(self_mask, Rt, Rt, i / blocks64(Rt), i % blocks64(Rt), live_self);
+  } else if (i < ns + nc) {
+    mask_live_block(cross_mask, Cq, Mt, (i - ns) / blocks64(Mt), (i - ns) % blocks64(Mt), live_cross);
+  } else {
+    const long stride = (long)(gridDim.x - ns - nc) * blockDim.x;
+    for (long j = (i - ns - nc) * (long)blockDim.x + threadIdx.x; j < n; j += stride) {
+      const float v = x_in[j];
+      x[j] = v;
+      xb[j] = __float2bfloat16(v);
+    }
+  }
+}
+
+// block (query block, head, tile): one work item of the small stack's
+// masked attention
+__global__ void __launch_bounds__(SMALL_THREADS) chain_masked_kernel(const __grid_constant__ MaskedAttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  masked_attn_item(a, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+}
+
+cudaError_t chain_masked(cudaStream_t st, const bf16* q, long ldq, const bf16* k, const bf16* v, long ldkv,
+                         const float* mask, const int* live, bf16* out, int rq, int rk, int H, int n_tiles) {
+  const MaskedAttnArgs a{q, k, v, ldq, ldkv, ldkv, mask, out, (long)H * DH, rq, rk, nullptr, 0, 0, nullptr, 0.0f,
+                         live};
+  chain_masked_kernel<<<dim3(blocks64(rq), H, n_tiles), SMALL_THREADS, masked_attn_smem_bytes(), st>>>(a);
+  return cudaGetLastError();
+}
+
+// All L layers in flat-mask mode on x (Be*lq, F) f32 with its bf16 copy in
+// w.xb, as a chain of launches. Width 1 (vmw != null): identity-band cross
+// through the person mask (tile, tile*lm) and the hoisted vmw, person rows
+// `rows`. Otherwise the full masked cross with cross_mask (tile*lq,
+// tile*lm).
+cudaError_t decoder_layers_flat(cudaStream_t st, const Workspace& w, float* x, const DecoderWeights& p,
+                                const int* rows, const float* self_mask, const float* cross_mask,
+                                const int* live_self, const int* live_cross, int Be, int lq, int F, int H, int L,
+                                int FF, int tile) {
+  const int R = Be * lq, lm = lq - 1, n_tiles = Be / tile, Rt = tile * lq, Mt = tile * lm;
+  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
+  const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
+  const bool band = p.vmw != nullptr;
+  DecoderMaps maps;
+  RETURN_IF_ERROR(make_decoder_maps(&maps, w, p, R, F, FF, L));
+  for (int l = 0; l < L; ++l) {
+    const bf16* Wqkv = p.wqkv + (size_t)l * F * 3 * F;
+    const bf16* Bqkv = p.bqkv + (size_t)l * 3 * F;
+    const bf16* Wso = p.wso + (size_t)l * F * F;
+    const bf16* Bso = p.bso + (size_t)l * F;
+    const bf16* Wcq = p.wcq + (size_t)l * F * F;
+    const bf16* Bcq = p.bcq + (size_t)l * F;
+    const bf16* Wco = p.wco + (size_t)l * F * F;
+    const bf16* Bco = p.bco + (size_t)l * F;
+    const bf16* Wf1 = p.wf1 + (size_t)l * F * FF;
+    const bf16* Bf1 = p.bf1 + (size_t)l * FF;
+    const bf16* Wf2 = p.wf2 + (size_t)l * FF * F;
+    const bf16* Bf2 = p.bf2 + (size_t)l * F;
+    const float* lns = p.ln_scale + (size_t)l * 3 * F;
+    const float* lnb = p.ln_bias + (size_t)l * 3 * F;
+    const bf16* Km = p.kmem + (size_t)l * Be * lm * F;
+    const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
+
+    // self-attention over each tile's flattened rows, masked
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, &maps.xb, &maps.wqkv, l, w.xb, F, Wqkv, Bqkv, w.qkv, R, 3 * F, F,
+                                            scale, F));
+    RETURN_IF_ERROR(chain_masked(st, w.qkv, 3L * F, w.qkv + F, w.qkv + 2 * F, 3L * F, self_mask, live_self, w.sa,
+                                 Rt, Rt, H, n_tiles));
+    RETURN_IF_ERROR(gemm_resid_ln(st, &maps.sa, &maps.wso, l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R, F, F));
+
+    if (band) {
+      // the person rows attend the tile's memory through the person mask;
+      // motion rows take vmw, as in the per-entry mode
+      const bf16* Vmw = static_cast<const bf16*>(p.vmw) + (size_t)l * R * F;
+      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, rows, Wcq, Bcq, nullptr, w.qp, Be, F, F, scale, F));
+      RETURN_IF_ERROR(chain_masked(st, w.qp, F, Km, Vm, F, cross_mask, live_cross, w.pa, tile, Mt, H, n_tiles));
+      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
+      ln_kernel<true, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
+                                                              static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
+    } else {
+      // every row attends the tile's memory through the cross mask; q in
+      // w.qkv and the attention output in w.sa, both free here
+      RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, &maps.xb, &maps.wcq, l, w.xb, F, Wcq, Bcq, w.qkv, R, F, F, scale,
+                                              F));
+      RETURN_IF_ERROR(chain_masked(st, w.qkv, F, Km, Vm, F, cross_mask, live_cross, w.sa, Rt, Mt, H, n_tiles));
+      RETURN_IF_ERROR(gemm_resid_ln(st, &maps.sa, &maps.wco, l, w.sa, F, Wco, Bco, x, w.xb, w.y, lns + F, lnb + F,
+                                    R, F, F));
+    }
+    RETURN_IF_ERROR(cudaGetLastError());
+
+    RETURN_IF_ERROR(gemm_bf16_out<EPI_GELU>(st, &maps.xb, &maps.wf1, l, w.xb, F, Wf1, Bf1, w.h, R, FF, F));
+    RETURN_IF_ERROR(gemm_resid_ln(st, &maps.h, &maps.wf2, l, w.h, FF, Wf2, Bf2, x, w.xb, w.y, lns + 2 * F,
+                                  lnb + 2 * F, R, F, FF));
+  }
+  return cudaSuccess;
+}
+
+cudaError_t run_flat_chain(void* ws, float* x, const float* x_in, const DecoderWeights& p, const int* rows,
+                           const float* self_mask, const float* cross_mask, int Be, int lq, int F, int H, int L,
+                           int FF, int tile, cudaStream_t st) {
+  RETURN_IF_ERROR(set_kernel_attributes());
+  static bool attr_set = false;
+  if (!attr_set) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(chain_masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(masked_attn_smem_bytes())));
+    attr_set = true;
+  }
+  const bool band = p.vmw != nullptr;
+  const int Rt = tile * lq, Mt = tile * (lq - 1), Cq = band ? tile : Rt;
+  int *live_self = nullptr, *live_cross = nullptr;
+  size_t total = 0;
+  Workspace w = carve_chain(ws, Be, lq, F, FF, tile, band, &live_self, &live_cross, &total);
+  const int mask_blocks = blocks64(Rt) * blocks64(Rt) + blocks64(Cq) * blocks64(Mt);
+  chain_load_kernel<<<mask_blocks + 512, SMALL_THREADS, 0, st>>>(x_in, x, w.xb, (long)Be * lq * F, self_mask, Rt,
+                                                                 live_self, cross_mask, Cq, Mt, live_cross);
+  RETURN_IF_ERROR(cudaGetLastError());
+  return decoder_layers_flat(st, w, x, p, rows, self_mask, cross_mask, live_self, live_cross, Be, lq, F, H, L, FF,
+                             tile);
+}
+
+}  // namespace
+
+// 1 where the flat mode runs its chain of launches on the Hopper GEMM at
+// these shapes, 0 where it runs the persistent small-row stack.
+extern "C" int msmd_flat_uses_chain(int Be, int lq, int F, int FF) { return flat_chain(Be, lq, F, FF) ? 1 : 0; }
+
+// Bytes of scratch of one flat-mode call (on the small stack: its plan on
+// the current device, `grid_want` blocks, 0: all that fit), or 0 for
+// shapes it refuses.
+extern "C" size_t msmd_flat_workspace_bytes(int Be, int lq, int F, int H, int FF, int tile, int band,
+                                            int grid_want) {
+  if (!small_shapes_ok(lq, F, H, FF) || !flat_tile_ok(Be, lq, tile)) return 0;
+  size_t total = 0;
+  if (flat_chain(Be, lq, F, FF)) {
+    int *live_self, *live_cross;
+    carve_chain(nullptr, Be, lq, F, FF, tile, band, &live_self, &live_cross, &total);
+    return total;
+  }
+  int grid = 0;
+  if (small_launch_grid(flat_fit(), grid_want, &grid) != cudaSuccess) return 0;
+  carve_small(nullptr, flat_plan(Be, lq, F, FF, band, grid), Be, lq, F, FF, tile, false, &total);
+  return total;
+}
+
+// The flat mode's small-stack plan on the current device: out = {grid,
+// blocks per SM, dynamic shared memory, phases, then 7 longs a phase
+// (small_phases)}, room for 4 + 7 * (1 + 11 L) longs. Returns 0 or a CUDA
+// error (also where the shapes take the chain).
+extern "C" int msmd_flat_plan(int Be, int lq, int F, int H, int L, int FF, int tile, int band, int grid_want,
+                              long* out) {
+  if (!small_shapes_ok(lq, F, H, FF) || !flat_tile_ok(Be, lq, tile) || flat_chain(Be, lq, F, FF))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const int fit = flat_fit();
+  RETURN_IF_ERROR(small_launch_grid(fit, grid_want, &grid));
+  int dev = 0, sms = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&dev));
+  RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  out[0] = grid;
+  out[1] = fit / sms;
+  out[2] = SMALL_SMEM;
+  out[3] = small_phases(flat_plan(Be, lq, F, FF, band, grid), Be, lq, H, L, tile, 0, 0, out + 4);
+  return 0;
+}
+
 // Flat-mask mode: the arguments of msmd_decoder_forward, the tile (whole
 // entries, dividing Be), the (tile*lq, tile*lq) f32 self mask, and either
 // (width 1) vmw, the person rows aux and the (tile, tile*lm) person mask
-// as cross_mask, or (vmw and aux null) the (tile*lq, tile*lm) cross mask.
+// as cross_mask, or (vmw and aux null) the (tile*lq, tile*lm) cross mask;
+// on the small stack `grid_want` blocks (0: all that fit on the card; more
+// is refused), and `stamps` null or room for the card's clock at the start
+// and after each of the 1 + 11 L phases (the chain takes neither: stamps
+// must be null). ws: msmd_flat_workspace_bytes.
 extern "C" int msmd_decoder_forward_flat(const void* x_in, void* x_out, void* ws, const void* wqkv,
                                          const void* bqkv, const void* wso, const void* bso, const void* wcq,
                                          const void* bcq, const void* wco, const void* bco, const void* wf1,
                                          const void* bf1, const void* wf2, const void* bf2, const void* ln_scale,
                                          const void* ln_bias, const void* kmem, const void* vmem, const void* vmw,
                                          const void* aux, const void* self_mask, const void* cross_mask, int Be,
-                                         int lq, int F, int H, int L, int FF, int tile, void* stream) {
-  if (!decoder_shapes_ok(lq, F, H, FF) || tile < 1 || Be % tile || (vmw == nullptr) != (aux == nullptr))
+                                         int lq, int F, int H, int L, int FF, int tile, int grid_want, void* stamps,
+                                         void* stream) {
+  if (!small_shapes_ok(lq, F, H, FF) || !flat_tile_ok(Be, lq, tile) || (vmw == nullptr) != (aux == nullptr))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RETURN_IF_ERROR(set_kernel_attributes());
-  static bool attr_set = false;
-  if (!attr_set) {
-    RETURN_IF_ERROR(cudaFuncSetAttribute(masked_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(masked_attn_smem_bytes())));
-    attr_set = true;
-  }
-  size_t total = 0;
-  Workspace w = carve(ws, Be, lq, F, FF, &total);
-  float* x = static_cast<float*>(x_out);
-  cast_kernel<<<1024, 256, 0, st>>>(static_cast<const float*>(x_in), x, w.xb, (long)Be * lq * F);
-  RETURN_IF_ERROR(cudaGetLastError());
   const void* w14[14] = {wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, wf1, bf1, wf2, bf2, ln_scale, ln_bias};
-  return decoder_layers_flat(st, w, x, weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux),
-                             static_cast<const float*>(self_mask), static_cast<const float*>(cross_mask), Be, lq,
-                             F, H, L, FF, tile);
+  if (flat_chain(Be, lq, F, FF)) {
+    if (stamps != nullptr) return cudaErrorInvalidValue;
+    return run_flat_chain(ws, static_cast<float*>(x_out), static_cast<const float*>(x_in),
+                          weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux),
+                          static_cast<const float*>(self_mask), static_cast<const float*>(cross_mask), Be, lq, F, H,
+                          L, FF, tile, static_cast<cudaStream_t>(stream));
+  }
+  int grid = 0;
+  RETURN_IF_ERROR(small_launch_grid(flat_fit(), grid_want, &grid));
+  const bool band = vmw != nullptr;
+  SmallArgs a;
+  a.plan = flat_plan(Be, lq, F, FF, band, grid);
+  size_t total = 0;
+  a.w = carve_small(ws, a.plan, Be, lq, F, FF, tile, false, &total);
+  a.x = static_cast<float*>(x_out);
+  a.x_in = static_cast<const float*>(x_in);
+  a.p = weights(w14, kmem, vmem, vmw);
+  a.rows = static_cast<const int*>(aux);
+  a.self_mask = static_cast<const float*>(self_mask);
+  a.cross_mask = static_cast<const float*>(cross_mask);
+  a.cross_f32 = 0;
+  a.Be = Be;
+  a.lq = lq;
+  a.F = F;
+  a.H = H;
+  a.L = L;
+  a.FF = FF;
+  a.tile = tile;
+  a.stamps = static_cast<unsigned long long*>(stamps);
+  RETURN_IF_ERROR(make_small_maps(&a.maps, a.w, a.p, Be * lq, F, FF, L));
+  void* args[] = {&a};
+  RETURN_IF_ERROR(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(flat_kernel), dim3(grid), dim3(SMALL_THREADS),
+                                              args, SMALL_SMEM, static_cast<cudaStream_t>(stream)));
+  return cudaGetLastError();
 }
-
 
 // What msmd_gemm's route 0 (the decoder's choice) runs for one product:
 // out = {1 for the Hopper GEMM or 0 for the wmma tile, tile rows, tile

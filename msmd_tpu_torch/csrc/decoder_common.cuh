@@ -675,7 +675,7 @@ inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
 struct Workspace {
   bf16 *xb, *qkv, *sa, *h, *qp, *pa;
-  void* po;  // (Be, F): bf16 for CROSS_BF16, f32 for CROSS_F32
+  void* po;  // (Be, F) bf16 (sized for f32)
   float* y;
 };
 
@@ -710,7 +710,7 @@ struct DecoderWeights {
   const bf16 *wqkv, *bqkv, *wso, *bso, *wcq, *bcq, *wco, *bco, *wf1, *bf1, *wf2, *bf2;
   const float *ln_scale, *ln_bias;
   const bf16 *kmem, *vmem;
-  const void* vmw;  // (L, Be*lq, F): bf16 for CROSS_BF16, f32 for CROSS_F32, unused for CROSS_GATHER
+  const void* vmw;  // (L, Be*lq, F): bf16 for CROSS_BF16 (f32 for K3's small-row stack), unused for CROSS_GATHER
 };
 
 // Whether any of a layer's four large products takes the Hopper GEMM at R
@@ -734,9 +734,10 @@ cudaError_t make_decoder_maps(DecoderMaps* m, const Workspace& w, const DecoderW
 
 // How the identity-band cross output of a layer is formed:
 // CROSS_BF16   (K1)  ca = scatter(bf16(bf16(person_out) @ wco)) + bf16 vmw + bco
-// CROSS_F32    (K3)  ca = scatter(bf16(person_out) @ wco, f32) + f32 vmw + bco
 // CROSS_GATHER (K4)  ca = [bf16(person_out) | memory V rows] @ wco + bco, all rows
-enum CrossMode { CROSS_BF16 = 0, CROSS_F32 = 1, CROSS_GATHER = 2 };
+// (K3's form, the f32 scatter of bf16(person_out) @ wco plus an f32 vmw,
+// is decoder_small.cuh's cross_f32.)
+enum CrossMode { CROSS_BF16 = 0, CROSS_GATHER = 2 };
 
 inline bool decoder_shapes_ok(int lq, int F, int H, int FF) {
   return !(F % H || F / H != DH || F % BN || FF % BN || F % BK || FF % BK || F > 32 * LN_MAXN || lq < 2 ||
@@ -756,8 +757,6 @@ cudaError_t set_kernel_attributes() {
   RETURN_IF_ERROR((gemm_attr<EPI_RESID, 128>()));
   RETURN_IF_ERROR((gemm_attr<EPI_GELU, 64>()));
   RETURN_IF_ERROR((gemm_attr<EPI_GELU, 128>()));
-  RETURN_IF_ERROR((gemm_attr<EPI_F32, 64>()));
-  RETURN_IF_ERROR((gemm_attr<EPI_F32, 128>()));
   attr_set = true;
   return cudaSuccess;
 }
@@ -811,12 +810,6 @@ cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const 
       RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
       ln_kernel<true, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
                                                               static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
-    } else if (mode == CROSS_F32) {
-      const float* Vmw = static_cast<const float*>(p.vmw) + (size_t)l * R * F;
-      RETURN_IF_ERROR(gemm<EPI_F32>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
-      ln_kernel<true, float><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
-                                                               static_cast<const float*>(w.po), Vmw, Bco, rows,
-                                                               lq);
     } else {
       // the gathered rows go into w.sa, free once the self-out product has read it
       cross_rows_kernel<<<R, 64, 0, st>>>(w.pa, Vm, w.sa, lq, F);

@@ -53,7 +53,7 @@ namespace {
 
 constexpr int SM90_THREADS = 256;    // two warpgroups
 constexpr int SM90_BK = 64;          // k per stage: one 128-byte swizzle row of bf16
-constexpr int SM90_MIN_ROWS = 1024;  // products with fewer rows (K3, K4, K1 flat) keep the wmma tile
+constexpr int SM90_MIN_ROWS = 1024;  // products with fewer rows (K4, small batches) keep the wmma tile
 constexpr int EPI_RESID_LN = 6;      // x, xb = LayerNorm(res + (acc + bias)) * ln_scale + ln_bias
 
 template <int WGM>

@@ -32,7 +32,12 @@ identity-band cross (width 1: the person rows through the person mask,
 the motion rows through ``vmw``) or, at ``align_mask_width != 1``, the
 full masked cross-attention of every row. In the bf16 softmax the mask
 is added before the ``_clamp_unmasked`` floor test (scores at or below
-``MASK_FLOOR`` are not clamped, so their ``exp`` is exactly 0).
+``MASK_FLOOR`` are not clamped, so their ``exp`` is exactly 0). On the
+card the flat-mask mode is, below the Hopper GEMM's 1024 rows, one
+cooperative launch of the persistent small-row stack
+(``csrc/decoder_small.cuh``, plan in ``ops/kernels/small_stack.py``) and,
+from there on (``small_stack.flat_uses_chain``), a chain of launches whose
+four large products run on the Hopper GEMM as K1 per-entry's do.
 """
 
 from __future__ import annotations
@@ -274,8 +279,15 @@ def _lib():
     if not getattr(lib, "_msmd_typed", False):
         lib.msmd_decoder_forward.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.msmd_decoder_forward.restype = ctypes.c_int
-        lib.msmd_decoder_forward_flat.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.msmd_decoder_forward_flat.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 8
+                                                  + [ctypes.c_void_p] * 2)
         lib.msmd_decoder_forward_flat.restype = ctypes.c_int
+        lib.msmd_flat_workspace_bytes.argtypes = [ctypes.c_int] * 8
+        lib.msmd_flat_workspace_bytes.restype = ctypes.c_size_t
+        lib.msmd_flat_plan.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.msmd_flat_plan.restype = ctypes.c_int
+        lib.msmd_flat_uses_chain.argtypes = [ctypes.c_int] * 4
+        lib.msmd_flat_uses_chain.restype = ctypes.c_int
         lib.msmd_decoder_workspace_bytes.argtypes = [ctypes.c_int] * 4
         lib.msmd_decoder_workspace_bytes.restype = ctypes.c_size_t
         lib._msmd_typed = True
@@ -350,6 +362,18 @@ def fused_decoder_forward(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, x:
 fused_decoder_forward.launches = 0
 
 
+def flat_plan(Be: int, lq: int, F: int, H: int, L: int, FF: int, tile: int, band: bool) -> dict:
+    """The flat mode's small-stack plan on the current card
+    (``msmd_flat_plan``) as ``small_stack.c_plan_rows`` gives it; refused
+    where the shapes take the chain (``small_stack.flat_uses_chain``)."""
+    from msmd_tpu_torch.ops.kernels.small_stack import c_plan_rows
+
+    lib = _lib()
+    out = (ctypes.c_long * (4 + 7 * (1 + 11 * L)))()
+    _build.check(lib, lib.msmd_flat_plan(Be, lq, F, H, L, FF, tile, int(band), 0, out), "msmd_flat_plan")
+    return c_plan_rows(out)
+
+
 def fused_decoder_forward_flat(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, x: torch.Tensor,
                                aux: Optional[torch.Tensor], n_heads: int, vmw: Optional[torch.Tensor],
                                self_mask: torch.Tensor, cross_mask: torch.Tensor,
@@ -360,15 +384,46 @@ def fused_decoder_forward_flat(pack: dict, kmem: torch.Tensor, vmem: torch.Tenso
     tile*lm); without (aux None): ``cross_mask`` (tile*lq, tile*lm), the
     full masked cross-attention. x (Be, lq, F) f32 -> (Be, lq, F) f32.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises: below the Hopper GEMM's rows one cooperative launch
+    of the persistent small-row stack (it raises where the card cannot hold
+    its grid: there is no fallback), from there on
+    (``small_stack.flat_uses_chain``) a chain of launches whose large
+    products run on the Hopper GEMM."""
     if _build.on_cpu("fused_decoder_forward_flat", x):
         return fused_decoder_forward_plain(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask,
                                            tile_entries)
+    out = _launch_flat(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask, tile_entries)
+    fused_decoder_forward_flat.launches += 1
+    return out
+
+
+def flat_stamps(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask, tile_entries=0) -> torch.Tensor:
+    """One flat-mode call with the card's clock (ns, int64) recorded by
+    block 0 at its start and after each of its 1 + 11 L phases, for the
+    per-phase split of ``python -m msmd_tpu_torch.profile``. Not counted as
+    a launch of the main path. Only where the small stack runs."""
+    from msmd_tpu_torch.ops.kernels.small_stack import flat_uses_chain
+
+    Be, lq, F = x.shape
+    if flat_uses_chain(Be, lq, F, pack["wf1"].shape[-1]):
+        raise ValueError(f"flat_stamps: at {Be * lq} rows the flat mode runs a chain of launches, which records "
+                         "no phases")
+    stamps = torch.zeros(2 + 11 * pack["wqkv"].shape[0], dtype=torch.int64, device=x.device)
+    _launch_flat(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask, tile_entries, stamps)
+    return stamps
+
+
+def _launch_flat(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask, tile_entries, stamps=None,
+                 _grid_blocks=0):
+    # _grid_blocks: the cooperative grid (0: every block the card holds at
+    # once; more is refused)
     Be, lq, F = x.shape
     L, FF = pack["wqkv"].shape[0], pack["wf1"].shape[-1]
     T = tile_entries or Be
     if Be % T:
         raise ValueError(f"fused_decoder_forward_flat: tile {T} does not divide {Be} entries")
+    if T * lq > 128 * 64:
+        raise ValueError(f"fused_decoder_forward_flat: a tile of {T} x {lq} rows exceeds 8192")
     if (vmw is None) != (aux is None):
         raise ValueError("fused_decoder_forward_flat: give vmw and aux together (width 1) or neither")
     f32 = torch.float32
@@ -380,12 +435,16 @@ def fused_decoder_forward_flat(pack: dict, kmem: torch.Tensor, vmem: torch.Tenso
         extra.update(cross_mask=(cross_mask, (T * lq, T * (lq - 1)), f32))
     check_decoder_inputs("fused_decoder_forward_flat", pack, kmem, vmem, x, n_heads, **extra)
     lib = _lib()
-    out, ws, head = _launch_args(pack, kmem, vmem, x, lib.msmd_decoder_workspace_bytes(Be, lq, F, FF))
+    ws_bytes = lib.msmd_flat_workspace_bytes(Be, lq, F, n_heads, FF, T, int(vmw is not None), _grid_blocks)
+    if ws_bytes == 0:
+        raise RuntimeError(f"fused_decoder_forward_flat: no cooperative grid of {_grid_blocks or 'all'} blocks "
+                           "fits on this card")
+    out, ws, head = _launch_args(pack, kmem, vmem, x, ws_bytes)
     opt = lambda t: _build.ptr(t) if t is not None else ctypes.c_void_p(None)
     rc = lib.msmd_decoder_forward_flat(*head, opt(vmw), opt(aux), _build.ptr(self_mask), _build.ptr(cross_mask),
-                                       Be, lq, F, n_heads, L, FF, T, _build.stream(x.device))
+                                       Be, lq, F, n_heads, L, FF, T, _grid_blocks, opt(stamps),
+                                       _build.stream(x.device))
     _build.check(lib, rc, "fused_decoder_forward_flat")
-    fused_decoder_forward_flat.launches += 1
     return out
 
 

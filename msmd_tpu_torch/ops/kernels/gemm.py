@@ -29,7 +29,7 @@ EPI_BF16, EPI_GELU, EPI_RESID_LN = 0, 2, 6  # csrc/decoder_common.cuh, csrc/gemm
 EPILOGUES = {"bf16": EPI_BF16, "gelu": EPI_GELU, "resid_ln": EPI_RESID_LN}
 ROUTES = {"auto": 0, "wgmma": 1, "wmma": 2}
 
-MIN_ROWS = 1024  # SM90_MIN_ROWS: K3, K4 and K1 flat (<= 512 rows) keep the wmma tile
+MIN_ROWS = 1024  # SM90_MIN_ROWS: K4 (<= 512 rows) keeps the wmma tile; K3 and K1 flat run decoder_small.cuh
 SM90_BK = 64
 WMMA_BN, WMMA_BK = 128, 32
 H100_SMS = 132

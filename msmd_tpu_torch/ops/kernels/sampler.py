@@ -9,7 +9,10 @@ PyTorch versions, and the wrappers.
 
 A step builds the token rows, runs the decoder stack, decodes the tail
 rows to motion, mixes the CFG entries and applies
-``m <- A m + B target + sigma z``. The two kernels round where their TPU
+``m <- A m + B target + sigma z``. K3 runs it as the phases of one
+cooperative launch of the persistent small-row stack
+(``csrc/decoder_small.cuh``; its plan in ``ops/kernels/small_stack.py``),
+one launch a window; K4 keeps a chain of launches through the decoder's sub-kernels. The two kernels round where their TPU
 kernels round (see ``csrc/sampler.cu``): K3 keeps the prologue rows and
 the cross output in f32 and adds the f32 hoisted ``vmw``; K4 rounds the
 person and motion rows to bf16 and projects [bf16(person output) | memory
@@ -125,10 +128,42 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.msmd_sampler_workspace_bytes.argtypes = [ctypes.c_void_p]
         lib.msmd_sampler_workspace_bytes.restype = ctypes.c_size_t
+        lib.msmd_scan_plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.msmd_scan_plan.restype = ctypes.c_int
         lib.msmd_sampler_n_ptrs.restype = ctypes.c_int
         lib.msmd_sampler_n_dims.restype = ctypes.c_int
         lib._msmd_typed = True
     return lib
+
+
+def _dims(lib, E, lq, F, H, L, FF, N, D, K, Fd, use_indicator, sigmoid_alpha, T, grid_blocks=0):
+    # grid_blocks: K3's cooperative grid (0: every block the card holds at
+    # once; more is refused)
+    dims = [E, lq, F, H, L, FF, N, D, K, Fd, int(use_indicator), int(sigmoid_alpha), T, grid_blocks]
+    if len(dims) != lib.msmd_sampler_n_dims():
+        raise RuntimeError("csrc/sampler.cu and its wrapper disagree on the size list")
+    return (ctypes.c_int * len(dims))(*dims)
+
+
+def scan_plan(lq: int, F: int, H: int, L: int, FF: int, n_cur: int, d_motion: int, num_basis: int, Fd: int,
+              use_indicator: bool = True, n_entries: int = 2) -> dict:
+    """K3's plan on the current card (``msmd_scan_plan``) as
+    ``small_stack.c_plan_rows`` gives it: grid, blocks per SM, shared
+    memory and the (kind, items, M, N, K, bm, split) of each phase of a
+    step."""
+    from msmd_tpu_torch.ops.kernels.small_stack import c_plan_rows
+
+    lib = _lib()
+    c_dims = _dims(lib, n_entries, lq, F, H, L, FF, n_cur, d_motion, num_basis, Fd, use_indicator, False, 1)
+    out = (ctypes.c_long * (4 + 7 * (3 + 11 * L)))()
+    _build.check(lib, lib.msmd_scan_plan(c_dims, out), "msmd_scan_plan")
+    return c_plan_rows(out)
+
+
+def scan_stamps(T: int, L: int) -> int:
+    """The card-clock stamps K3 writes for a T-step window: one at the
+    launch's start, one after its token rows and 11 L + 2 per step."""
+    return 2 + T * (11 * L + 2)
 
 
 def _check_inputs(what, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_entries, n_cur, d_motion,
@@ -181,25 +216,23 @@ def _check_inputs(what, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_
 
 
 def _launch(entry, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_entries, n_cur, d_motion,
-            num_basis, use_indicator, sigmoid_alpha, coefficients, T):
+            num_basis, use_indicator, sigmoid_alpha, coefficients, T, stamps=None, _grid_blocks=0):
     E, N = n_entries, n_cur
     dev = motion.device
     lib = _lib()
     lq = const["pe_flat"].shape[0] // E
     P = lq - 1 - N
-    dims = [E, lq, pack["wso"].shape[-1], n_heads, pack["wqkv"].shape[0], pack["wf1"].shape[-1], N, d_motion,
-            num_basis, const["wd1"].shape[-1], int(use_indicator), int(sigmoid_alpha), T]
-    if len(dims) != lib.msmd_sampler_n_dims():
-        raise RuntimeError("csrc/sampler.cu and its wrapper disagree on the size list")
-    c_dims = (ctypes.c_int * len(dims))(*dims)
+    c_dims = _dims(lib, E, lq, pack["wso"].shape[-1], n_heads, pack["wqkv"].shape[0], pack["wf1"].shape[-1], N,
+                   d_motion, num_basis, const["wd1"].shape[-1], use_indicator, sigmoid_alpha, T, _grid_blocks)
+    ws_bytes = lib.msmd_sampler_workspace_bytes(c_dims)
     out = torch.empty_like(motion)
-    ws = torch.empty(lib.msmd_sampler_workspace_bytes(c_dims), dtype=torch.uint8, device=dev)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
     coef = torch.tensor([float(c) for c in coefficients], dtype=torch.float32, device=dev)
     rows = (torch.arange(E, dtype=torch.int32, device=dev) * lq).contiguous()
     tail = (rows[:, None] + 1 + P + torch.arange(N, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
     vmw = const["vmw"] if entry == "msmd_sampler_scan" else None
     tensors = ([pack[k] for k in _PACK_KEYS] + [kmem, vmem, vmw] + [const[k] for k in _CONST_KEYS]
-               + [coef, emb, sc, z, motion, out, ws, rows, tail])
+               + [coef, emb, sc, z, motion, out, ws, rows, tail, stamps])
     if len(tensors) != lib.msmd_sampler_n_ptrs():
         raise RuntimeError("csrc/sampler.cu and its wrapper disagree on the pointer list")
     c_ptrs = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
@@ -208,13 +241,30 @@ def _launch(entry, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_entri
     return out
 
 
+def sampler_scan_stamps(pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, const, n_heads, n_entries, n_cur,
+                        d_motion, num_basis, use_indicator, sigmoid_alpha, coefficients) -> torch.Tensor:
+    """One K3 window with the card's clock (ns, int64) recorded by block 0
+    at the start of the launch and after every phase (``scan_stamps``);
+    for the per-phase split of ``python -m msmd_tpu_torch.profile``. Not
+    counted as a launch of the main path."""
+    T, L = z_scan.shape[0], pack["wqkv"].shape[0]
+    _check_inputs("fused_sampler_scan", pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, const, n_heads,
+                  n_entries, n_cur, d_motion, num_basis, use_indicator, coefficients, T)
+    stamps = torch.zeros(scan_stamps(T, L), dtype=torch.int64, device=motion_T.device)
+    _launch("msmd_sampler_scan", pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, const, n_heads, n_entries,
+            n_cur, d_motion, num_basis, use_indicator, sigmoid_alpha, coefficients, T, stamps=stamps)
+    return stamps
+
+
 def fused_sampler_scan(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, motion_T: torch.Tensor,
                        emb_scan: torch.Tensor, sc_scan: torch.Tensor, z_scan: torch.Tensor, const: dict,
                        n_heads: int, n_entries: int, n_cur: int, d_motion: int, num_basis: int,
                        use_indicator: bool, sigmoid_alpha: bool, coefficients: Sequence[float]) -> torch.Tensor:
     """All T DDPM steps of one batch-1 window. motion_T (N, D) f32 ->
     motion x_0 (N, D) f32. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16 pack, head dim 64) or raises."""
+    tensor launches the kernel (bf16 pack, head dim 64; one cooperative
+    launch for the window) or raises, also where the
+    card cannot hold the cooperative grid: there is no fallback."""
     args = (pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, const, n_heads, n_entries, n_cur, d_motion,
             num_basis, use_indicator, sigmoid_alpha, coefficients)
     if motion_T.device.type == "cpu":

@@ -2,7 +2,9 @@
 stack, for one window of the batch-48 main path, one window at batch 1,
 one guided batch-48 window and one train step.
 
-    python -m msmd_tpu_torch.profile
+    python -m msmd_tpu_torch.profile             # every phase
+    python -m msmd_tpu_torch.profile --kernels   # decoder, sampler, decoder_flat, small_rows_resident
+    python -m msmd_tpu_torch.profile --flat-rows # flat_rows only
 
 Prints JSON lines:
 
@@ -18,9 +20,26 @@ Prints JSON lines:
   events: with t(K) = fixed + k-steps x per-k-step, the two depths split a
   product's time into its main loop (microseconds per 64-deep k-step of a
   block) and the rest (the epilogue, the pipeline's fill, the launch).
-- ``sampler``: device time per step of each kernel of the batch-1 sampler
-  scan K3 (``csrc/sampler.cu``) at the flagship shapes, over one 20-step
-  call.
+- ``sampler``: K3 (``csrc/sampler.cu``, the persistent small-row stack
+  of ``csrc/decoder_small.cuh``) at the flagship shapes over one 20-step
+  window: device time per step from ``torch.profiler`` (the window's one
+  launch), and each phase's time from the card's clock that block 0 of the
+  cooperative grid records after every grid barrier in that launch (a
+  phase's time is its slowest block's plus the barrier), summed over the 8
+  layers and averaged over the steps (the window's first token rows, the
+  ``prologue``, divided by the steps too); beside it K4's chain of
+  launches (one step at K4's rounding, 5 calls), device time by part in
+  launch order.
+- ``decoder_flat``: K1's flat-mask mode in its two cross forms (identity
+  band at Be = 4, full cross at Be = 2), device time per call and the
+  same per-phase split from the card's clock, over 5 calls.
+- ``flat_rows`` (``--flat-rows``, alone): K1's flat mode with the full
+  masked cross at lq = 111 for Be from 2 to 96 in the denoiser's tiles
+  (ms from CUDA events, and the relative error to the plain version):
+  where the small stack and the Hopper-GEMM chain cross over. It calls
+  only the wrapper, so it also times an older checkout of the package.
+- ``small_rows_resident``: K2 (``csrc/decoder_resident.cu``) beside K1
+  per-entry at Be = 2 and 4, lq = 111 (CUDA events).
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
@@ -65,9 +84,10 @@ import time
 import torch
 
 _DECODER_KERNELS = ("gemm_sm90_kernel", "gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel",
-                    "cast_kernel")
-# K3 launches the decoder's sub-kernels and these; at batch 1 K1 does not run
-_SAMPLER_KERNELS = _DECODER_KERNELS + ("prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
+                    "cast_kernel", "flat_kernel")
+# K3 is one cooperative kernel; K4 launches the decoder's sub-kernels and
+# these; at batch 1 K1 does not run
+_SAMPLER_KERNELS = _DECODER_KERNELS + ("scan_kernel", "prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
 # K1's parts at the batch-48 shapes: the Hopper GEMM by epilogue (EPI_BF16
 # is QKV, EPI_GELU FFN1, EPI_RESID_LN self-out and FFN2 with their
 # LayerNorms), the wmma tile (the person rows' two products), the rest
@@ -91,8 +111,9 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|epilogue|"
-                  r"cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|resident)_kernel"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|"
+                  r"epilogue|cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|chain_masked|chain_load|"
+                  r"resident|scan|flat)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
@@ -112,6 +133,68 @@ def _device_ms_by_kernel(prof) -> dict:
         key = _short(evt.key)
         out[key] = out.get(key, 0.0) + evt.self_device_time_total / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _kernel_sequence(prof, family) -> list:
+    """(short name, device ms) of every launch of a kernel of ``family``
+    in the order the card ran them."""
+    from torch.autograd import DeviceType
+
+    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA and _short(e.name).split("<")[0] in family]
+    evts.sort(key=lambda e: e.time_range.start)
+    return [(_short(e.name), e.time_range.elapsed_us() / 1e3) for e in evts]
+
+
+def _by_part(seq, head, layer, tail, layers) -> dict:
+    """ms per call by part of a launch chain whose calls are each ``head``
+    + ``layers`` x ``layer`` + ``tail`` launches [(part, kernel name
+    prefix)], labelled by position within a call. A call starts at each
+    launch of ``head``'s first kernel; a call of another length (the
+    profiler can drop the first event of a window) is left out, and
+    ``matches`` is False when a launch's kernel is not the one its
+    position names."""
+    chain = head + layer * layers + tail
+    starts = [i for i, (name, _) in enumerate(seq) if name.startswith(head[0][1])] + [len(seq)]
+    calls = [seq[a:b] for a, b in zip(starts, starts[1:]) if b - a == len(chain)]
+    out, matches = {}, bool(calls)
+    for call in calls:
+        for (name, ms), (part, prefix) in zip(call, chain):
+            matches = matches and name.startswith(prefix)
+            out[part] = out.get(part, 0.0) + ms / len(calls)
+    return {"ms_per_call_by_part": out, "launches_per_call": len(chain), "calls_counted": len(calls),
+            "sequence_matches": matches}
+
+
+def _profile(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+# K4's launch chain (one step at K4's rounding, CROSS_GATHER: the chain K3
+# and K1's flat mode ran before they became one cooperative launch) by
+# part, in launch order
+_K4_LAYER = (("qkv", "gemm_kernel<0, 128"), ("self_attention", "self_attn_kernel"),
+             ("self_out", "gemm_kernel<1, 64"), ("ln1", "ln_kernel"), ("person_q", "gemm_kernel<0, 64"),
+             ("person_attention", "person_attn_kernel"), ("cross_rows", "cross_rows_kernel"),
+             ("wco", "gemm_kernel<1, 64"), ("cross_ln", "ln_kernel"), ("ffn1", "gemm_kernel<2, 128"),
+             ("ffn2", "gemm_kernel<1, 64"), ("ln3", "ln_kernel"))
+
+
+def _phase_split(stamps, names, launches: int) -> dict:
+    """Microseconds by phase name, summed over a call's layers and averaged
+    over ``launches`` launches, from the card-clock stamps block 0 writes
+    (one at each launch's start, one after each of its phases ``names``)."""
+    st = stamps.tolist()
+    per, out = len(names) + 1, {}
+    for i in range(launches):
+        s = st[i * per:(i + 1) * per]
+        for name, a, b in zip(names, s, s[1:]):
+            out[name] = out.get(name, 0.0) + (b - a) / 1e3 / launches
+    return out
 
 
 def profile_device_ms(fn) -> dict:
@@ -186,16 +269,47 @@ def _gemm_ws_split(dev) -> dict:
     return out
 
 
-def main() -> int:
+FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
+
+
+def flat_rows(dev) -> None:
+    """K1's flat-mask mode with the full masked cross (width 0) at lq = 111
+    for each Be of ``FLAT_ROWS_ENTRIES``, in the tiles the denoiser picks
+    (``decoder_route``): ms per call (CUDA events) beside the plain
+    version's relative error. Uses only the wrapper, so the same function
+    times an older checkout of the package."""
+    from msmd_tpu_torch.measure import cuda_ms, decoder_flat_case
+    from msmd_tpu_torch.models.diffusion import decoder_route
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+
+    for Be in FLAT_ROWS_ENTRIES:
+        tile = decoder_route(0, Be, 111)[1]
+        with torch.no_grad():
+            args = decoder_flat_case(dev, Be=Be, width=0, tile=tile)
+            got, want = kd.fused_decoder_forward_flat(*args), kd.fused_decoder_forward_plain(*args)
+            rel = float((got - want).abs().max() / want.abs().max())
+            ms = cuda_ms(lambda: kd.fused_decoder_forward_flat(*args), 10, 2)
+        print(json.dumps({"phase": "flat_rows", "entries": Be, "tile": tile, "rows": Be * 111, "ms": ms,
+                          "rel_err": rel}), flush=True)
+        del args, got, want
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only_kernels = "--kernels" in argv  # the kernel phases only, not the paths
     if not torch.cuda.is_available():
         print("msmd_tpu_torch.profile needs an NVIDIA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, generate,
-                                        sampler_case, seeded_audio)
+    if "--flat-rows" in argv:
+        flat_rows(torch.device("cuda", 0))
+        return 0
+    from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, decoder_flat_case,
+                                        generate, sampler_case, seeded_audio)
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import sampler as ks
+    from msmd_tpu_torch.ops.kernels.small_stack import small_stack_plan
 
     dev = torch.device("cuda", 0)
     calls = 5
@@ -212,18 +326,68 @@ def main() -> int:
                       "device_time_seen": bool(per_call)}), flush=True)
     del args
 
-    with torch.no_grad():
-        print(json.dumps({"phase": "gemm_ws", "products": _gemm_ws_split(dev)}), flush=True)
+    if not only_kernels:
+        with torch.no_grad():
+            print(json.dumps({"phase": "gemm_ws", "products": _gemm_ws_split(dev)}), flush=True)
 
     steps = 20
     with torch.no_grad():
-        scan, _, kw = sampler_case(dev, T=steps)
+        scan, step, kw = sampler_case(dev, T=steps)
         ks.fused_sampler_scan(*scan, **kw)
-        by_kernel = profile_device_ms(lambda: ks.fused_sampler_scan(*scan, **kw))
-    per_step = {k: v / steps for k, v in by_kernel.items()}
-    print(json.dumps({"phase": "sampler", "steps": steps, "ms_per_step": per_step,
-                      "total_ms_per_step": sum(per_step.values())}), flush=True)
-    del scan
+        per_step = {k: v / steps for k, v in profile_device_ms(lambda: ks.fused_sampler_scan(*scan, **kw)).items()}
+        stamps = ks.sampler_scan_stamps(*scan, **kw).cpu()
+        L, F, FF = scan[0]["wqkv"].shape[0], scan[0]["wso"].shape[-1], scan[0]["wf1"].shape[-1]
+        lq = scan[7]["pe_flat"].shape[0] // kw["n_entries"]
+        plan = small_stack_plan(kw["n_entries"], lq, F, FF, kw["n_heads"], "entry", L=L, n_cur=kw["n_cur"],
+                                Fd=scan[7]["wd1"].shape[-1])
+        # the window's one launch: its token rows, then each step's phases
+        names = [p["name"] for p in plan["phases"]]
+        split = {k: v / steps for k, v in _phase_split(stamps, names[:1] + names[1:] * steps, 1).items()}
+        ks.fused_sampler_step(*step, **kw)
+        prof = _profile(lambda: [ks.fused_sampler_step(*step, **kw) for _ in range(5)])
+        k4 = _by_part(_kernel_sequence(prof, _SAMPLER_KERNELS), (("prologue", "prologue_kernel"),), _K4_LAYER,
+                      (("motion_decoder", "gemm_kernel<2"), ("epilogue", "epilogue_kernel")), L)
+    print(json.dumps({"phase": "sampler", "steps": steps, "launches_per_window": 1,
+                      "ms_per_step": per_step, "total_ms_per_step": sum(per_step.values()),
+                      "phases_per_step": plan["phases_per_step"], "us_per_step_by_phase": split,
+                      "us_per_step_stamped": sum(split.values()), "k4_chain": k4}), flush=True)
+    del scan, step
+
+    flat_calls = 5
+    for form, Be, width in (("identity_band", 4, 1), ("full_cross", 2, 0)):
+        with torch.no_grad():
+            args = decoder_flat_case(dev, Be=Be, width=width)
+            kd.fused_decoder_forward_flat(*args)
+            by_kernel = profile_device_ms(lambda: [kd.fused_decoder_forward_flat(*args) for _ in range(flat_calls)])
+            stamps = torch.stack([kd.flat_stamps(*args) for _ in range(flat_calls)]).reshape(-1).cpu()
+        L, F, FF = args[0]["wqkv"].shape[0], args[3].shape[2], args[0]["wf1"].shape[-1]
+        plan = small_stack_plan(Be, args[3].shape[1], F, FF, args[5], "flat_band" if width == 1 else "flat_full",
+                                L=L, tile=args[9])
+        split = _phase_split(stamps, [p["name"] for p in plan["phases"]], flat_calls)
+        print(json.dumps({"phase": "decoder_flat", "form": form, "entries": Be, "calls": flat_calls,
+                          "ms_per_call": {k: v / flat_calls for k, v in by_kernel.items()},
+                          "total_ms_per_call": sum(by_kernel.values()) / flat_calls,
+                          "phases_per_call": plan["phases_per_step"], "us_per_call_by_phase": split,
+                          "us_per_call_stamped": sum(split.values())}), flush=True)
+        del args
+
+    # K2's cooperative schedule beside K1 at the small-row shapes (per-entry mode)
+    from msmd_tpu_torch.measure import cuda_ms
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+
+    for Be in (2, 4):
+        with torch.no_grad():
+            args = decoder_case(dev, Be=Be)
+            got, k1 = kdr.fused_decoder_forward_resident(*args), kd.fused_decoder_forward(*args)
+            print(json.dumps({"phase": "small_rows_resident", "entries": Be, "lq": int(args[3].shape[1]),
+                              "k2_ms": cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 50, 5),
+                              "k1_ms": cuda_ms(lambda: kd.fused_decoder_forward(*args), 50, 5),
+                              "k2_ms_again": cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 50, 5),
+                              "k2_grid": kdr.resident_grid(int(args[3].shape[1]), args[5]),
+                              "bit_equal_k1": bool(torch.equal(got, k1))}), flush=True)
+            del args, got, k1
+    if only_kernels:
+        return 0
 
     model, style, fused = build_main_path(dev)
     cfg = model.cfg

@@ -85,6 +85,37 @@ def test_decoder_flat_kernel_matches_plain(Be, lq, width, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Be,tile,width", [(16, 8, 0), (10, 5, 1), (12, 6, 2)])
+def test_decoder_flat_at_hopper_gemm_rows_matches_plain(Be, tile, width):
+    """K1's flat-mask mode at 1024 rows and more (lq = 111, the denoiser's
+    tiles: the full cross, the identity band, the alignment band), where
+    it runs its chain of launches on the Hopper GEMM: within 2e-2 of the
+    plain twin and bit-equal across two calls; the library picks that
+    route where ``small_stack.flat_uses_chain`` says so, and refuses the
+    small stack's plan and phase stamps there."""
+    from msmd_tpu_torch.measure import decoder_flat_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels.small_stack import flat_uses_chain
+
+    args = decoder_flat_case(_card(), Be=Be, width=width, tile=tile, L=2, seed=21)
+    for n in (2, 8, 9, 10, Be):
+        assert kd._lib().msmd_flat_uses_chain(n, 111, 512, 2048) == int(flat_uses_chain(n, 111, 512, 2048))
+    assert flat_uses_chain(Be, 111, 512, 2048)
+    with torch.no_grad():
+        got, again, want = (kd.fused_decoder_forward_flat(*args), kd.fused_decoder_forward_flat(*args),
+                            kd.fused_decoder_forward_plain(*args))
+    torch.cuda.synchronize()
+    print(f"flat chain Be={Be} tile={tile} width={width} rel_err={_rel(got, want):.3e}")
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="chain"):
+        kd.flat_stamps(*args)
+    with pytest.raises(RuntimeError):
+        kd.flat_plan(Be, 111, 512, 8, 2, 2048, tile, width == 1)
+
+
+@pytest.mark.cuda
 def test_decoder_flat_wrapper_refuses_what_the_kernel_does_not_take():
     from msmd_tpu_torch.measure import decoder_flat_case
     from msmd_tpu_torch.ops.kernels import decoder as kd
@@ -255,6 +286,99 @@ def test_sampler_wrappers_refuse_what_the_kernels_do_not_take():
         ks.fused_sampler_step(*step[:4], emb, *step[5:], **kw)
     with pytest.raises(ValueError, match="must be on"):
         ks.fused_sampler_step(step[0], step[1].cpu(), *step[2:], **kw)
+
+
+def _small_stack_calls(dev, which, grid=0):
+    """(kernel call, plain call) of K3 (a 6-step scan to t = 1) or of K1's
+    flat mode in one cross form, at lq = 111 with the flagship widths and 2
+    layers. ``grid`` 0 calls the wrapper (every block the card holds);
+    otherwise its launch helper on that many blocks."""
+    from msmd_tpu_torch.measure import decoder_flat_case, sampler_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    if which == "scan":
+        scan, _, kw = sampler_case(dev, L=2, T=6, seed=4)
+        plain = lambda: ks.fused_sampler_scan_plain(*scan, **kw)
+        if not grid:
+            return (lambda: ks.fused_sampler_scan(*scan, **kw)), plain
+        args = (*scan, kw["n_heads"], kw["n_entries"], kw["n_cur"], kw["d_motion"], kw["num_basis"],
+                kw["use_indicator"], kw["sigmoid_alpha"], kw["coefficients"], scan[6].shape[0])
+        return (lambda: ks._launch("msmd_sampler_scan", *args, _grid_blocks=grid)), plain
+    Be, width = (4, 1) if which == "flat_band" else (2, 0)
+    args = decoder_flat_case(dev, Be=Be, width=width, L=2, seed=12)
+    plain = lambda: kd.fused_decoder_forward_plain(*args)
+    if not grid:
+        return (lambda: kd.fused_decoder_forward_flat(*args)), plain
+    return (lambda: kd._launch_flat(*args, _grid_blocks=grid)), plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["scan", "flat_band", "flat_full"])
+@pytest.mark.parametrize("grid", [0, 40])
+def test_small_stack_kernels_match_plain_and_repeat_bit_for_bit(which, grid):
+    """K3 and K1's flat mode on the persistent small-row stack, on every
+    block the card holds (0) and on 40: within 2e-2 of the plain twin, and
+    two calls give the same bits (split-K partials summed in slot order, no
+    float atomics)."""
+    call, plain = _small_stack_calls(_card(), which, grid)
+    with torch.no_grad():
+        got, again, want = call(), call(), plain()
+    torch.cuda.synchronize()
+    print(f"small stack {which} grid={grid} rel_err={_rel(got, want):.3e}")
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Be,lq,L,mode", [(2, 111, 8, "entry"), (4, 111, 8, "flat_band"), (2, 111, 8, "flat_full"),
+                                          (6, 37, 2, "flat_full"), (2, 16, 2, "entry")])
+def test_small_stack_plan_matches_the_library(Be, lq, L, mode):
+    """The C plans (``msmd_scan_plan``, ``msmd_flat_plan``) equal
+    ``small_stack_plan`` at the card's SM count and occupancy."""
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+    from msmd_tpu_torch.ops.kernels import small_stack as ss
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = 3 if Be == 6 else Be
+    if mode == "entry":
+        n_cur = lq - 11
+        c = ks.scan_plan(lq, 512, 8, L, 2048, n_cur, 67, 4, 256, True, n_entries=Be)
+        py = ss.small_stack_plan(Be, lq, 512, 2048, 8, mode, sms=sms, per_sm=c["per_sm"], L=L, n_cur=n_cur, Fd=256)
+    else:
+        c = kd.flat_plan(Be, lq, 512, 8, L, 2048, tile, mode == "flat_band")
+        py = ss.small_stack_plan(Be, lq, 512, 2048, 8, mode, sms=sms, per_sm=c["per_sm"], L=L, tile=tile)
+    assert c["per_sm"] >= 1 and c["grid"] == c["per_sm"] * sms == py["grid"]
+    assert c["smem"] == py["smem"] == ss.SMALL_SMEM
+    assert c["rows"] == ss.plan_rows(py)
+
+
+@pytest.mark.cuda
+def test_small_stack_wrappers_refuse_a_grid_that_cannot_be_resident():
+    dev = _card()
+    for which in ("scan", "flat_band"):
+        with pytest.raises(RuntimeError, match="cooperative|too large|fits"):
+            _small_stack_calls(dev, which, 100000)[0]()
+        _small_stack_calls(dev, which)[0]()  # the card's own grid still runs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_small_stack_wrappers_refuse_unsupported_shapes():
+    from msmd_tpu_torch.measure import decoder_flat_case, sampler_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    dev = _card()
+    args = decoder_flat_case(dev, Be=2, lq=129, width=0, L=1, seed=1)
+    with pytest.raises(ValueError, match="lq"):
+        kd.fused_decoder_forward_flat(*args)
+    scan, _, kw = sampler_case(dev, P=4, N=11, F=256, H=2, L=1, FF=512, T=2)
+    with pytest.raises(ValueError, match="head dim"):
+        ks.fused_sampler_scan(*scan, **kw)
 
 
 @pytest.mark.cuda
