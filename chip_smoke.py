@@ -37,10 +37,14 @@ Phases, each printing one JSON line:
      over one call, divided by the steps; the plan's number beside it as
      ``planned_launches_per_step``), its registers and spills (``-Xptxas
      -v``), whether two calls are bit-equal (``deterministic``, gated), the
-     window with the L2 flushed, the weight-streaming floor (500 x the
-     pack's bytes / 3.35 TB/s), and K4's ms x 500 as the window of the
-     chain of launches K3 was before (``old_chain_ms``).
-   - batch-1 sampler step (K4): one step at t = 1; the same gate.
+     window with the L2 flushed and the weight-streaming floor (500 x the
+     pack's bytes / 3.35 TB/s).
+   - batch-1 sampler step (K4): one step at t = 1 and one at t = T (the
+     first step of the window); the same gate at each, and two calls
+     bit-equal (gated). K4 is one cooperative launch of the same stack a
+     step; its entry gives K3's launch facts for it (grid, phases, launches
+     a step from torch.profiler, registers), its ms beside K3's ms a step
+     in the same call (``k3_ms_per_step``).
    - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
      no TF32).
    - training FFN block (K7), forward and backward: rows 1776 (batch 16 x
@@ -63,10 +67,12 @@ Phases, each printing one JSON line:
      the small-row stack's launch facts as K3's (the chain: the kernels the
      card ran in one call), bit-equality and L2-flushed time.
    - K2 (``resident``) at K1's Be = 96 shapes: max |err| / max |plain| <=
-     2e-2, and its largest difference from K1's kernel on the same inputs
-     (printed, not gated: the same device functions in the same order
-     should give the same bits), timed beside K1 in the same call, and at
-     Be = 2 and 4 (``small_rows``) beside K1 per-entry.
+     2e-2 and bit-equal to K1's kernel on the same inputs (gated: the same
+     device functions in the same order give the same bits); its threads,
+     registers (the launch's count and ``-Xptxas -v``), spill bytes and
+     grid; timed warm and with the L2 flushed beside K1 in the same call,
+     and at Be = 2, 4, 6 and 8 (``small_rows``, below the Hopper GEMM's
+     rows) beside K1 per-entry.
    - the guided window's layer kernels at its batch-48 shapes (two CFG
      entries, Be = 96, lq = 111): K6 ``fused_ffn_ln`` over 10656 rows (F
      512, FFN 2048), K8 ``attention_middle`` over 96 entries of 111 rows (8
@@ -94,8 +100,9 @@ Phases, each printing one JSON line:
 5. batch1: the same model at batch 1 without a dynamic threshold on the
    same audio, each window through K5: K3 must have run once per window,
    K1 never, K5 once per window; then one window of
-   ``sample(..., ret_traj=True)``, which must run K4 500 times, and the
-   difference of its x_0 from K3's on the same noise (printed, not gated).
+   ``sample(..., ret_traj=True)``, which must run K4 500 times (its wall
+   printed, ``traj_wall_s``), and the difference of its x_0 from K3's on
+   the same noise (printed, not gated).
 
 6. guided: the batch-48 model of phase 4; one 4 s window of
    ``sample_with_guide`` at batch 48 (48 streams of seeded audio through
@@ -113,9 +120,11 @@ Phases, each printing one JSON line:
    any kernel.
 8. serving: ``StreamingBatcher`` on the model of phase 4 at cfg_scale
    1.15, no dynamic threshold: 48 streams of 8 s of seeded audio through
-   48 slots, two rounds, K1 per-entry 500 times a round; the same first
-   round with ``resident=True`` (K2 500 times, K1 never) and its largest
-   difference from the K1 round; one of the streams alone in a 48-slot
+   48 slots, two rounds, K1 per-entry 500 times a round; the first round
+   alone through K1 and with ``resident=True`` (K2 500 times, K1 never),
+   their audio seconds per wall second side by side
+   (``first_round_audio_s_per_s``) and K2's largest difference from the K1
+   round; one of the streams alone in a 48-slot
    batcher, and its largest difference from its output beside the other
    47 (printed; expected 0); a 2-slot round (K1 flat-mask, identity band,
    500 times); one 4 s window at batch 1 of the same model with
@@ -533,25 +542,35 @@ def phase_kernels(dev, logs):
         )
         del got, want, got_full, want_full, again
 
-        got = ks.fused_sampler_step(*step, **kw)
-        want = ks.fused_sampler_step_plain(*step, **kw)
-        torch.cuda.synchronize()
-        err, rel = float((got - want).abs().max()), _rel(got, want)
+        # K4 at t = 1 (x_0 = target: the whole denoiser) and at t = T
+        at_T = (pack, kmem, vmem, motion, emb[0], sc[0], z[0], step[7])
+        gated = {}
+        for t, args in (("1", step), ("T", at_T)):
+            got, again = ks.fused_sampler_step(*args, **kw), ks.fused_sampler_step(*args, **kw)
+            want = ks.fused_sampler_step_plain(*args, **kw)
+            torch.cuda.synchronize()
+            gated[t] = dict(max_abs_err=float((got - want).abs().max()), rel_err=_rel(got, want),
+                            deterministic=bool(torch.equal(got, again)), finite=bool(torch.isfinite(got).all()))
         flops, nbytes = sampler_work(step, kw, step=True)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        step_plan = ks.scan_plan(lq, F, kw["n_heads"], L, FF, kw["n_cur"], kw["d_motion"], kw["num_basis"],
+                                 const["wd1"].shape[-1], kw["use_indicator"], kw["n_entries"], step=True)
+        ms = cuda_ms(lambda: ks.fused_sampler_step(*step, **kw), 50, 5)
         out["step"] = dict(
             name="fused_sampler_step", route="cuda", source="msmd_tpu_torch/csrc/sampler.cu",
             replaces="msmd_tpu/ops/pallas/decoder_kernel.py:1227",
-            max_abs_err=err, rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE} at t = 1 (x_0 = target)",
-            ms=cuda_ms(lambda: ks.fused_sampler_step(*step, **kw), 20),
+            max_abs_err=max(g["max_abs_err"] for g in gated.values()), rel_err=gated["1"]["rel_err"],
+            rel_err_t_T=gated["T"]["rel_err"], tolerance=f"max|err|/max|plain| <= {GATE} at t = 1 and at t = T",
+            ms=ms, k3_ms_per_step=out["scan"]["ms"] / T,
+            ms_l2_flushed=cuda_ms_flushed(lambda: ks.fused_sampler_step(*step, **kw), 20),
             plain_ms=cuda_ms(lambda: ks.fused_sampler_step_plain(*step, **kw), 3, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None, flops=flops, bytes=nbytes,
-            ok=bool(torch.isfinite(got).all()) and rel <= GATE,
+            deterministic=all(g["deterministic"] for g in gated.values()),
+            **_small_stack_fields(step_plan, ptxas_usage(logs.get("sampler", ""), "step_kernel"),
+                                  _device_launches(lambda: ks.fused_sampler_step(*step, **kw), "step_kernel"), 1, 1),
+            ok=all(g["finite"] and g["rel_err"] <= GATE and g["deterministic"] for g in gated.values()),
         )
-        # K4 is one step of the chain of launches K3 ran before PR 8: 500 of
-        # them in this call are the old chain's window
-        out["scan"]["old_chain_ms"] = out["step"]["ms"] * out["scan"]["steps"]
-        del scan, step, got, want
+        del scan, step, got, want, again, at_T
 
         fused, (betas_ext, rt) = lbs_case(dev)
         got = kl.skin_cuda(fused, betas_ext, rt)
@@ -587,7 +606,7 @@ NO_LIBRARY = "none: no one call computes a decoder stack"
 def _flat_and_resident_entries(dev, logs):
     """K1's flat-mask mode in both cross forms and K2, each against its
     plain version, timed beside its bound; K2 also beside K1's kernel, and
-    at the small-row shapes (Be = 2 and 4) beside K1 per-entry."""
+    at the small-row shapes (Be = 2, 4, 6 and 8) beside K1 per-entry."""
     import torch
 
     from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, cuda_ms_flushed, decoder_case, \
@@ -650,24 +669,32 @@ def _flat_and_resident_entries(dev, logs):
     rel = _rel(got, want)
     flops, nbytes = decoder_work(args)
     bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+    attrs, usage = kdr.resident_attributes(), ptxas_usage(logs.get("decoder_resident", ""), "resident_kernel")
+    call, k1_call = (lambda: kdr.fused_decoder_forward_resident(*args)), (lambda: kd.fused_decoder_forward(*args))
     out["resident"] = dict(
         name="fused_decoder_forward_resident", route="cuda", source="msmd_tpu_torch/csrc/decoder_resident.cu",
         replaces="msmd_tpu/ops/pallas/decoder_kernel.py:723", max_abs_err=float((got - want).abs().max()),
-        rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE}",
+        rel_err=rel, tolerance=f"max|err|/max|plain| <= {GATE}, and bit-equal to K1",
         max_abs_diff_vs_k1=float((got - k1).abs().max()), bit_equal_k1=bool(torch.equal(got, k1)),
-        grid_blocks=kdr.resident_grid(int(args[3].shape[1]), args[5]),
-        ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20),
-        k1_ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20),
+        grid_blocks=kdr.resident_grid(), threads=attrs["threads"], registers=attrs["registers"],
+        local_bytes=attrs["local_bytes"],
+        spill_bytes=usage.get("spill_stores"), spill_loads=usage.get("spill_loads"),
+        stack_frame=usage.get("stack_frame"), dynamic_smem=attrs["dynamic_smem"],
+        ms=cuda_ms(call, 20), k1_ms=cuda_ms(k1_call, 20), ms_l2_flushed=cuda_ms_flushed(call, 10), k1_ms_l2_flushed=cuda_ms_flushed(k1_call, 10),
         plain_ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident_plain(*args), 3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, library=NO_LIBRARY, flops=flops, bytes=nbytes,
-        ok=bool(torch.isfinite(got).all()) and rel <= GATE)
+        ok=bool(torch.isfinite(got).all()) and rel <= GATE and bool(torch.equal(got, k1)))
+    del args, got, k1, want, call, k1_call
     small = {}
-    for Be in (2, 4):  # K2's cooperative schedule at the small-row shapes, beside K1 per-entry
+    for Be in (2, 4, 6, 8):  # below the Hopper GEMM's rows: the wmma tiles, beside K1 per-entry
         args = decoder_case(dev, Be=Be)
         small[f"be{Be}"] = dict(ms=cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20),
-                                k1_ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20))
+                                k1_ms=cuda_ms(lambda: kd.fused_decoder_forward(*args), 20),
+                                bit_equal_k1=bool(torch.equal(kdr.fused_decoder_forward_resident(*args),
+                                                              kd.fused_decoder_forward(*args))))
         del args
     out["resident"]["small_rows"] = small
+    out["resident"]["ok"] = out["resident"]["ok"] and all(v["bit_equal_k1"] for v in small.values())
     return out
 
 
@@ -1006,11 +1033,16 @@ def phase_serving(dev, smi, built):
     runs["k1_48_slots"] = {"rounds": 2, "wall_s": wall, "launches": counts}
     checks["k1_48_slots"] = finite(k1_out) and shaped(k1_out, frames) and only(counts, decoder=2 * T)
 
+    # the first round alone, through K1 and through K2
+    k1_first, wall, counts = _serve(model, style, mixed, SLOTS, dev, rounds=1)
+    runs["k1_48_slots_first_round"] = {"rounds": 1, "wall_s": wall, "launches": counts}
+    checks["k1_48_slots_first_round"] = finite(k1_first) and shaped(k1_first, n) and only(counts, decoder=T)
     k2_out, wall, counts = _serve(model, style, mixed, SLOTS, dev, rounds=1, resident=True)
     k2_diff = max(float(np.abs(k2_out[sid] - k1_out[sid][:n]).max()) for sid, _, _ in mixed)
     runs["k2_48_slots_first_round"] = {"rounds": 1, "wall_s": wall, "launches": counts,
                                        "max_abs_diff_vs_k1_round": k2_diff}
     checks["k2_48_slots"] = finite(k2_out) and shaped(k2_out, n) and only(counts, resident=T)
+    first_round = {route: SLOTS * window_s / runs[f"{route}_48_slots_first_round"]["wall_s"] for route in ("k1", "k2")}
 
     alone, wall, counts = _serve(model, style, mixed[:1], SLOTS, dev)
     sid0 = mixed[0][0]
@@ -1048,6 +1080,7 @@ def phase_serving(dev, smi, built):
         checks[f"depth_{depth}"] = finite(outs) and shaped(outs, 4 * n) and only(counts, decoder=4 * T)
     emit({"phase": "serving", "slots": SLOTS, "diff_steps": T, "runs": runs,
           "audio_s_per_s": {f"depth_{d}": r for d, r in rates.items()},
+          "first_round_audio_s_per_s": {"k1": first_round["k1"], "resident_k2": first_round["k2"]},
           "stream_isolation_max_abs_diff": iso_diff, "k2_vs_k1_max_abs_diff": k2_diff, "checks": checks,
           "card": smi})
     if not all(checks.values()):

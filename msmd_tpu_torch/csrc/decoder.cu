@@ -115,7 +115,7 @@ extern "C" int msmd_decoder_forward(const void* x_in, void* x_out, void* ws, con
   RETURN_IF_ERROR(cudaGetLastError());
   const void* w14[14] = {wqkv, bqkv, wso, bso, wcq, bcq, wco, bco, wf1, bf1, wf2, bf2, ln_scale, ln_bias};
   return decoder_layers(st, w, x, weights(w14, kmem, vmem, vmw), static_cast<const int*>(aux), Be, lq, F, H, L,
-                        FF, CROSS_BF16);
+                        FF);
 }
 
 namespace {

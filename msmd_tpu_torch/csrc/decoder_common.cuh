@@ -18,8 +18,9 @@
 // biases are added in f32, the activations x stay f32 with a bf16 copy xb
 // that the next product reads, q is scaled in f32 before its cast, and the
 // softmax is the bf16 "fast" form exp(clamp(s - 20, -80, 60)) normalised
-// after the PV product. The three cross-attention modes differ only in
-// where the cross output is rounded (see CrossMode).
+// after the PV product. K1's identity-band cross output is
+// scatter(bf16(bf16(person_out) @ wco)) + bf16 vmw + bco; K3's and K4's
+// (decoder_small.cuh) round it elsewhere.
 
 #pragma once
 
@@ -57,6 +58,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+// gelu_tanh through the exp and reciprocal intrinsics (ex2.approx,
+// rcp.approx): 0.5 x (1 + tanh(v)) = x / (1 + exp(-2 v)); it agrees with
+// gelu_tanh to f32 rounding (~1e-7 relative) at a fraction of the
+// instructions of tanhf, whose slow-path branches also keep the compiler
+// from overlapping the elements of an epilogue (the wgmma GEMMs' GELU
+// epilogues of K1, K2, K6 and K9)
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  const float v = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.0f + __expf(-2.0f * v));
 }
 
 // erf by Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7), as
@@ -552,17 +564,6 @@ __global__ void person_attn_kernel(const bf16* __restrict__ qp, const bf16* __re
   person_attn_block(qp, km, vm, out, lm, F, blockDim.x / 32, blockIdx.x, psm);
 }
 
-// K4's cross input: row e*lq of entry e takes its bf16 person output, row
-// e*lq + 1 + i takes memory row e*lm + i (the one-hot V-gather of the
-// width-1 band); the whole (Be*lq, F) block then goes through wco.
-__global__ void cross_rows_kernel(const bf16* __restrict__ pa, const bf16* __restrict__ vm,
-                                  bf16* __restrict__ out, int lq, int F) {
-  const int row = blockIdx.x, e = row / lq, j = row % lq, lm = lq - 1;
-  const bf16* src = j == 0 ? pa + (long)e * F : vm + ((long)e * lm + j - 1) * F;
-  for (int c = threadIdx.x * 8; c < F; c += blockDim.x * 8)
-    *reinterpret_cast<uint4*>(out + (long)row * F + c) = *reinterpret_cast<const uint4*>(src + c);
-}
-
 // --------------------------------------------------------------------------
 // LayerNorm, one warp per row (F <= 1024); writes x (f32, unless x is null
 // outside CROSS) and its bf16 copy
@@ -617,6 +618,17 @@ __device__ __forceinline__ void ln_row(int row, int lane, const float* y, float*
       xb[base + c] = __float2bfloat16(o);
     }
   }
+}
+
+// The cross LayerNorm of the Be person rows aux[e] alone, a warp a row
+// (where the self-out product's epilogue took the motion rows').
+__global__ void __launch_bounds__(LN_THREADS) ln_person_kernel(float* x, bf16* xb, const float* __restrict__ scale,
+                                                               const float* __restrict__ bias, int Be, int F,
+                                                               const bf16* po, const bf16* vmw, const bf16* bco,
+                                                               const int* aux, int lq) {
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (e >= Be) return;
+  ln_row<true, bf16>(aux[e], threadIdx.x % 32, nullptr, x, xb, scale, bias, F, po, vmw, bco, aux, lq);
 }
 
 template <bool CROSS, typename T>
@@ -710,7 +722,7 @@ struct DecoderWeights {
   const bf16 *wqkv, *bqkv, *wso, *bso, *wcq, *bcq, *wco, *bco, *wf1, *bf1, *wf2, *bf2;
   const float *ln_scale, *ln_bias;
   const bf16 *kmem, *vmem;
-  const void* vmw;  // (L, Be*lq, F): bf16 for CROSS_BF16 (f32 for K3's small-row stack), unused for CROSS_GATHER
+  const void* vmw;  // (L, Be*lq, F): bf16 for K1 (f32 for K3's small-row stack), null for K4
 };
 
 // Whether any of a layer's four large products takes the Hopper GEMM at R
@@ -731,13 +743,6 @@ cudaError_t make_decoder_maps(DecoderMaps* m, const Workspace& w, const DecoderW
   RETURN_IF_ERROR(make_b_map(&m->wf1, p.wf1, F, FF, L));
   return make_b_map(&m->wf2, p.wf2, FF, F, L);
 }
-
-// How the identity-band cross output of a layer is formed:
-// CROSS_BF16   (K1)  ca = scatter(bf16(bf16(person_out) @ wco)) + bf16 vmw + bco
-// CROSS_GATHER (K4)  ca = [bf16(person_out) | memory V rows] @ wco + bco, all rows
-// (K3's form, the f32 scatter of bf16(person_out) @ wco plus an f32 vmw,
-// is decoder_small.cuh's cross_f32.)
-enum CrossMode { CROSS_BF16 = 0, CROSS_GATHER = 2 };
 
 inline bool decoder_shapes_ok(int lq, int F, int H, int FF) {
   return !(F % H || F / H != DH || F % BN || FF % BN || F % BK || FF % BK || F > 32 * LN_MAXN || lq < 2 ||
@@ -761,12 +766,14 @@ cudaError_t set_kernel_attributes() {
   return cudaSuccess;
 }
 
-// All L layers on x (Be*lq, F) f32, whose bf16 copy w.xb is already
-// written; rows (Be,) are the person rows e*lq. Eleven launches per layer,
-// nine where the Hopper GEMM takes the residual products with their
-// LayerNorms (R >= SM90_MIN_ROWS).
+// All L layers of K1 per-entry on x (Be*lq, F) f32, whose bf16 copy w.xb
+// is already written; rows (Be,) are the person rows e*lq. Eleven launches
+// per layer, nine where the Hopper GEMM takes the residual products with
+// their LayerNorms (R >= SM90_MIN_ROWS); there the self-out product's
+// epilogue also takes the motion rows' cross step and its LayerNorm, and
+// the cross LayerNorm launch covers the person rows only.
 cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const DecoderWeights& p,
-                           const int* rows, int Be, int lq, int F, int H, int L, int FF, CrossMode mode) {
+                           const int* rows, int Be, int lq, int F, int H, int L, int FF) {
   const int R = Be * lq, lm = lq - 1;
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   const int ln_blocks = (R * 32 + LN_THREADS - 1) / LN_THREADS;
@@ -792,31 +799,40 @@ cudaError_t decoder_layers(cudaStream_t st, const Workspace& w, float* x, const 
     const bf16* Km = p.kmem + (size_t)l * Be * lm * F;
     const bf16* Vm = p.vmem + (size_t)l * Be * lm * F;
 
+    const bf16* Vmw = static_cast<const bf16*>(p.vmw) + (size_t)l * R * F;
+    const bool fused = sm90_ln_ok(R, F, F);
+
     // self-attention
     RETURN_IF_ERROR(gemm_bf16_out<EPI_BF16>(st, map(maps.xb), map(maps.wqkv), l, w.xb, F, Wqkv, Bqkv, w.qkv, R,
                                             3 * F, F, scale, F));
     self_attn_kernel<<<dim3(H, Be), ATT_THREADS, att_smem_bytes(lq), st>>>(w.qkv, w.sa, lq, F);
     RETURN_IF_ERROR(cudaGetLastError());
-    RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wso), l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R,
-                                  F, F));
+    if (fused) {
+      Sm90Args g{nullptr, nullptr, l, Bso, x, x, w.xb, lns, lnb, R, F, F, 1.0f, 0};
+      g.vmw = Vmw;
+      g.bco = Bco;
+      g.ln2_scale = lns + F;
+      g.ln2_bias = lnb + F;
+      g.aux = rows;
+      g.lq = lq;
+      RETURN_IF_ERROR(gemm_sm90<EPI_RESID_LN_CROSS>(st, maps.sa, maps.wso, g));
+    } else {
+      RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wso), l, w.sa, F, Wso, Bso, x, w.xb, w.y, lns, lnb, R,
+                                    F, F));
+    }
 
     // identity-band cross-attention: person rows attend, motion rows take
-    // their memory row
+    // the hoisted vmw
     RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.xb, F, rows, Wcq, Bcq, nullptr, w.qp, Be, F, F, scale, F));
     person_attn_kernel<<<Be, H * 32, H * (DH + MAX_LM) * sizeof(float), st>>>(w.qp, Km, Vm, w.pa, lm, F);
     RETURN_IF_ERROR(cudaGetLastError());
-    if (mode == CROSS_BF16) {
-      const bf16* Vmw = static_cast<const bf16*>(p.vmw) + (size_t)l * R * F;
-      RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
+    RETURN_IF_ERROR(gemm<EPI_BF16>(st, w.pa, F, nullptr, Wco, nullptr, nullptr, w.po, Be, F, F));
+    if (fused)
+      ln_person_kernel<<<(Be * 32 + LN_THREADS - 1) / LN_THREADS, LN_THREADS, 0, st>>>(
+          x, w.xb, lns + F, lnb + F, Be, F, static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
+    else
       ln_kernel<true, bf16><<<ln_blocks, LN_THREADS, 0, st>>>(nullptr, x, w.xb, lns + F, lnb + F, R, F,
                                                               static_cast<const bf16*>(w.po), Vmw, Bco, rows, lq);
-    } else {
-      // the gathered rows go into w.sa, free once the self-out product has read it
-      cross_rows_kernel<<<R, 64, 0, st>>>(w.pa, Vm, w.sa, lq, F);
-      RETURN_IF_ERROR(cudaGetLastError());
-      RETURN_IF_ERROR(gemm_resid_ln(st, map(maps.sa), map(maps.wco), l, w.sa, F, Wco, Bco, x, w.xb, w.y, lns + F,
-                                    lnb + F, R, F, F));
-    }
     RETURN_IF_ERROR(cudaGetLastError());
 
     // FFN

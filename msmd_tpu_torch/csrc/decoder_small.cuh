@@ -44,7 +44,8 @@
 //   bias added to the summed product, q scaled after its bias then cast,
 //   the bf16 fast softmax exp(clamp(s - 20, -80, 60)) with the fully
 //   masked 64-key blocks skipped, tanh-GELU, and the cross output rounded
-//   per CrossMode (bf16 for K1's band, f32 for K3). Only the order of f32
+//   per SmallMode (bf16 for K1's band, f32 for K3, the gathered rows'
+//   product over every row for K4). Only the order of f32
 //   sums differs from the chain (split-K, the two warpgroups' k-steps, the
 //   masked attention's two key halves, the block-wide LayerNorm sums).
 //
@@ -113,7 +114,11 @@ constexpr size_t SMALL_SMEM =
     cmax(cmax(cmax(sb_smem_bytes<64>(), wg_smem_bytes()), masked_attn_smem_bytes()),
          cmax(qtile_smem_bytes(), person_smem_bytes()));
 
-enum SmallMode { SMALL_ENTRY = 0, SMALL_FLAT_BAND = 1, SMALL_FLAT_FULL = 2 };
+// SMALL_ENTRY: K3's per-entry band with its f32 cross output (the
+// person rows' out projection scattered onto the hoisted vmw);
+// SMALL_ENTRY_GATHER: K4's, [bf16(person output) | memory V rows] @ wco
+// over every row; the flat modes: K1's.
+enum SmallMode { SMALL_ENTRY = 0, SMALL_FLAT_BAND = 1, SMALL_FLAT_FULL = 2, SMALL_ENTRY_GATHER = 3 };
 // phase kinds of the plan: product tiles, per-entry self-attention query
 // tiles, masked attention blocks of 64 query rows, person rows x heads,
 // LayerNorm rows (half a block each), token or epilogue rows (a block
@@ -141,8 +146,8 @@ inline GemmPlan plan_gemm(int M, int N, int K, int grid, bool split_ok) {
 }
 
 // The products of one layer (cq, co: the person rows' q and out
-// projections in the band modes, every row's in the full cross) and K3's
-// motion decoder (md; M = 0 elsewhere).
+// projections in the band modes, every row's in the full cross; K4's co
+// over every row) and K3's or K4's motion decoder (md; M = 0 elsewhere).
 struct SmallPlan {
   int grid, mode;
   GemmPlan qkv, self_out, cq, co, ffn1, ffn2, md;
@@ -156,7 +161,7 @@ inline SmallPlan make_small_plan(int mode, int Be, int lq, int F, int FF, int gr
   p.qkv = plan_gemm(R, 3 * F, F, grid, false);
   p.self_out = plan_gemm(R, F, F, grid, true);
   p.cq = plan_gemm(Mc, F, F, grid, true);
-  p.co = plan_gemm(Mc, F, F, grid, true);
+  p.co = plan_gemm(mode == SMALL_ENTRY_GATHER ? R : Mc, F, F, grid, true);
   p.ffn1 = plan_gemm(R, FF, F, grid, false);
   p.ffn2 = plan_gemm(R, F, FF, grid, true);
   p.md = n_tail > 0 ? plan_gemm(n_tail, Fd, F, grid, true) : GemmPlan{0, 0, 0, 32, 1};
@@ -168,10 +173,10 @@ inline bool small_shapes_ok(int lq, int F, int H, int FF) {
 }
 
 // The plan as a list of phases of one step: per phase {kind, items, M, N,
-// K, bm, split} (M, N, K, bm, split 0 where no product runs). K3
-// (n_tail > 0) adds its prologue before the layers and the motion decoder
-// and epilogue after them; the flat mode its copy of x in. Returns the
-// count of phases; `out` takes 7 longs each.
+// K, bm, split} (M, N, K, bm, split 0 where no product runs). K3 and K4
+// (n_tail > 0) add their prologue before the layers and the motion
+// decoder and epilogue after them; the flat mode its copy of x in. Returns
+// the count of phases; `out` takes 7 longs each.
 inline int small_phases(const SmallPlan& p, int Be, int lq, int H, int L, int tile, int n_tail, int N, long* out) {
   int n = 0;
   auto add = [&](int kind, long items, const GemmPlan* g) {
@@ -185,10 +190,10 @@ inline int small_phases(const SmallPlan& p, int Be, int lq, int H, int L, int ti
     o[6] = g ? g->split : 0;
   };
   const int R = Be * lq, nt = (lq + 15) / 16, n_tiles = tile > 0 ? Be / tile : 1, Rt = tile * lq;
-  add(PK_ROWS, n_tail > 0 ? lq : R, nullptr);  // K3's prologue, or the flat mode's copy of x in
+  add(PK_ROWS, n_tail > 0 ? lq : R, nullptr);  // K3's or K4's prologue, or the flat mode's copy of x in
   for (int l = 0; l < L; ++l) {
     add(PK_GEMM, gp_items(p.qkv), &p.qkv);
-    if (p.mode == SMALL_ENTRY)
+    if (p.mode == SMALL_ENTRY || p.mode == SMALL_ENTRY_GATHER)
       add(PK_SELF_ATTN, (long)Be * H * nt, nullptr);
     else
       add(PK_MASKED, (long)n_tiles * H * ((Rt + MA_BQ - 1) / MA_BQ), nullptr);
@@ -232,10 +237,13 @@ inline SmallWs carve_small(void* ws, const SmallPlan& p, int Be, int lq, int F, 
   if (p.mode == SMALL_FLAT_FULL) {
     if ((size_t)p.cq.split > s_rows) s_rows = p.cq.split;
     if ((size_t)p.co.split > s_rows) s_rows = p.co.split;
+  } else if (p.mode == SMALL_ENTRY_GATHER) {
+    if ((size_t)p.co.split > s_rows) s_rows = p.co.split;
+    s_pers = p.cq.split;
   } else {
     s_pers = p.cq.split > p.co.split ? p.cq.split : p.co.split;
   }
-  if (p.mode != SMALL_ENTRY) {
+  if (p.mode == SMALL_FLAT_BAND || p.mode == SMALL_FLAT_FULL) {
     const int Rt = tile * lq, Mt = tile * (lq - 1);
     live_self = (size_t)blocks64(Rt) * blocks64(Rt) * 4;
     if (p.mode == SMALL_FLAT_FULL) live_cross = (size_t)blocks64(Rt) * blocks64(Mt) * 4;
@@ -765,14 +773,15 @@ __device__ __noinline__ void self_attn_qtile(const bf16* __restrict__ qkv, bf16*
 // k^T in f32, plus the mask row `mask` (nk floats; null: none); the bf16
 // fast numerators exp(clamp(s - 20, -80, 60)) (0 where s + mask - 20 is at
 // or below MASK_FLOOR) and their f32 sum; out = bf16((numerators V) /
-// sum). The keys come through shared memory PA_KEYS at a time (cp.async),
-// and a chunk whose mask is all at or below MASK_FLOOR is skipped: it adds
-// exactly 0. The identity band's person_attn_block, with the person mask
-// of the flat mode.
+// sum) into row `out_row` of out. The keys come through shared memory
+// PA_KEYS at a time (cp.async), and a chunk whose mask is all at or below
+// MASK_FLOOR is skipped: it adds exactly 0. The identity band's
+// person_attn_block, with the person mask of the flat mode.
 __device__ __noinline__ void person_block(const float* __restrict__ qpart, int S, long MN,
                                           const bf16* __restrict__ bcq, float scale, const bf16* __restrict__ km,
                                           const bf16* __restrict__ vm, long krow0, int nk, const float* mask,
-                                          bf16* __restrict__ out, int F, int e, int h, unsigned char* smem) {
+                                          bf16* __restrict__ out, long out_row, int F, int e, int h,
+                                          unsigned char* smem) {
   bf16* Ks = reinterpret_cast<bf16*>(smem);           // [PA_KEYS][DH]
   bf16* Vs = Ks + PA_KEYS * DH;                       // [PA_KEYS][DH]
   float* qs = reinterpret_cast<float*>(Vs + PA_KEYS * DH);  // DH
@@ -825,7 +834,7 @@ __device__ __noinline__ void person_block(const float* __restrict__ qpart, int S
   __syncthreads();
   if (tid < DH) {
     const float o = ((os[tid] + os[DH + tid]) + os[2 * DH + tid]) + os[3 * DH + tid];
-    out[(long)e * F + h * DH + tid] = __float2bfloat16(o * (1.0f / total));
+    out[out_row * F + h * DH + tid] = __float2bfloat16(o * (1.0f / total));
   }
 }
 
@@ -1069,10 +1078,10 @@ struct SmallArgs {
   SmallWs w;
   float* x;            // (R, F) f32 activations, updated in place
   const float* x_in;   // the flat mode's input (copied into x and w.xb first)
-  DecoderWeights p;    // vmw: bf16 (K1's band), f32 (K3), null (full cross)
+  DecoderWeights p;    // vmw: bf16 (K1's band), f32 (K3), null (full cross, K4)
   const int* rows;     // (Be,) person rows (the band modes)
   const float *self_mask, *cross_mask;  // the flat modes
-  int cross_f32;       // K3: the cross output and vmw stay f32 (K1's band rounds them to bf16)
+  int cross_f32;       // K3: the cross output and vmw stay f32 (K1's band rounds them to bf16; unread by K4)
   int Be, lq, F, H, L, FF, tile;
   unsigned long long* stamps;  // optional: the card's clock after every phase
 };
@@ -1177,7 +1186,8 @@ __device__ void small_layers(const SmallArgs& a, PhaseClock& clk, unsigned char*
   const int Be = a.Be, lq = a.lq, F = a.F, H = a.H, FF = a.FF, R = Be * lq, lm = lq - 1;
   const int tile = a.tile > 0 ? a.tile : Be, n_tiles = Be / tile, Rt = tile * lq, Mt = tile * lm;
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  const bool entry = P.mode == SMALL_ENTRY, full = P.mode == SMALL_FLAT_FULL;
+  const bool gather = P.mode == SMALL_ENTRY_GATHER, entry = P.mode == SMALL_ENTRY || gather;
+  const bool full = P.mode == SMALL_FLAT_FULL;
 
   for (int l = 0; l < a.L; ++l) {
     const float* lns = p.ln_scale + (size_t)l * 3 * F;
@@ -1212,7 +1222,35 @@ __device__ void small_layers(const SmallArgs& a, PhaseClock& clk, unsigned char*
                                  smem);
     clk.sync();
 
-    if (!full) {
+    if (gather) {
+      // K4's identity band: [bf16(person output) | memory V rows] @ wco
+      // over every row. The person rows attend their memory and write
+      // their output into row e*lq of w.sa (free since self-out read it),
+      // the same phase copies motion row e*lq + 1 + i's memory V row e*lm
+      // + i beside them, then wco runs on all R rows (split-K) and the
+      // cross LayerNorm sums its partials as self-out's does.
+      small_gemm_phase<SE_PART>(
+          SmallGemm{w.xb, F, a.rows, p.wcq + (size_t)l * F * F, nullptr, nullptr, w.ppart, 1.0f, 0}, P.cq, smem);
+      clk.sync();
+      for (int it = blockIdx.x; it < Be * H; it += gridDim.x) {
+        const int e = it / H, h = it % H;
+        person_block(w.ppart, P.cq.split, (long)Be * F, Bcq, scale, Km, Vm, (long)e * lm, lm, nullptr, w.sa,
+                     (long)e * lq, F, e, h, smem);
+      }
+      const long chunks = (long)Be * lm * (F / 8);
+      for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < chunks; i += (long)gridDim.x * blockDim.x) {
+        const long r = i / (F / 8);
+        const int c = (int)(i % (F / 8)) * 8, e = (int)(r / lm), j = (int)(r % lm);
+        *reinterpret_cast<uint4*>(w.sa + ((long)e * lq + 1 + j) * F + c) =
+            *reinterpret_cast<const uint4*>(Vm + r * F + c);
+      }
+      clk.sync();
+      small_gemm_phase<SE_PART>(
+          SmallGemm{w.sa, F, nullptr, p.wco + (size_t)l * F * F, nullptr, nullptr, w.part, 1.0f, 0}, P.co, smem,
+          &a.maps.sa, &a.maps.wco, l);
+      clk.sync();
+      small_ln_phase<false, false>(a, w.part, P.co.split, (long)R * F, Bco, nullptr, lns + F, lnb + F, smem);
+    } else if (!full) {
       // identity band: the person rows attend their memory, the motion
       // rows take vmw in the cross LayerNorm
       small_gemm_phase<SE_PART>(
@@ -1221,11 +1259,11 @@ __device__ void small_layers(const SmallArgs& a, PhaseClock& clk, unsigned char*
       for (int it = blockIdx.x; it < Be * H; it += gridDim.x) {
         const int e = it / H, h = it % H;
         if (entry)  // entry e's own memory rows
-          person_block(w.ppart, P.cq.split, (long)Be * F, Bcq, scale, Km, Vm, (long)e * lm, lm, nullptr, w.pa, F, e,
-                       h, smem);
+          person_block(w.ppart, P.cq.split, (long)Be * F, Bcq, scale, Km, Vm, (long)e * lm, lm, nullptr, w.pa, e, F,
+                       e, h, smem);
         else  // the tile's memory rows through the person mask's row of e
           person_block(w.ppart, P.cq.split, (long)Be * F, Bcq, scale, Km, Vm, (long)(e / tile) * Mt, Mt,
-                       a.cross_mask + (long)(e % tile) * Mt, w.pa, F, e, h, smem);
+                       a.cross_mask + (long)(e % tile) * Mt, w.pa, e, F, e, h, smem);
       }
       clk.sync();
       small_gemm_phase<SE_PART>(

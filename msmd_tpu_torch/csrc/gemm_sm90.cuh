@@ -55,6 +55,11 @@ constexpr int SM90_THREADS = 256;    // two warpgroups
 constexpr int SM90_BK = 64;          // k per stage: one 128-byte swizzle row of bf16
 constexpr int SM90_MIN_ROWS = 1024;  // products with fewer rows (K4, small batches) keep the wmma tile
 constexpr int EPI_RESID_LN = 6;      // x, xb = LayerNorm(res + (acc + bias)) * ln_scale + ln_bias
+// EPI_RESID_LN, then on each row that is not a person row the identity
+// band's cross step and its LayerNorm: x, xb = LayerNorm(x + ((0 + vmw) +
+// bco)) * ln2_scale + ln2_bias; person rows (aux[row / lq] == row) keep
+// the first LayerNorm, for the person attention's q
+constexpr int EPI_RESID_LN_CROSS = 7;
 
 template <int WGM>
 struct Sm90Tile {
@@ -81,6 +86,14 @@ struct Sm90Args {
   int M, N, K;
   float scale;     // EPI_BF16: columns < scale_cols are multiplied by scale
   int scale_cols;  // before the bf16 cast
+  // EPI_RESID_LN_CROSS: the layer's hoisted projected V-gather (M x N
+  // bf16), wco's bias, the cross LayerNorm and the person rows
+  const bf16* vmw = nullptr;
+  const bf16* bco = nullptr;
+  const float* ln2_scale = nullptr;
+  const float* ln2_bias = nullptr;
+  const int* aux = nullptr;
+  int lq = 1;
 };
 
 // The products the Hopper GEMM takes: enough rows, K in whole stages, N in
@@ -178,12 +191,31 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 // fold, 128 x 256 otherwise.
 template <int EPI>
 struct Sm90Wgm {
-  static constexpr int value = EPI == EPI_RESID_LN ? 1 : 2;
+  static constexpr int value = EPI == EPI_RESID_LN || EPI == EPI_RESID_LN_CROSS ? 1 : 2;
 };
 
 __host__ __device__ inline int sm90_tiles(int M, int N, int wgm) {
   const int bm = 64 * wgm, bn = 256 * (2 / wgm);
   return (N / bn) * ((M + bm - 1) / bm);
+}
+
+// The sums (s_lo, s_hi) of this thread's rows r0 and r0 + 8 over a 64 x
+// 512 tile: over the quad, then the two warpgroups' halves through
+// part[half][warpgroup][64 rows] (a block barrier). Reductions in turn
+// take alternate halves of `part`, so a thread's writes never meet
+// another's reads of the one before.
+__device__ __forceinline__ float2 sm90_row_sum(float s_lo, float s_hi, int rt, int wgn, int lane, float* part) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s_lo += __shfl_xor_sync(0xffffffffu, s_lo, o);
+    s_hi += __shfl_xor_sync(0xffffffffu, s_hi, o);
+  }
+  if (lane % 4 == 0) {
+    part[wgn * 64 + rt] = s_lo;
+    part[wgn * 64 + rt + 8] = s_hi;
+  }
+  __syncthreads();
+  return make_float2(part[rt] + part[64 + rt], part[rt + 8] + part[64 + rt + 8]);
 }
 
 // The epilogue of the tile at (m0, n0) from this thread's accumulators:
@@ -197,7 +229,90 @@ __device__ __forceinline__ void sm90_epilogue(const Sm90Args& g, float (&d)[128]
   const int rt = wgm * 64 + wwarp * 16 + lane / 4;  // row of the tile
   const int r0 = m0 + rt, r1 = r0 + 8;
   const int cb = n0 + wgn * 256 + 2 * (lane % 4);
-  if constexpr (EPI == EPI_RESID_LN) {
+  if constexpr (EPI == EPI_RESID_LN_CROSS) {
+    // y = res + (acc + bias) in d, and its row statistics
+    float s_lo = 0.0f, s_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = cb + 8 * j;
+      float2 bj = make_float2(0.0f, 0.0f);
+      if (g.bias) bj = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
+      float2 x0 = make_float2(0.0f, 0.0f), x1 = x0;
+      if (r0 < g.M) x0 = *reinterpret_cast<const float2*>(g.res + (long)r0 * g.N + c);
+      if (r1 < g.M) x1 = *reinterpret_cast<const float2*>(g.res + (long)r1 * g.N + c);
+      d[4 * j] = x0.x + (d[4 * j] + bj.x);
+      d[4 * j + 1] = x0.y + (d[4 * j + 1] + bj.y);
+      d[4 * j + 2] = x1.x + (d[4 * j + 2] + bj.x);
+      d[4 * j + 3] = x1.y + (d[4 * j + 3] + bj.y);
+      s_lo += d[4 * j] + d[4 * j + 1];
+      s_hi += d[4 * j + 2] + d[4 * j + 3];
+    }
+    float2 t = sm90_row_sum(s_lo, s_hi, rt, wgn, lane, part);
+    const float mu_lo = t.x / g.N, mu_hi = t.y / g.N;
+    float q_lo = 0.0f, q_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      q_lo += (d[4 * j] - mu_lo) * (d[4 * j] - mu_lo) + (d[4 * j + 1] - mu_lo) * (d[4 * j + 1] - mu_lo);
+      q_hi += (d[4 * j + 2] - mu_hi) * (d[4 * j + 2] - mu_hi) + (d[4 * j + 3] - mu_hi) * (d[4 * j + 3] - mu_hi);
+    }
+    t = sm90_row_sum(q_lo, q_hi, rt, wgn, lane, part + 128);
+    const float rs_lo = rsqrtf(t.x / g.N + 1e-5f), rs_hi = rsqrtf(t.y / g.N + 1e-5f);
+    // The rows' cross values, in place of y in d (vmw and bco are read
+    // once): the first LayerNorm's output o, and on a motion row, as
+    // ln_row's cross step, o + ((0 + vmw) + bco); person rows (aux[row /
+    // lq] == row) keep o.
+    const bool p0 = r0 < g.M && g.aux[r0 / g.lq] == r0, p1 = r1 < g.M && g.aux[r1 / g.lq] == r1;
+    s_lo = s_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = cb + 8 * j;
+      const float2 gs = *reinterpret_cast<const float2*>(g.ln_scale + c);
+      const float2 gb = *reinterpret_cast<const float2*>(g.ln_bias + c);
+      const float2 bc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bco + c));
+      float2 w0 = make_float2(0.0f, 0.0f), w1 = w0;
+      if (r0 < g.M) w0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.vmw + (long)r0 * g.N + c));
+      if (r1 < g.M) w1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.vmw + (long)r1 * g.N + c));
+      const float o[4] = {(d[4 * j] - mu_lo) * rs_lo * gs.x + gb.x, (d[4 * j + 1] - mu_lo) * rs_lo * gs.y + gb.y,
+                          (d[4 * j + 2] - mu_hi) * rs_hi * gs.x + gb.x, (d[4 * j + 3] - mu_hi) * rs_hi * gs.y + gb.y};
+      d[4 * j] = p0 ? o[0] : o[0] + ((0.0f + w0.x) + bc.x);
+      d[4 * j + 1] = p0 ? o[1] : o[1] + ((0.0f + w0.y) + bc.y);
+      d[4 * j + 2] = p1 ? o[2] : o[2] + ((0.0f + w1.x) + bc.x);
+      d[4 * j + 3] = p1 ? o[3] : o[3] + ((0.0f + w1.y) + bc.y);
+      s_lo += d[4 * j] + d[4 * j + 1];
+      s_hi += d[4 * j + 2] + d[4 * j + 3];
+    }
+    t = sm90_row_sum(s_lo, s_hi, rt, wgn, lane, part);
+    const float m2_lo = t.x / g.N, m2_hi = t.y / g.N;
+    q_lo = q_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      q_lo += (d[4 * j] - m2_lo) * (d[4 * j] - m2_lo) + (d[4 * j + 1] - m2_lo) * (d[4 * j + 1] - m2_lo);
+      q_hi += (d[4 * j + 2] - m2_hi) * (d[4 * j + 2] - m2_hi) + (d[4 * j + 3] - m2_hi) * (d[4 * j + 3] - m2_hi);
+    }
+    t = sm90_row_sum(q_lo, q_hi, rt, wgn, lane, part + 128);
+    const float r2_lo = rsqrtf(t.x / g.N + 1e-5f), r2_hi = rsqrtf(t.y / g.N + 1e-5f);
+    float* x = static_cast<float*>(g.C);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = cb + 8 * j;
+      const float2 gs = *reinterpret_cast<const float2*>(g.ln2_scale + c);
+      const float2 gb = *reinterpret_cast<const float2*>(g.ln2_bias + c);
+      if (r0 < g.M) {
+        const float2 o = p0 ? make_float2(d[4 * j], d[4 * j + 1])
+                            : make_float2((d[4 * j] - m2_lo) * r2_lo * gs.x + gb.x,
+                                          (d[4 * j + 1] - m2_lo) * r2_lo * gs.y + gb.y);
+        *reinterpret_cast<float2*>(x + (long)r0 * g.N + c) = o;
+        *reinterpret_cast<__nv_bfloat162*>(g.Cb + (long)r0 * g.N + c) = __floats2bfloat162_rn(o.x, o.y);
+      }
+      if (r1 < g.M) {
+        const float2 o = p1 ? make_float2(d[4 * j + 2], d[4 * j + 3])
+                            : make_float2((d[4 * j + 2] - m2_hi) * r2_hi * gs.x + gb.x,
+                                          (d[4 * j + 3] - m2_hi) * r2_hi * gs.y + gb.y);
+        *reinterpret_cast<float2*>(x + (long)r1 * g.N + c) = o;
+        *reinterpret_cast<__nv_bfloat162*>(g.Cb + (long)r1 * g.N + c) = __floats2bfloat162_rn(o.x, o.y);
+      }
+    }
+  } else if constexpr (EPI == EPI_RESID_LN) {
     float s_lo = 0.0f, s_hi = 0.0f;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -273,7 +388,7 @@ __device__ __forceinline__ void sm90_epilogue(const Sm90Args& g, float (&d)[128]
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         if (EPI == EPI_BF16 && c + (t & 1) < g.scale_cols) v[t] *= g.scale;
-        if (EPI == EPI_GELU) v[t] = gelu_tanh(v[t]);
+        if (EPI == EPI_GELU) v[t] = gelu_tanh_fast(v[t]);
       }
       if (r0 < g.M) *reinterpret_cast<__nv_bfloat162*>(C + (long)r0 * g.N + c) = __floats2bfloat162_rn(v[0], v[1]);
       if (r1 < g.M) *reinterpret_cast<__nv_bfloat162*>(C + (long)r1 * g.N + c) = __floats2bfloat162_rn(v[2], v[3]);

@@ -132,18 +132,10 @@ __device__ __forceinline__ void mbar_wait_acquire_cluster(uint64_t* bar, unsigne
       "r"(parity)
       : "memory");
 }
-// The epilogue's GELUs, the same functions as decoder_common.cuh's
-// gelu_tanh and gelu_erf evaluated through the exp and reciprocal
-// intrinsics (ex2.approx, rcp.approx): 0.5 x (1 + tanh(v)) = x / (1 +
-// exp(-2 v)), and the Abramowitz & Stegun erf; they agree with those to f32
-// rounding (~1e-7 relative), at a fraction of the instructions of tanhf,
-// expf and the IEEE division, whose slow-path branches also keep the
-// compiler from overlapping the elements of an epilogue (with an IEEE
-// reciprocal here K9's FFN1 ran far slower than K6's on the card).
-__device__ __forceinline__ float ws_gelu_tanh(float x) {
-  const float v = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return __fdividef(x, 1.0f + __expf(-2.0f * v));
-}
+// The epilogue's erf GELU, decoder_common.cuh's gelu_erf evaluated as
+// gelu_tanh_fast evaluates gelu_tanh: the Abramowitz & Stegun erf through
+// the exp and reciprocal intrinsics (with an IEEE reciprocal here K9's
+// FFN1 ran far slower than K6's on the card).
 __device__ __forceinline__ float ws_gelu_erf(float u) {
   const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f, a4 = -1.453152027f,
               a5 = 1.061405429f, p = 0.3275911f;
@@ -273,7 +265,7 @@ __device__ __forceinline__ void ws_epilogue_gelu(const WsArgs& g, float (&d)[128
       if (g.bias) bj = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
       float v[4] = {d[4 * j] + bj.x, d[4 * j + 1] + bj.y, d[4 * j + 2] + bj.x, d[4 * j + 3] + bj.y};
 #pragma unroll
-      for (int t = 0; t < 4; ++t) v[t] = EPI == WS_GELU ? ws_gelu_tanh(v[t]) : ws_gelu_erf(v[t]);
+      for (int t = 0; t < 4; ++t) v[t] = EPI == WS_GELU ? gelu_tanh_fast(v[t]) : ws_gelu_erf(v[t]);
       lo[k] = pack_bf16x2(v[0], v[1]);
       hi[k] = pack_bf16x2(v[2], v[3]);
     }

@@ -24,10 +24,11 @@
 // - K4: the person and motion rows are rounded to bf16 before the PE is
 //   added (the TPU kernel places them with one-hot selector products), and
 //   the cross output is [bf16(person_out) | memory V rows] @ wco over all
-//   rows, with no vmw hoist (CROSS_GATHER). Its self-attention is flat
-//   over the E*lq rows with a block-diagonal -1e30 mask, which gives
-//   exactly zero weight across entries: the per-entry self-attention used
-//   here computes the same thing, up to the order of f32 sums.
+//   rows, with no vmw hoist (decoder_small.cuh's SMALL_ENTRY_GATHER). Its
+//   self-attention is flat over the E*lq rows with a block-diagonal -1e30
+//   mask, which gives exactly zero weight across entries: the per-entry
+//   self-attention used here computes the same thing, up to the order of
+//   f32 sums.
 //
 // What bounds it on an H100: at the flagship batch-1 shapes (E = 2 CFG
 // entries of lq = 111 rows, F = 512, FFN 2048, 8 layers) a step is about
@@ -48,9 +49,12 @@
 // items as the grid has blocks. Per-step inputs (step embedding, [A, B,
 // sigma], noise) are indexed by step from device tables, and one C call
 // runs the window. (A launch a step took 281.1 ms a window on an H100,
-// 2% more than one launch a window.) K4 keeps the chain of launches through
-// decoder_common.cuh::decoder_layers (one step; it is off the default
-// path).
+// 2% more than one launch a window.) K4 is one step of the same stack, one
+// cooperative launch (step_kernel): K3's phases with T = 1, K4's rounded
+// token rows, and its gathered cross output over every row as a wco phase
+// on the 64 x 64 wgmma tile (split-K). Its chain of ~99 launches a step
+// through decoder_common.cuh::decoder_layers took 1.97 ms a step on an
+// H100 (PERF.md).
 
 #include "decoder_small.cuh"
 
@@ -66,10 +70,8 @@ enum Ptr {
   N_PTRS
 };
 // Index of each size in the `dims` array.
-// D_GRID: K3's blocks (0: all that fit on the card).
+// D_GRID: the cooperative grid (0: all that fit on the card).
 enum Dim { D_E, D_LQ, D_F, D_H, D_L, D_FF, D_N, D_D, D_K, D_FD, D_USE_IND, D_SIGMOID, D_T, D_GRID, N_DIMS };
-
-constexpr int STEP_THREADS = 256;
 
 // The token rows of every entry: row e*lq is persons_pre[e] + emb, row
 // e*lq + 1 + i is bf16(rows[i]) @ wfp + bfp, each plus its PE row, where
@@ -114,30 +116,16 @@ __device__ __forceinline__ void prologue_row(int j, const float* m, const float*
   }
 }
 
-// One block per row j.
-template <bool ROUND>
-__global__ void __launch_bounds__(STEP_THREADS)
-    prologue_kernel(const float* m, const float* __restrict__ prev_rows, const float* __restrict__ ind_col,
-                    const bf16* __restrict__ wfp, const float* __restrict__ bfp,
-                    const float* __restrict__ persons_pre, const float* __restrict__ emb,
-                    const float* __restrict__ pe, float* __restrict__ x, bf16* __restrict__ xb, int E, int lq,
-                    int P, int D, int F, int use_ind) {
-  extern __shared__ float row[];  // Din
-  prologue_row<ROUND>(blockIdx.x, m, prev_rows, ind_col, wfp, bfp, persons_pre, emb, pe, x, xb, E, lq, P, D, F,
-                      use_ind, row);
-}
-
 // Motion row i by the whole block, in `esm` (E * (Fd + D + K) floats of
-// shared memory): dec = hdec @ wd2 + bd2 for every entry (the alphas
+// shared memory): the motion decoder's first product comes as f32 split-K
+// partials hpart (S, E*N, Fd), and hdec = bf16(gelu_tanh(their sum + bd1))
+// is formed here; dec = hdec @ wd2 + bd2 for every entry (the alphas
 // through a sigmoid when asked), then the face channels take the
 // alpha-weighted statics and the 3 head-pose channels the plain static
 // sum, the entries are mixed with the CFG coefficients, and m_out = A m_in
-// + B target + sigma z. m_in and m_out may be one buffer. PART (K3): the
-// motion decoder's first product comes as f32 split-K partials (S, E*N,
-// Fd), and hdec = bf16(gelu_tanh(their sum + bd1)) is formed here.
-template <bool PART>
-__device__ __forceinline__ void epilogue_row(int i, const bf16* __restrict__ hdec, const float* __restrict__ hpart,
-                                             int S, const float* __restrict__ bd1, const bf16* __restrict__ wd2,
+// + B target + sigma z. m_in and m_out may be one buffer.
+__device__ __forceinline__ void epilogue_row(int i, const float* __restrict__ hpart, int S,
+                                             const float* __restrict__ bd1, const bf16* __restrict__ wd2,
                                              const float* __restrict__ bd2, const float* __restrict__ statics_rows,
                                              const float* __restrict__ pose_sum_rows,
                                              const float* __restrict__ coef, const float* __restrict__ sc,
@@ -150,10 +138,7 @@ __device__ __forceinline__ void epilogue_row(int i, const bf16* __restrict__ hde
   for (int idx = threadIdx.x; idx < E * Fd; idx += blockDim.x) {
     const int e = idx / Fd, k = idx % Fd;
     const long o = ((long)e * N + i) * Fd + k;
-    if (PART)
-      hs[idx] = round_bf16(gelu_tanh(part_sum(hpart, S, (long)E * N * Fd, o) + bd1[k]));
-    else
-      hs[idx] = __bfloat162float(hdec[o]);
+    hs[idx] = round_bf16(gelu_tanh(part_sum(hpart, S, (long)E * N * Fd, o) + bd1[k]));
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < E * DK; idx += blockDim.x) {
@@ -184,75 +169,10 @@ __device__ __forceinline__ void epilogue_row(int i, const bf16* __restrict__ hde
   }
 }
 
-// One block per motion row i (K4).
-__global__ void __launch_bounds__(STEP_THREADS)
-    epilogue_kernel(const bf16* __restrict__ hdec, const bf16* __restrict__ wd2, const float* __restrict__ bd2,
-                    const float* __restrict__ statics_rows, const float* __restrict__ pose_sum_rows,
-                    const float* __restrict__ coef, const float* __restrict__ sc, const float* __restrict__ z,
-                    const float* m_in, float* m_out, int E, int N, int D, int K, int Fd, int sigmoid_alpha) {
-  extern __shared__ float esm[];
-  epilogue_row<false>(blockIdx.x, hdec, nullptr, 1, nullptr, wd2, bd2, statics_rows, pose_sum_rows, coef, sc, z,
-                      m_in, m_out, E, N, D, K, Fd, sigmoid_alpha, esm);
-}
-
-struct SamplerScratch {
-  Workspace dec;
-  float* x;    // (E*lq, F)
-  bf16* hdec;  // (E*N, Fd)
-};
-
-SamplerScratch carve_sampler(void* ws, const int* d, size_t* total) {
-  SamplerScratch s;
-  size_t off = 0;
-  s.dec = carve(ws, d[D_E], d[D_LQ], d[D_F], d[D_FF], &off);
-  char* p = static_cast<char*>(ws);
-  s.x = p ? reinterpret_cast<float*>(p + off) : nullptr;
-  off += align256((size_t)d[D_E] * d[D_LQ] * d[D_F] * 4);
-  s.hdec = p ? reinterpret_cast<bf16*>(p + off) : nullptr;
-  off += align256((size_t)d[D_E] * d[D_N] * d[D_FD] * 2);
-  *total = off;
-  return s;
-}
-
 bool sampler_shapes_ok(const int* d) {
   const int P = d[D_LQ] - 1 - d[D_N];
   return decoder_shapes_ok(d[D_LQ], d[D_F], d[D_H], d[D_FF]) && d[D_FD] % BN == 0 && d[D_D] >= 3 && P >= 0 &&
          d[D_T] >= 1 && d[D_E] >= 1 && d[D_K] >= 0;
-}
-
-// K4: one step through the chained decoder (decoder_common.cuh's
-// decoder_layers with CROSS_GATHER), the token rows rounded to bf16: a
-// prologue kernel, the layers' sub-kernels, the motion decoder's first
-// product as a GEMM that gathers the tail rows and fuses bias and
-// tanh-GELU, and the epilogue kernel.
-cudaError_t run_step(void* const* p, const int* d, cudaStream_t st) {
-  if (!sampler_shapes_ok(d) || d[D_T] != 1) return cudaErrorInvalidValue;
-  RETURN_IF_ERROR(set_kernel_attributes());
-  const int E = d[D_E], lq = d[D_LQ], F = d[D_F], H = d[D_H], L = d[D_L], FF = d[D_FF], N = d[D_N];
-  const int D = d[D_D], K = d[D_K], Fd = d[D_FD], use_ind = d[D_USE_IND];
-  const int P = lq - 1 - N, Din = D + use_ind;
-  size_t total = 0;
-  const SamplerScratch s = carve_sampler(p[P_WS], d, &total);
-  auto bf = [&](int i) { return static_cast<const bf16*>(p[i]); };
-  auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
-  const DecoderWeights w{bf(P_WQKV), bf(P_BQKV), bf(P_WSO), bf(P_BSO), bf(P_WCQ), bf(P_BCQ), bf(P_WCO),
-                         bf(P_BCO),  bf(P_WF1),  bf(P_BF1), bf(P_WF2), bf(P_BF2), f32(P_LN_SCALE),
-                         f32(P_LN_BIAS), bf(P_KMEM), bf(P_VMEM), nullptr};
-  const int* rows = static_cast<const int*>(p[P_ROWS]);
-  const int* tail_rows = static_cast<const int*>(p[P_TAIL_ROWS]);
-  float* out = static_cast<float*>(p[P_OUT]);
-  const float* m_in = f32(P_MOTION);
-  prologue_kernel<true><<<lq, STEP_THREADS, Din * sizeof(float), st>>>(
-      m_in, f32(P_PREV_ROWS), f32(P_IND_COL), bf(P_WFP), f32(P_BFP), f32(P_PERSONS_PRE), f32(P_EMB),
-      f32(P_PE_FLAT), s.x, s.dec.xb, E, lq, P, D, F, use_ind);
-  RETURN_IF_ERROR(cudaGetLastError());
-  RETURN_IF_ERROR(decoder_layers(st, s.dec, s.x, w, rows, E, lq, F, H, L, FF, CROSS_GATHER));
-  RETURN_IF_ERROR(gemm<EPI_GELU>(st, s.dec.xb, F, tail_rows, bf(P_WD1), nullptr, nullptr, s.hdec, E * N, Fd, F, 1.0f,
-                                 0, f32(P_BD1)));
-  epilogue_kernel<<<N, STEP_THREADS, (size_t)E * (Fd + D + K) * sizeof(float), st>>>(
-      s.hdec, bf(P_WD2), f32(P_BD2), f32(P_STATICS_ROWS), f32(P_POSE_SUM_ROWS), f32(P_COEF), f32(P_SC), f32(P_Z), m_in,
-      out, E, N, D, K, Fd, d[D_SIGMOID]);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -265,7 +185,8 @@ struct ScanArgs {
   const float *prev_rows, *ind_col, *bfp, *persons_pre, *pe, *bd1, *bd2, *statics_rows, *pose_sum_rows, *coef;
   const bf16 *wfp, *wd1, *wd2;
   const float *emb, *sc, *z;  // per-step tables (T, F), (T, 8), (T, N, D)
-  float* out;                 // the f32 motion carry (N, D)
+  float* out;                 // the f32 motion carry (N, D); K4's output
+  const float* m_in;          // K4: the step's input motion (N, D)
   const int* tail_rows;       // (E*N,) rows e*lq + 1 + P + i
   int E, N, D, K, Fd, P, use_ind, sigmoid_alpha, T;
 };
@@ -298,9 +219,9 @@ __global__ void __launch_bounds__(SMALL_THREADS, SMALL_MIN_BLOCKS) scan_kernel(c
     const int items = next ? N + P + 1 : N;
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
       if (i < N) {
-        epilogue_row<true>(i, nullptr, d.w.hpart, d.plan.md.split, a.bd1, a.wd2, a.bd2, a.statics_rows,
-                           a.pose_sum_rows, a.coef, a.sc + (size_t)step * 8, a.z + (size_t)step * N * a.D, a.out,
-                           a.out, a.E, N, a.D, a.K, a.Fd, a.sigmoid_alpha, reinterpret_cast<float*>(smem));
+        epilogue_row(i, d.w.hpart, d.plan.md.split, a.bd1, a.wd2, a.bd2, a.statics_rows, a.pose_sum_rows, a.coef,
+                     a.sc + (size_t)step * 8, a.z + (size_t)step * N * a.D, a.out, a.out, a.E, N, a.D, a.K, a.Fd,
+                     a.sigmoid_alpha, reinterpret_cast<float*>(smem));
         if (next) {
           __syncthreads();  // row i of the carry, written by this block, is visible to all of it
           scan_prologue_row(a, 1 + P + i, step + 1, smem);
@@ -313,12 +234,40 @@ __global__ void __launch_bounds__(SMALL_THREADS, SMALL_MIN_BLOCKS) scan_kernel(c
   }
 }
 
-bool scan_attr_set = false;
+// K4: one step of K3's phases on the same stack with K4's rounding: the
+// token rows rounded to bf16 before the PE (from the input motion m_in) |
+// the L layers in SMALL_ENTRY_GATHER mode (the gathered cross output over
+// every row) | the motion decoder's first product (split-K) | the
+// epilogue rows, written to out.
+__global__ void __launch_bounds__(SMALL_THREADS, SMALL_MIN_BLOCKS) step_kernel(const __grid_constant__ ScanArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SmallArgs& d = a.d;
+  PhaseClock clk{d.stamps, 0};
+  clk.start();
+  for (int j = blockIdx.x; j < d.lq; j += gridDim.x)
+    prologue_row<true>(j, a.m_in, a.prev_rows, a.ind_col, a.wfp, a.bfp, a.persons_pre, a.emb, a.pe, d.x, d.w.xb, a.E,
+                       d.lq, a.P, a.D, d.F, a.use_ind, reinterpret_cast<float*>(smem));
+  clk.sync();
+  small_layers(d, clk, smem, false);
+  small_gemm_phase<SE_PART>(SmallGemm{d.w.xb, d.F, a.tail_rows, a.wd1, nullptr, nullptr, d.w.hpart, 1.0f, 0},
+                            d.plan.md, smem);
+  clk.sync();
+  for (int i = blockIdx.x; i < a.N; i += gridDim.x)
+    epilogue_row(i, d.w.hpart, d.plan.md.split, a.bd1, a.wd2, a.bd2, a.statics_rows, a.pose_sum_rows, a.coef, a.sc,
+                 a.z, a.m_in, a.out, a.E, a.N, a.D, a.K, a.Fd, a.sigmoid_alpha, reinterpret_cast<float*>(smem));
+  if (clk.stamps != nullptr) clk.sync();
+}
+
+bool scan_attr_set = false, step_attr_set = false;
 
 int scan_fit() { return small_grid(scan_kernel, &scan_attr_set); }
+int step_fit() { return small_grid(step_kernel, &step_attr_set); }
 
 SmallPlan scan_plan(const int* d, int grid) {
   return make_small_plan(SMALL_ENTRY, d[D_E], d[D_LQ], d[D_F], d[D_FF], grid, d[D_E] * d[D_N], d[D_FD]);
+}
+SmallPlan step_plan(const int* d, int grid) {
+  return make_small_plan(SMALL_ENTRY_GATHER, d[D_E], d[D_LQ], d[D_F], d[D_FF], grid, d[D_E] * d[D_N], d[D_FD]);
 }
 
 bool scan_shapes_ok(const int* d) {
@@ -328,17 +277,14 @@ bool scan_shapes_ok(const int* d) {
          (size_t)d[D_E] * (d[D_FD] + d[D_D] + d[D_K]) * sizeof(float) <= SMALL_SMEM;
 }
 
-// All T steps of K3 (the carry in p[P_OUT], per-step tables indexed by
-// step, the f32 cross output) in one cooperative launch.
-cudaError_t run_scan(void* const* p, const int* d, cudaStream_t st) {
-  if (!scan_shapes_ok(d)) return cudaErrorInvalidValue;
-  int grid = 0;
-  RETURN_IF_ERROR(small_launch_grid(scan_fit(), d[D_GRID], &grid));
+// The arguments of K3's and K4's kernels from the C entry points' pointer
+// and size lists, on `plan`.
+ScanArgs scan_args(void* const* p, const int* d, const SmallPlan& plan) {
   const int E = d[D_E], lq = d[D_LQ], F = d[D_F], N = d[D_N];
   auto bf = [&](int i) { return static_cast<const bf16*>(p[i]); };
   auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
   ScanArgs a;
-  a.d.plan = scan_plan(d, grid);
+  a.d.plan = plan;
   size_t total = 0;
   a.d.w = carve_small(p[P_WS], a.d.plan, E, lq, F, d[D_FF], 0, true, &total);
   a.d.x = a.d.w.x;
@@ -348,7 +294,7 @@ cudaError_t run_scan(void* const* p, const int* d, cudaStream_t st) {
                          f32(P_LN_BIAS), bf(P_KMEM), bf(P_VMEM), p[P_VMW]};
   a.d.rows = static_cast<const int*>(p[P_ROWS]);
   a.d.self_mask = a.d.cross_mask = nullptr;
-  a.d.cross_f32 = 1;
+  a.d.cross_f32 = plan.mode == SMALL_ENTRY;
   a.d.Be = E;
   a.d.lq = lq;
   a.d.F = F;
@@ -373,6 +319,7 @@ cudaError_t run_scan(void* const* p, const int* d, cudaStream_t st) {
   a.sc = f32(P_SC);
   a.z = f32(P_Z);
   a.out = static_cast<float*>(p[P_OUT]);
+  a.m_in = f32(P_MOTION);
   a.tail_rows = static_cast<const int*>(p[P_TAIL_ROWS]);
   a.E = E;
   a.N = N;
@@ -382,40 +329,46 @@ cudaError_t run_scan(void* const* p, const int* d, cudaStream_t st) {
   a.P = lq - 1 - N;
   a.use_ind = d[D_USE_IND];
   a.sigmoid_alpha = d[D_SIGMOID];
-  RETURN_IF_ERROR(make_small_maps(&a.d.maps, a.d.w, a.d.p, E * lq, F, d[D_FF], d[D_L]));
-  RETURN_IF_ERROR(cudaMemcpyAsync(a.out, p[P_MOTION], (size_t)N * d[D_D] * 4, cudaMemcpyDeviceToDevice, st));
   a.T = d[D_T];
   a.d.stamps = static_cast<unsigned long long*>(p[P_STAMPS]);
+  return a;
+}
+
+// All T steps of K3 (the carry in p[P_OUT], per-step tables indexed by
+// step, the f32 cross output) in one cooperative launch.
+cudaError_t run_scan(void* const* p, const int* d, cudaStream_t st) {
+  if (!scan_shapes_ok(d)) return cudaErrorInvalidValue;
+  int grid = 0;
+  RETURN_IF_ERROR(small_launch_grid(scan_fit(), d[D_GRID], &grid));
+  ScanArgs a = scan_args(p, d, scan_plan(d, grid));
+  RETURN_IF_ERROR(make_small_maps(&a.d.maps, a.d.w, a.d.p, d[D_E] * d[D_LQ], d[D_F], d[D_FF], d[D_L]));
+  RETURN_IF_ERROR(cudaMemcpyAsync(a.out, p[P_MOTION], (size_t)d[D_N] * d[D_D] * 4, cudaMemcpyDeviceToDevice, st));
   void* args[] = {&a};
   RETURN_IF_ERROR(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(scan_kernel), dim3(grid), dim3(SMALL_THREADS),
                                               args, SMALL_SMEM, st));
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int msmd_sampler_n_ptrs() { return N_PTRS; }
-extern "C" int msmd_sampler_n_dims() { return N_DIMS; }
-
-// Bytes of scratch either entry point takes at these sizes (K3's plan on
-// the current device, D_GRID blocks).
-extern "C" size_t msmd_sampler_workspace_bytes(const int* dims) {
-  size_t k4 = 0, k3 = 0;
-  carve_sampler(nullptr, dims, &k4);
+// One step of K4 (T = 1: the tables hold that step's rows) in one
+// cooperative launch: p[P_MOTION] in, p[P_OUT] out.
+cudaError_t run_step(void* const* p, const int* d, cudaStream_t st) {
+  if (!scan_shapes_ok(d) || d[D_T] != 1) return cudaErrorInvalidValue;
   int grid = 0;
-  if (scan_shapes_ok(dims) && small_launch_grid(scan_fit(), dims[D_GRID], &grid) == cudaSuccess)
-    carve_small(nullptr, scan_plan(dims, grid), dims[D_E], dims[D_LQ], dims[D_F], dims[D_FF], 0, true, &k3);
-  return k3 > k4 ? k3 : k4;
+  RETURN_IF_ERROR(small_launch_grid(step_fit(), d[D_GRID], &grid));
+  ScanArgs a = scan_args(p, d, step_plan(d, grid));
+  RETURN_IF_ERROR(make_small_maps(&a.d.maps, a.d.w, a.d.p, d[D_E] * d[D_LQ], d[D_F], d[D_FF], d[D_L]));
+  void* args[] = {&a};
+  RETURN_IF_ERROR(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(step_kernel), dim3(grid), dim3(SMALL_THREADS),
+                                              args, SMALL_SMEM, st));
+  return cudaGetLastError();
 }
 
-// K3's plan on the current device: out = {grid, blocks per SM, dynamic
-// shared memory, phases, then 7 longs a phase (small_phases)}, room for
-// 4 + 7 * (3 + 11 L) longs. Returns 0 or a CUDA error (shapes refused, no
-// cooperative grid).
-extern "C" int msmd_scan_plan(const int* dims, long* out) {
-  if (!scan_shapes_ok(dims)) return cudaErrorInvalidValue;
+// K3's (step 0) or K4's (step 1) plan on the current device, as
+// msmd_scan_plan gives it.
+int sampler_plan(const int* dims, int step, long* out) {
+  if (!scan_shapes_ok(dims) || (step && dims[D_T] != 1)) return cudaErrorInvalidValue;
   int grid = 0;
-  const int fit = scan_fit();
+  const int fit = step ? step_fit() : scan_fit();
   RETURN_IF_ERROR(small_launch_grid(fit, dims[D_GRID], &grid));
   int dev = 0, sms = 0;
   RETURN_IF_ERROR(cudaGetDevice(&dev));
@@ -423,13 +376,40 @@ extern "C" int msmd_scan_plan(const int* dims, long* out) {
   out[0] = grid;
   out[1] = fit / sms;
   out[2] = SMALL_SMEM;
-  out[3] = small_phases(scan_plan(dims, grid), dims[D_E], dims[D_LQ], dims[D_H], dims[D_L], 0, dims[D_E] * dims[D_N],
-                        dims[D_N], out + 4);
+  out[3] = small_phases(step ? step_plan(dims, grid) : scan_plan(dims, grid), dims[D_E], dims[D_LQ], dims[D_H],
+                        dims[D_L], 0, dims[D_E] * dims[D_N], dims[D_N], out + 4);
   return 0;
 }
 
+}  // namespace
+
+extern "C" int msmd_sampler_n_ptrs() { return N_PTRS; }
+extern "C" int msmd_sampler_n_dims() { return N_DIMS; }
+
+// Bytes of scratch either entry point takes at these sizes (its plan on
+// the current device, D_GRID blocks), or 0 for sizes both refuse.
+extern "C" size_t msmd_sampler_workspace_bytes(const int* dims) {
+  size_t k3 = 0, k4 = 0;
+  int grid = 0;
+  if (!scan_shapes_ok(dims)) return 0;
+  if (small_launch_grid(scan_fit(), dims[D_GRID], &grid) == cudaSuccess)
+    carve_small(nullptr, scan_plan(dims, grid), dims[D_E], dims[D_LQ], dims[D_F], dims[D_FF], 0, true, &k3);
+  if (small_launch_grid(step_fit(), dims[D_GRID], &grid) == cudaSuccess)
+    carve_small(nullptr, step_plan(dims, grid), dims[D_E], dims[D_LQ], dims[D_F], dims[D_FF], 0, true, &k4);
+  return k3 > k4 ? k3 : k4;
+}
+
+// K3's plan on the current device: out = {grid, blocks per SM, dynamic
+// shared memory, phases, then 7 longs a phase (small_phases)}, room for
+// 4 + 7 * (3 + 11 L) longs. Returns 0 or a CUDA error (shapes refused, no
+// cooperative grid).
+extern "C" int msmd_scan_plan(const int* dims, long* out) { return sampler_plan(dims, 0, out); }
+
+// K4's plan (dims[D_T] = 1), as msmd_scan_plan's.
+extern "C" int msmd_step_plan(const int* dims, long* out) { return sampler_plan(dims, 1, out); }
+
 // ptrs: the N_PTRS device pointers in `Ptr` order (P_VMW null for K4,
-// P_STAMPS null or room for the card's clock after every phase of K3);
+// P_STAMPS null or room for the card's clock after every phase);
 // dims: the N_DIMS sizes in `Dim` order. Launches on `stream`; returns the
 // first CUDA error or 0.
 extern "C" int msmd_sampler_scan(void* const* ptrs, const int* dims, void* stream) {

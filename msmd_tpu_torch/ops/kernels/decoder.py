@@ -167,7 +167,7 @@ def decoder_layers_plain(pack, kmem, vmem, x, aux, n_heads: int, vmw, cross: str
     and formula choices. x (Be, lq, F) -> (Be, lq, F) float32.
 
     ``cross`` is where the identity-band cross output is rounded, as in
-    ``csrc/decoder_common.cuh::CrossMode``: "bf16" (K1) adds bf16(person
+    ``csrc/decoder_small.cuh::SmallMode``: "bf16" (K1) adds bf16(person
     output @ wco) to a bf16 ``vmw``; "f32" (K3) keeps both in f32; "gather"
     (K4) takes [bf16(person output) | memory V rows] @ wco over all rows
     and reads no ``vmw``.

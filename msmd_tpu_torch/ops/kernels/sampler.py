@@ -9,11 +9,12 @@ PyTorch versions, and the wrappers.
 
 A step builds the token rows, runs the decoder stack, decodes the tail
 rows to motion, mixes the CFG entries and applies
-``m <- A m + B target + sigma z``. K3 runs it as the phases of one
+``m <- A m + B target + sigma z``. Both run it as the phases of one
 cooperative launch of the persistent small-row stack
-(``csrc/decoder_small.cuh``; its plan in ``ops/kernels/small_stack.py``),
-one launch a window; K4 keeps a chain of launches through the decoder's sub-kernels. The two kernels round where their TPU
-kernels round (see ``csrc/sampler.cu``): K3 keeps the prologue rows and
+(``csrc/decoder_small.cuh``; the plans in ``ops/kernels/small_stack.py``):
+K3 one launch a window, K4 one launch a step (mode "entry_gather": its
+gathered rows' cross product over every row). The two kernels round where
+their TPU kernels round (see ``csrc/sampler.cu``): K3 keeps the prologue rows and
 the cross output in f32 and adds the f32 hoisted ``vmw``; K4 rounds the
 person and motion rows to bf16 and projects [bf16(person output) | memory
 V rows] through ``wco`` on every row. At f32 (the plain versions only) the
@@ -33,6 +34,7 @@ of the JAX ``const`` are not read.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -128,8 +130,9 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.msmd_sampler_workspace_bytes.argtypes = [ctypes.c_void_p]
         lib.msmd_sampler_workspace_bytes.restype = ctypes.c_size_t
-        lib.msmd_scan_plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.msmd_scan_plan.restype = ctypes.c_int
+        for fn in (lib.msmd_scan_plan, lib.msmd_step_plan):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.msmd_sampler_n_ptrs.restype = ctypes.c_int
         lib.msmd_sampler_n_dims.restype = ctypes.c_int
         lib._msmd_typed = True
@@ -137,7 +140,7 @@ def _lib():
 
 
 def _dims(lib, E, lq, F, H, L, FF, N, D, K, Fd, use_indicator, sigmoid_alpha, T, grid_blocks=0):
-    # grid_blocks: K3's cooperative grid (0: every block the card holds at
+    # grid_blocks: the cooperative grid (0: every block the card holds at
     # once; more is refused)
     dims = [E, lq, F, H, L, FF, N, D, K, Fd, int(use_indicator), int(sigmoid_alpha), T, grid_blocks]
     if len(dims) != lib.msmd_sampler_n_dims():
@@ -146,23 +149,25 @@ def _dims(lib, E, lq, F, H, L, FF, N, D, K, Fd, use_indicator, sigmoid_alpha, T,
 
 
 def scan_plan(lq: int, F: int, H: int, L: int, FF: int, n_cur: int, d_motion: int, num_basis: int, Fd: int,
-              use_indicator: bool = True, n_entries: int = 2) -> dict:
-    """K3's plan on the current card (``msmd_scan_plan``) as
-    ``small_stack.c_plan_rows`` gives it: grid, blocks per SM, shared
-    memory and the (kind, items, M, N, K, bm, split) of each phase of a
-    step."""
+              use_indicator: bool = True, n_entries: int = 2, step: bool = False) -> dict:
+    """K3's plan (``step``: K4's) on the current card (``msmd_scan_plan``,
+    ``msmd_step_plan``) as ``small_stack.c_plan_rows`` gives it: grid,
+    blocks per SM, shared memory and the (kind, items, M, N, K, bm, split)
+    of each phase of a step."""
     from msmd_tpu_torch.ops.kernels.small_stack import c_plan_rows
 
     lib = _lib()
     c_dims = _dims(lib, n_entries, lq, F, H, L, FF, n_cur, d_motion, num_basis, Fd, use_indicator, False, 1)
     out = (ctypes.c_long * (4 + 7 * (3 + 11 * L)))()
-    _build.check(lib, lib.msmd_scan_plan(c_dims, out), "msmd_scan_plan")
+    entry = lib.msmd_step_plan if step else lib.msmd_scan_plan
+    _build.check(lib, entry(c_dims, out), "msmd_step_plan" if step else "msmd_scan_plan")
     return c_plan_rows(out)
 
 
 def scan_stamps(T: int, L: int) -> int:
-    """The card-clock stamps K3 writes for a T-step window: one at the
-    launch's start, one after its token rows and 11 L + 2 per step."""
+    """The card-clock stamps K3 writes for a T-step window (K4 for its one
+    step, T = 1): one at the launch's start, one after its token rows and
+    11 L + 2 per step."""
     return 2 + T * (11 * L + 2)
 
 
@@ -215,21 +220,30 @@ def _check_inputs(what, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_
         raise ValueError(f"{what}: needs at least one step")
 
 
+@functools.lru_cache(maxsize=32)
+def _index_tables(dev: torch.device, E: int, lq: int, N: int, coefficients: tuple):
+    """The CFG coefficients (E,) f32, the person rows e*lq and the tail rows
+    e*lq + 1 + P + i (int32) on ``dev``, made once per shape: a tensor made
+    from host data is a copy that waits for the card, which K4's wrapper
+    would otherwise pay at every step."""
+    coef = torch.tensor(coefficients, dtype=torch.float32, device=dev)
+    rows = (torch.arange(E, dtype=torch.int32, device=dev) * lq).contiguous()
+    tail = (rows[:, None] + lq - N + torch.arange(N, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+    return coef, rows, tail
+
+
 def _launch(entry, pack, kmem, vmem, motion, emb, sc, z, const, n_heads, n_entries, n_cur, d_motion,
             num_basis, use_indicator, sigmoid_alpha, coefficients, T, stamps=None, _grid_blocks=0):
     E, N = n_entries, n_cur
     dev = motion.device
     lib = _lib()
     lq = const["pe_flat"].shape[0] // E
-    P = lq - 1 - N
     c_dims = _dims(lib, E, lq, pack["wso"].shape[-1], n_heads, pack["wqkv"].shape[0], pack["wf1"].shape[-1], N,
                    d_motion, num_basis, const["wd1"].shape[-1], use_indicator, sigmoid_alpha, T, _grid_blocks)
     ws_bytes = lib.msmd_sampler_workspace_bytes(c_dims)
     out = torch.empty_like(motion)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
-    coef = torch.tensor([float(c) for c in coefficients], dtype=torch.float32, device=dev)
-    rows = (torch.arange(E, dtype=torch.int32, device=dev) * lq).contiguous()
-    tail = (rows[:, None] + 1 + P + torch.arange(N, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+    coef, rows, tail = _index_tables(dev, E, lq, N, tuple(float(c) for c in coefficients))
     vmw = const["vmw"] if entry == "msmd_sampler_scan" else None
     tensors = ([pack[k] for k in _PACK_KEYS] + [kmem, vmem, vmw] + [const[k] for k in _CONST_KEYS]
                + [coef, emb, sc, z, motion, out, ws, rows, tail, stamps])
@@ -253,6 +267,20 @@ def sampler_scan_stamps(pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, c
     stamps = torch.zeros(scan_stamps(T, L), dtype=torch.int64, device=motion_T.device)
     _launch("msmd_sampler_scan", pack, kmem, vmem, motion_T, emb_scan, sc_scan, z_scan, const, n_heads, n_entries,
             n_cur, d_motion, num_basis, use_indicator, sigmoid_alpha, coefficients, T, stamps=stamps)
+    return stamps
+
+
+def sampler_step_stamps(pack, kmem, vmem, motion_t, emb_row, sc, z, const, n_heads, n_entries, n_cur, d_motion,
+                        num_basis, use_indicator, sigmoid_alpha, coefficients) -> torch.Tensor:
+    """One K4 step with the card's clock recorded as ``sampler_scan_stamps``
+    records K3's (``scan_stamps(1, L)`` stamps). Not counted as a launch of
+    the main path."""
+    L = pack["wqkv"].shape[0]
+    _check_inputs("fused_sampler_step", pack, kmem, vmem, motion_t, emb_row, sc, z, const, n_heads, n_entries,
+                  n_cur, d_motion, num_basis, use_indicator, coefficients, 1)
+    stamps = torch.zeros(scan_stamps(1, L), dtype=torch.int64, device=motion_t.device)
+    _launch("msmd_sampler_step", pack, kmem, vmem, motion_t, emb_row, sc, z, const, n_heads, n_entries, n_cur,
+            d_motion, num_basis, use_indicator, sigmoid_alpha, coefficients, 1, stamps=stamps)
     return stamps
 
 
@@ -284,8 +312,10 @@ def fused_sampler_step(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, motio
                        n_entries: int, n_cur: int, d_motion: int, num_basis: int, use_indicator: bool,
                        sigmoid_alpha: bool, coefficients: Sequence[float]) -> torch.Tensor:
     """One DDPM step at batch 1. motion_t (N, D) f32 -> (N, D) f32. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    tensor takes the plain version; a CUDA tensor launches the kernel (bf16
+    pack, head dim 64; one cooperative launch for the step) or raises, also
+    where the card cannot hold the cooperative grid: there is no
+    fallback."""
     args = (pack, kmem, vmem, motion_t, emb_row, sc, z, const, n_heads, n_entries, n_cur, d_motion, num_basis,
             use_indicator, sigmoid_alpha, coefficients)
     if motion_t.device.type == "cpu":

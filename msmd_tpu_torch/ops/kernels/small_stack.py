@@ -1,18 +1,20 @@
 """The launch plan of the persistent small-row decoder stack
 (``csrc/decoder_small.cuh``) that K3 (``csrc/sampler.cu``, the batch-1
-window) and K1's flat-mask mode (``csrc/decoder.cu``) run as one
-cooperative launch a step: its phases, the work items of each, the tile and
-split-K of each product, the grid and the shared memory. Pure Python; it
-mirrors the C functions ``make_small_plan`` and ``small_phases``, which the
-libraries export as ``msmd_scan_plan`` and ``msmd_flat_plan`` (the card
-tests hold the two equal). The flat mode runs the stack only below the
+window), K4 (the same file, one step with K4's rounding) and K1's
+flat-mask mode (``csrc/decoder.cu``) run as one cooperative launch: its
+phases, the work items of each, the tile and split-K of each product, the
+grid and the shared memory. Pure Python; it mirrors the C functions
+``make_small_plan`` and ``small_phases``, which the libraries export as
+``msmd_scan_plan``, ``msmd_step_plan`` and ``msmd_flat_plan`` (the card
+tests hold them equal). The flat mode runs the stack only below the
 Hopper GEMM's rows (``flat_uses_chain``); from there on it is a chain of
 launches on that GEMM, which has no such plan.
 
 A product M x N x K is cut into ``bm`` x 64 tiles (``bm`` 64, or 32 for
 the person rows' products of at most 32 rows) and, where its
 consumer sums partials (the N = F products: self-out, the cross q and out
-projections, FFN2, and K3's motion decoder), into ``split`` slices of K:
+projections, FFN2, and K3's and K4's motion decoder), into ``split``
+slices of K:
 the split doubles while the items still fit in one round of the grid and
 K / 64 divides by it. Item i is slice ``i % split`` of tile ``i // split``,
 the tile at row block ``t // (N // 64)`` and column block ``t % (N //
@@ -36,7 +38,9 @@ SMALL_THREADS = 256
 SMALL_PER_SM = 1  # the kernels' launch bound: one block an SM
 C_LD = 20
 
-MODES = ("entry", "flat_band", "flat_full")  # K3's per-entry band; K1 flat: identity band, full cross
+# K3's per-entry band (f32 cross output); K1 flat: identity band, full
+# cross; K4's per-entry band with the gathered cross output over every row
+MODES = ("entry", "flat_band", "flat_full", "entry_gather")
 KINDS = ("gemm", "self_attention", "masked_attention", "person_heads", "layernorm", "rows")
 
 
@@ -58,6 +62,8 @@ _LAYER_NAMES = {
                   "ffn1", "ffn2", "ln3"),
     "flat_full": ("qkv", "self_attention", "self_out", "ln1", "cross_q", "cross_attention", "cross_out",
                   "cross_ln", "ffn1", "ffn2", "ln3"),
+    "entry_gather": ("qkv", "self_attention", "self_out", "ln1", "person_q", "person_attention", "wco",
+                     "cross_ln", "ffn1", "ffn2", "ln3"),
 }
 PHASES_PER_LAYER = 11
 
@@ -113,11 +119,11 @@ def check_shapes(Be: int, lq: int, F: int, FF: int, H: int, mode: str, tile: int
     if Be < 1:
         raise ValueError(f"small_stack_plan: needs at least one entry, got {Be}")
     tile = tile or Be
-    if mode != "entry" and Be % tile:
+    if mode.startswith("flat") and Be % tile:
         raise ValueError(f"small_stack_plan: tile {tile} does not divide {Be} entries")
-    if mode != "entry" and tile * lq > MAX_LM * MA_BQ:
+    if mode.startswith("flat") and tile * lq > MAX_LM * MA_BQ:
         raise ValueError(f"small_stack_plan: a tile of {tile} x {lq} rows exceeds {MAX_LM * MA_BQ}")
-    if mode != "entry" and flat_uses_chain(Be, lq, F, FF):
+    if mode.startswith("flat") and flat_uses_chain(Be, lq, F, FF):
         raise ValueError(f"small_stack_plan: at {Be * lq} rows the flat mode runs its chain on the Hopper GEMM")
     return tile
 
@@ -131,29 +137,32 @@ def small_stack_plan(Be: int, lq: int, F: int, FF: int, H: int, mode: str, sms: 
     ``name``, ``layer`` (None outside the layers), ``kind`` (``KINDS``),
     ``items`` and, for a product, its plan. Mode "entry" with ``n_cur`` > 0
     is K3's step (its token rows before the layers, the motion decoder of
-    the E * n_cur tail rows (width ``Fd``) and the epilogue rows after);
-    the flat modes start with the copy of x in. Every phase ends at a
-    grid-wide barrier; the step is one launch."""
+    the E * n_cur tail rows (width ``Fd``) and the epilogue rows after),
+    "entry_gather" K4's (the same, its cross output's product ``co`` over
+    every row); the flat modes start with the copy of x in. Every phase
+    ends at a grid-wide barrier; the step is one launch."""
     tile = check_shapes(Be, lq, F, FF, H, mode, tile)
-    if mode == "entry" and n_cur > 0 and (Fd % SB_BN or Fd < 1 or n_cur > lq - 1):
+    entry = mode.startswith("entry")
+    if entry and n_cur > 0 and (Fd % SB_BN or Fd < 1 or n_cur > lq - 1):
         raise ValueError(f"small_stack_plan: motion decoder width {Fd} must be a multiple of {SB_BN}, "
                          f"and n_cur {n_cur} <= lq - 1")
     grid = grid or per_sm * sms
     R, nt = Be * lq, -(-lq // 16)
     Mc = R if mode == "flat_full" else Be
     products = {"qkv": plan_gemm(R, 3 * F, F, grid, False), "self_out": plan_gemm(R, F, F, grid, True),
-                "cq": plan_gemm(Mc, F, F, grid, True), "co": plan_gemm(Mc, F, F, grid, True),
+                "cq": plan_gemm(Mc, F, F, grid, True),
+                "co": plan_gemm(R if mode == "entry_gather" else Mc, F, F, grid, True),
                 "ffn1": plan_gemm(R, FF, F, grid, False), "ffn2": plan_gemm(R, F, FF, grid, True)}
     for name in ("self_out", "cq", "co", "ffn2"):
         products[name]["split_ok"] = True
-    k3 = mode == "entry" and n_cur > 0
-    if k3:
+    step = entry and n_cur > 0  # K3's or K4's sampler step
+    if step:
         products["md"] = dict(plan_gemm(Be * n_cur, Fd, F, grid, True), split_ok=True)
     n_tiles, Rt = Be // tile, tile * lq
     masked = lambda rq: n_tiles * H * -(-rq // MA_BQ)
     layer_kinds = {
         "qkv": ("gemm", products["qkv"]),
-        "self_attention": ("self_attention", Be * H * nt) if mode == "entry" else ("masked_attention", masked(Rt)),
+        "self_attention": ("self_attention", Be * H * nt) if entry else ("masked_attention", masked(Rt)),
         "self_out": ("gemm", products["self_out"]), "ln1": ("layernorm", R),
         "person_q": ("gemm", products["cq"]), "cross_q": ("gemm", products["cq"]),
         "person_attention": ("person_heads", Be * H),
@@ -167,12 +176,12 @@ def small_stack_plan(Be: int, lq: int, F: int, FF: int, H: int, mode: str, sms: 
             return {"name": name, "layer": layer, "kind": kind, "items": len(gemm_items(what)), "gemm": what}
         return {"name": name, "layer": layer, "kind": kind, "items": what, "gemm": None}
 
-    phases = [phase("prologue" if k3 else "load", None, "rows", lq if k3 else R)]
+    phases = [phase("prologue" if step else "load", None, "rows", lq if step else R)]
     for l in range(L):
         for name in _LAYER_NAMES[mode]:
             kind, what = layer_kinds[name]
             phases.append(phase(name, l, kind, what))
-    if k3:
+    if step:
         phases.append(phase("motion_decoder", None, "gemm", products["md"]))
         phases.append(phase("epilogue", None, "rows", n_cur))
     return {"mode": mode, "grid": grid, "per_sm": per_sm, "smem": SMALL_SMEM, "products": products,

@@ -3,8 +3,10 @@ stack, for one window of the batch-48 main path, one window at batch 1,
 one guided batch-48 window and one train step.
 
     python -m msmd_tpu_torch.profile             # every phase
-    python -m msmd_tpu_torch.profile --kernels   # decoder, sampler, decoder_flat, small_rows_resident
+    python -m msmd_tpu_torch.profile --kernels   # decoder, sampler, decoder_flat
     python -m msmd_tpu_torch.profile --flat-rows # flat_rows only
+    python -m msmd_tpu_torch.profile --resident  # resident only
+    python -m msmd_tpu_torch.profile --compare   # compare only (also from an older checkout)
 
 Prints JSON lines:
 
@@ -27,9 +29,9 @@ Prints JSON lines:
   cooperative grid records after every grid barrier in that launch (a
   phase's time is its slowest block's plus the barrier), summed over the 8
   layers and averaged over the steps (the window's first token rows, the
-  ``prologue``, divided by the steps too); beside it K4's chain of
-  launches (one step at K4's rounding, 5 calls), device time by part in
-  launch order.
+  ``prologue``, divided by the steps too); beside it K4 (one step on the
+  same stack, one launch a step; 5 calls): its device time a step and
+  the same per-phase split.
 - ``decoder_flat``: K1's flat-mask mode in its two cross forms (identity
   band at Be = 4, full cross at Be = 2), device time per call and the
   same per-phase split from the card's clock, over 5 calls.
@@ -38,8 +40,15 @@ Prints JSON lines:
   (ms from CUDA events, and the relative error to the plain version):
   where the small stack and the Hopper-GEMM chain cross over. It calls
   only the wrapper, so it also times an older checkout of the package.
-- ``small_rows_resident``: K2 (``csrc/decoder_resident.cu``) beside K1
-  per-entry at Be = 2 and 4, lq = 111 (CUDA events).
+- ``resident`` (``--resident``, alone): K2 at the 48-slot shapes (Be =
+  96, lq = 111) split by phase from the card's clock (block 0 stamps
+  after every grid barrier of its one launch), beside K1's device time by
+  part in the same call, K2's registers and local memory a thread, and K2
+  beside K1 at Be = 6 and 8.
+- ``compare`` (``--compare``, alone): K1, K2, K4 and K3 at their flagship
+  shapes and the walls of a 48-slot batcher round through K1 and through
+  K2 and of a ``ret_traj`` batch-1 window, through public entry points
+  only, so that a copy of this file times an older checkout too.
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
@@ -84,17 +93,22 @@ import time
 import torch
 
 _DECODER_KERNELS = ("gemm_sm90_kernel", "gemm_kernel", "self_attn_kernel", "person_attn_kernel", "ln_kernel",
+                    "ln_person_kernel",
                     "cast_kernel", "flat_kernel")
-# K3 is one cooperative kernel; K4 launches the decoder's sub-kernels and
-# these; at batch 1 K1 does not run
-_SAMPLER_KERNELS = _DECODER_KERNELS + ("scan_kernel", "prologue_kernel", "epilogue_kernel", "cross_rows_kernel")
+# K3 (a window) and K4 (a step) are one cooperative kernel each; at batch
+# 1 K1 does not run
+_SAMPLER_KERNELS = _DECODER_KERNELS + ("scan_kernel", "step_kernel")
 # K1's parts at the batch-48 shapes: the Hopper GEMM by epilogue (EPI_BF16
-# is QKV, EPI_GELU FFN1, EPI_RESID_LN self-out and FFN2 with their
-# LayerNorms), the wmma tile (the person rows' two products), the rest
+# is QKV, EPI_GELU FFN1, EPI_RESID_LN_CROSS self-out with LN1 and the
+# motion rows' cross LayerNorm, EPI_RESID_LN FFN2 with LN3), the wmma
+# tile (the person rows' two products), the person rows' attention and
+# cross LayerNorm, the rest
 _K1_PARTS = (("gemm_sm90_kernel<0>", "qkv"), ("gemm_sm90_kernel<2>", "ffn1"),
-             ("gemm_sm90_kernel<6>", "self_out_ffn2_layernorm"), ("gemm_kernel", "person_row_products_wmma"),
+             ("gemm_sm90_kernel<7>", "self_out_ln1_motion_cross_layernorm"),
+             ("gemm_sm90_kernel<6>", "ffn2_layernorm"), ("gemm_kernel", "person_row_products_wmma"),
              ("self_attn_kernel", "self_attention"), ("person_attn_kernel", "person_attention"),
-             ("ln_kernel", "cross_layernorm"), ("cast_kernel", "cast"))
+             ("ln_person_kernel", "person_cross_layernorm"), ("ln_kernel", "cross_layernorm"),
+             ("cast_kernel", "cast"))
 
 
 def _k1_part(key: str) -> str:
@@ -111,9 +125,9 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln|cast|lbs|prologue|"
-                  r"epilogue|cross_rows|colsum_partial|colsum_final|attn_mid|masked_attn|chain_masked|chain_load|"
-                  r"resident|scan|flat)_kernel"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln_person|ln|cast|lbs|"
+                  r"colsum_partial|colsum_final|attn_mid|masked_attn|chain_masked|chain_load|"
+                  r"resident|scan|step|flat)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
     if not m:
         return name[:80]
@@ -133,55 +147,6 @@ def _device_ms_by_kernel(prof) -> dict:
         key = _short(evt.key)
         out[key] = out.get(key, 0.0) + evt.self_device_time_total / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
-
-
-def _kernel_sequence(prof, family) -> list:
-    """(short name, device ms) of every launch of a kernel of ``family``
-    in the order the card ran them."""
-    from torch.autograd import DeviceType
-
-    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA and _short(e.name).split("<")[0] in family]
-    evts.sort(key=lambda e: e.time_range.start)
-    return [(_short(e.name), e.time_range.elapsed_us() / 1e3) for e in evts]
-
-
-def _by_part(seq, head, layer, tail, layers) -> dict:
-    """ms per call by part of a launch chain whose calls are each ``head``
-    + ``layers`` x ``layer`` + ``tail`` launches [(part, kernel name
-    prefix)], labelled by position within a call. A call starts at each
-    launch of ``head``'s first kernel; a call of another length (the
-    profiler can drop the first event of a window) is left out, and
-    ``matches`` is False when a launch's kernel is not the one its
-    position names."""
-    chain = head + layer * layers + tail
-    starts = [i for i, (name, _) in enumerate(seq) if name.startswith(head[0][1])] + [len(seq)]
-    calls = [seq[a:b] for a, b in zip(starts, starts[1:]) if b - a == len(chain)]
-    out, matches = {}, bool(calls)
-    for call in calls:
-        for (name, ms), (part, prefix) in zip(call, chain):
-            matches = matches and name.startswith(prefix)
-            out[part] = out.get(part, 0.0) + ms / len(calls)
-    return {"ms_per_call_by_part": out, "launches_per_call": len(chain), "calls_counted": len(calls),
-            "sequence_matches": matches}
-
-
-def _profile(fn):
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return prof
-
-
-# K4's launch chain (one step at K4's rounding, CROSS_GATHER: the chain K3
-# and K1's flat mode ran before they became one cooperative launch) by
-# part, in launch order
-_K4_LAYER = (("qkv", "gemm_kernel<0, 128"), ("self_attention", "self_attn_kernel"),
-             ("self_out", "gemm_kernel<1, 64"), ("ln1", "ln_kernel"), ("person_q", "gemm_kernel<0, 64"),
-             ("person_attention", "person_attn_kernel"), ("cross_rows", "cross_rows_kernel"),
-             ("wco", "gemm_kernel<1, 64"), ("cross_ln", "ln_kernel"), ("ffn1", "gemm_kernel<2, 128"),
-             ("ffn2", "gemm_kernel<1, 64"), ("ln3", "ln_kernel"))
 
 
 def _phase_split(stamps, names, launches: int) -> dict:
@@ -269,6 +234,128 @@ def _gemm_ws_split(dev) -> dict:
     return out
 
 
+def resident_split(dev, calls: int = 5) -> None:
+    """K2 (``csrc/decoder_resident.cu``) at the 48-slot shapes (Be = 96,
+    lq = 111), split by phase from the card's clock (block 0 stamps after
+    every grid barrier; summed over the layers, averaged over ``calls``
+    calls), beside K1 per-entry's device time by part in the same call
+    (``torch.profiler``), the kernel's registers and local memory, and K2
+    beside K1 at Be = 6 and 8 (below the Hopper GEMM's rows; CUDA events);
+    K2 and K1 with the L2 flushed before each call."""
+    from msmd_tpu_torch.measure import cuda_ms, cuda_ms_flushed, decoder_case
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+
+    with torch.no_grad():
+        args = decoder_case(dev)
+        Be, lq, F = args[3].shape
+        L, FF = args[0]["wqkv"].shape[0], args[0]["wf1"].shape[-1]
+        kdr.fused_decoder_forward_resident(*args)
+        kd.fused_decoder_forward(*args)
+        k2_device = profile_device_ms(lambda: [kdr.fused_decoder_forward_resident(*args) for _ in range(calls)])
+        k1_device = profile_device_ms(lambda: [kd.fused_decoder_forward(*args) for _ in range(calls)])
+        stamps = torch.stack([kdr.resident_stamps(*args) for _ in range(calls)]).reshape(-1).cpu()
+        k2, k1 = kdr.fused_decoder_forward_resident(*args), kd.fused_decoder_forward(*args)
+        bit_equal = bool(torch.equal(k2, k1))
+        k2_ms = cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20)
+        k1_ms = cuda_ms(lambda: kd.fused_decoder_forward(*args), 20)
+        flushed = {"k2_ms_l2_flushed": cuda_ms_flushed(lambda: kdr.fused_decoder_forward_resident(*args), 10),
+                   "k1_ms_l2_flushed": cuda_ms_flushed(lambda: kd.fused_decoder_forward(*args), 10)}
+        del args, k2, k1
+    by_part = {}
+    for k, v in k1_device.items():
+        by_part[_k1_part(k)] = by_part.get(_k1_part(k), 0.0) + v / calls
+    split = _phase_split(stamps, kdr.resident_phases(Be, lq, F, FF, L), calls)
+    small = {}
+    for n in (6, 8):
+        with torch.no_grad():
+            args = decoder_case(dev, Be=n)
+            small[f"be{n}"] = {"k2_ms": cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 50, 5),
+                               "k1_ms": cuda_ms(lambda: kd.fused_decoder_forward(*args), 50, 5),
+                               "bit_equal_k1": bool(torch.equal(kdr.fused_decoder_forward_resident(*args),
+                                                                kd.fused_decoder_forward(*args)))}
+            del args
+    print(json.dumps({"phase": "resident", "entries": int(Be), "lq": int(lq), "calls": calls,
+                      "grid_blocks": kdr.resident_grid(), **kdr.resident_attributes(),
+                      "k2_ms": k2_ms, "k1_ms": k1_ms, "bit_equal_k1": bit_equal, **flushed,
+                      "k2_device_ms_per_call": sum(k2_device.values()) / calls,
+                      "k2_us_per_call_by_phase": split, "k2_us_per_call_stamped": sum(split.values()),
+                      "k1_device_ms_per_call": sum(k1_device.values()) / calls, "k1_ms_per_call_by_part": by_part,
+                      "small_rows": small}), flush=True)
+
+
+def compare(dev) -> None:
+    """K1, K2 (Be = 96), K4 (a step) and K3 (a 500-step window) at their
+    flagship shapes, and the paths that run K1, K2 and K4: one 4 s window
+    at batch 48 (``generate``: HuBERT, 500 steps through K1 with the
+    dynamic threshold, FLAME decode), one 48-slot ``StreamingBatcher``
+    round through K1 and with ``resident=True`` (48 streams of 4 s, the
+    motion fetched), and one batch-1 ``sample(..., ret_traj=True)`` window
+    (500 K4 calls). Kernel ms from
+    CUDA events, path walls from the host clock after a warm-up run. It
+    calls only the package's public entry points, so the same function
+    times an older checkout of the package: copy this file into it and run
+    it from that checkout's root."""
+    from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, cuda_ms, cuda_ms_flushed,
+                                        decoder_case, generate, sampler_case, seeded_audio)
+    from msmd_tpu_torch.models.diffusion import sample
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+    from msmd_tpu_torch.serving import StreamingBatcher
+
+    out = {}
+    with torch.no_grad():
+        args = decoder_case(dev)
+        out["k1_ms"] = cuda_ms(lambda: kd.fused_decoder_forward(*args), 20)
+        out["k2_ms"] = cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 20)
+        out["k1_ms_l2_flushed"] = cuda_ms_flushed(lambda: kd.fused_decoder_forward(*args), 10)
+        out["k2_ms_l2_flushed"] = cuda_ms_flushed(lambda: kdr.fused_decoder_forward_resident(*args), 10)
+        del args
+        scan, step, kw = sampler_case(dev)
+        out["k4_ms"] = cuda_ms(lambda: ks.fused_sampler_step(*step, **kw), 50, 5)
+        out["k3_ms"] = cuda_ms(lambda: ks.fused_sampler_scan(*scan, **kw), 3, 1)
+        del scan, step
+
+    model, style, fused = build_main_path(dev)
+    cfg = model.cfg
+    window_s = cfg.n_motions / cfg.fps
+    streams = [(f"s{i}", SEED + 300 + i, seeded_audio(window_s, SEED + 300 + i)) for i in range(BATCH)]
+    style_np = style.reshape(-1).cpu().numpy()
+
+    def serve_round(resident):
+        bat = StreamingBatcher(model, max_slots=BATCH, cfg_scale=CFG_SCALE, resident=resident, device=dev)
+        for sid, seed, audio in streams:
+            bat.add_stream(sid, seed, style=style_np)
+            bat.push_audio(sid, audio, final=True)
+        bat.run_until_drained()
+
+    def wall(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    audio = seeded_audio(window_s, SEED + 6)
+    w = wall(lambda: generate(model, style, fused, audio, BATCH, gen, dev))
+    out["batch48_window"] = {"wall_s": w, "real_time_factor": BATCH * window_s / w}
+    for resident in (False, True):
+        w = wall(lambda: serve_round(resident))
+        out["round_k2" if resident else "round_k1"] = {"wall_s": w, "audio_s_per_s": BATCH * window_s / w}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    with torch.no_grad():
+        feat = model.extract_audio_feature(torch.as_tensor(seeded_audio(window_s, SEED + 9), device=dev)[None])
+        m_T = torch.randn(1, cfg.n_motions, cfg.motion_feat_dim, generator=gen, device=dev)
+        noise = torch.randn(cfg.n_diff_steps, 1, cfg.n_motions, cfg.motion_feat_dim, generator=gen, device=dev)
+        shape = torch.zeros(1, 100, device=dev)
+        out["ret_traj_window_wall_s"] = wall(lambda: sample(model, feat, shape, style, ret_traj=True, motion_at_T=m_T,
+                                                            noise_override=noise, cfg_scale=CFG_SCALE, device=dev))
+    print(json.dumps({"phase": "compare", **out}), flush=True)
+
+
 FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
 
 
@@ -304,6 +391,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if "--flat-rows" in argv:
         flat_rows(torch.device("cuda", 0))
+        return 0
+    if "--resident" in argv:
+        resident_split(torch.device("cuda", 0))
+        return 0
+    if "--compare" in argv:
+        compare(torch.device("cuda", 0))
         return 0
     from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, decoder_flat_case,
                                         generate, sampler_case, seeded_audio)
@@ -344,13 +437,20 @@ def main(argv=None) -> int:
         names = [p["name"] for p in plan["phases"]]
         split = {k: v / steps for k, v in _phase_split(stamps, names[:1] + names[1:] * steps, 1).items()}
         ks.fused_sampler_step(*step, **kw)
-        prof = _profile(lambda: [ks.fused_sampler_step(*step, **kw) for _ in range(5)])
-        k4 = _by_part(_kernel_sequence(prof, _SAMPLER_KERNELS), (("prologue", "prologue_kernel"),), _K4_LAYER,
-                      (("motion_decoder", "gemm_kernel<2"), ("epilogue", "epilogue_kernel")), L)
+        k4_calls = 5
+        k4_device = profile_device_ms(lambda: [ks.fused_sampler_step(*step, **kw) for _ in range(k4_calls)])
+        k4_stamps = torch.stack([ks.sampler_step_stamps(*step, **kw) for _ in range(k4_calls)]).reshape(-1).cpu()
+        k4_plan = small_stack_plan(kw["n_entries"], lq, F, FF, kw["n_heads"], "entry_gather", L=L,
+                                   n_cur=kw["n_cur"], Fd=scan[7]["wd1"].shape[-1])
+        k4_split = _phase_split(k4_stamps, [p["name"] for p in k4_plan["phases"]], k4_calls)
+        k4 = {"ms_per_step": {k: v / k4_calls for k, v in k4_device.items()},
+              "total_ms_per_step": sum(k4_device.values()) / k4_calls,
+              "phases_per_step": k4_plan["phases_per_step"], "us_per_step_by_phase": k4_split,
+              "us_per_step_stamped": sum(k4_split.values())}
     print(json.dumps({"phase": "sampler", "steps": steps, "launches_per_window": 1,
                       "ms_per_step": per_step, "total_ms_per_step": sum(per_step.values()),
                       "phases_per_step": plan["phases_per_step"], "us_per_step_by_phase": split,
-                      "us_per_step_stamped": sum(split.values()), "k4_chain": k4}), flush=True)
+                      "us_per_step_stamped": sum(split.values()), "k4": k4}), flush=True)
     del scan, step
 
     flat_calls = 5
@@ -371,21 +471,6 @@ def main(argv=None) -> int:
                           "us_per_call_stamped": sum(split.values())}), flush=True)
         del args
 
-    # K2's cooperative schedule beside K1 at the small-row shapes (per-entry mode)
-    from msmd_tpu_torch.measure import cuda_ms
-    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
-
-    for Be in (2, 4):
-        with torch.no_grad():
-            args = decoder_case(dev, Be=Be)
-            got, k1 = kdr.fused_decoder_forward_resident(*args), kd.fused_decoder_forward(*args)
-            print(json.dumps({"phase": "small_rows_resident", "entries": Be, "lq": int(args[3].shape[1]),
-                              "k2_ms": cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 50, 5),
-                              "k1_ms": cuda_ms(lambda: kd.fused_decoder_forward(*args), 50, 5),
-                              "k2_ms_again": cuda_ms(lambda: kdr.fused_decoder_forward_resident(*args), 50, 5),
-                              "k2_grid": kdr.resident_grid(int(args[3].shape[1]), args[5]),
-                              "bit_equal_k1": bool(torch.equal(got, k1))}), flush=True)
-            del args, got, k1
     if only_kernels:
         return 0
 

@@ -208,7 +208,7 @@ def test_gemm_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Be,lq", [(6, 37), (16, 111), (96, 111)])
+@pytest.mark.parametrize("Be,lq", [(6, 37), (6, 111), (16, 111), (96, 111)])
 def test_resident_kernel_matches_plain_and_k1(Be, lq):
     """K2 against its plain version, and bit for bit against K1's kernel:
     the same device functions in the same order."""
@@ -226,9 +226,25 @@ def test_resident_kernel_matches_plain_and_k1(Be, lq):
     assert kdr.fused_decoder_forward_resident.launches == before + 1
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     print(f"K2 Be={Be} lq={lq} rel_err={_rel(got, want):.3e} max|K2-K1|={float((got - k1).abs().max()):.3e} "
-          f"grid={kdr.resident_grid(lq, args[5])}")
+          f"grid={kdr.resident_grid()}")
     assert _rel(got, want) <= 2e-2
     assert torch.equal(got, k1)
+
+
+@pytest.mark.cuda
+def test_resident_stamps_follow_its_phases():
+    """K2's card-clock stamps: one at the start and one after each phase
+    ``resident_phases`` names, in order, at the Hopper-GEMM rows (9 phases
+    a layer) and below them (11)."""
+    from msmd_tpu_torch.measure import decoder_case
+    from msmd_tpu_torch.ops.kernels import decoder_resident as kdr
+
+    for Be, per_layer in ((96, 9), (6, 11)):
+        args = decoder_case(_card(), Be=Be, L=2, seed=14)
+        stamps = kdr.resident_stamps(*args).cpu()
+        names = kdr.resident_phases(Be, 111, 512, 2048, 2)
+        assert len(names) == 1 + 2 * per_layer and stamps.numel() == 1 + len(names)
+        assert bool((stamps[1:] >= stamps[:-1]).all()) and int(stamps[0]) > 0
 
 
 @pytest.mark.cuda
@@ -269,6 +285,32 @@ def test_sampler_kernels_match_plain(P, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", ["1", "T"])
+def test_step_kernel_matches_plain_and_repeats_bit_for_bit(t):
+    """K4, one cooperative launch of the small-row stack a step, at the
+    flagship shapes (2 layers) at t = 1 (x_0 = target) and at t = T (the
+    first step of a window): within 2e-2 of its plain twin, one launch
+    counted, and two calls bit-equal."""
+    from msmd_tpu_torch.measure import sampler_case
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    scan, step, kw = sampler_case(_card(), L=2, T=6, seed=5)
+    if t == "T":
+        pack, kmem, vmem, motion, emb, sc, z, const = scan
+        step = (pack, kmem, vmem, motion, emb[0], sc[0], z[0], step[7])
+    before = ks.fused_sampler_step.launches
+    with torch.no_grad():
+        got, again = ks.fused_sampler_step(*step, **kw), ks.fused_sampler_step(*step, **kw)
+        want = ks.fused_sampler_step_plain(*step, **kw)
+    torch.cuda.synchronize()
+    assert ks.fused_sampler_step.launches == before + 2
+    print(f"K4 t={t} rel_err={_rel(got, want):.3e}")
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_sampler_wrappers_refuse_what_the_kernels_do_not_take():
     from msmd_tpu_torch.measure import sampler_case
     from msmd_tpu_torch.ops.kernels import sampler as ks
@@ -289,14 +331,22 @@ def test_sampler_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def _small_stack_calls(dev, which, grid=0):
-    """(kernel call, plain call) of K3 (a 6-step scan to t = 1) or of K1's
-    flat mode in one cross form, at lq = 111 with the flagship widths and 2
-    layers. ``grid`` 0 calls the wrapper (every block the card holds);
+    """(kernel call, plain call) of K3 (a 6-step scan to t = 1), of K4 (its
+    step t = 1) or of K1's flat mode in one cross form, at lq = 111 with
+    the flagship widths and 2 layers. ``grid`` 0 calls the wrapper (every block the card holds);
     otherwise its launch helper on that many blocks."""
     from msmd_tpu_torch.measure import decoder_flat_case, sampler_case
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
+    if which == "step":
+        _, step, kw = sampler_case(dev, L=2, T=6, seed=4)
+        plain = lambda: ks.fused_sampler_step_plain(*step, **kw)
+        if not grid:
+            return (lambda: ks.fused_sampler_step(*step, **kw)), plain
+        args = (*step, kw["n_heads"], kw["n_entries"], kw["n_cur"], kw["d_motion"], kw["num_basis"],
+                kw["use_indicator"], kw["sigmoid_alpha"], kw["coefficients"], 1)
+        return (lambda: ks._launch("msmd_sampler_step", *args, _grid_blocks=grid)), plain
     if which == "scan":
         scan, _, kw = sampler_case(dev, L=2, T=6, seed=4)
         plain = lambda: ks.fused_sampler_scan_plain(*scan, **kw)
@@ -314,10 +364,10 @@ def _small_stack_calls(dev, which, grid=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["scan", "flat_band", "flat_full"])
+@pytest.mark.parametrize("which", ["scan", "step", "flat_band", "flat_full"])
 @pytest.mark.parametrize("grid", [0, 40])
 def test_small_stack_kernels_match_plain_and_repeat_bit_for_bit(which, grid):
-    """K3 and K1's flat mode on the persistent small-row stack, on every
+    """K3, K4 and K1's flat mode on the persistent small-row stack, on every
     block the card holds (0) and on 40: within 2e-2 of the plain twin, and
     two calls give the same bits (split-K partials summed in slot order, no
     float atomics)."""
@@ -333,10 +383,12 @@ def test_small_stack_kernels_match_plain_and_repeat_bit_for_bit(which, grid):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Be,lq,L,mode", [(2, 111, 8, "entry"), (4, 111, 8, "flat_band"), (2, 111, 8, "flat_full"),
-                                          (6, 37, 2, "flat_full"), (2, 16, 2, "entry")])
+                                          (6, 37, 2, "flat_full"), (2, 16, 2, "entry"), (2, 111, 8, "entry_gather"),
+                                          (2, 16, 2, "entry_gather")])
 def test_small_stack_plan_matches_the_library(Be, lq, L, mode):
-    """The C plans (``msmd_scan_plan``, ``msmd_flat_plan``) equal
-    ``small_stack_plan`` at the card's SM count and occupancy."""
+    """The C plans (``msmd_scan_plan``, ``msmd_step_plan``,
+    ``msmd_flat_plan``) equal ``small_stack_plan`` at the card's SM count
+    and occupancy."""
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import sampler as ks
     from msmd_tpu_torch.ops.kernels import small_stack as ss
@@ -344,9 +396,9 @@ def test_small_stack_plan_matches_the_library(Be, lq, L, mode):
     dev = _card()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tile = 3 if Be == 6 else Be
-    if mode == "entry":
+    if mode.startswith("entry"):
         n_cur = lq - 11
-        c = ks.scan_plan(lq, 512, 8, L, 2048, n_cur, 67, 4, 256, True, n_entries=Be)
+        c = ks.scan_plan(lq, 512, 8, L, 2048, n_cur, 67, 4, 256, True, n_entries=Be, step=mode == "entry_gather")
         py = ss.small_stack_plan(Be, lq, 512, 2048, 8, mode, sms=sms, per_sm=c["per_sm"], L=L, n_cur=n_cur, Fd=256)
     else:
         c = kd.flat_plan(Be, lq, 512, 8, L, 2048, tile, mode == "flat_band")
@@ -359,7 +411,7 @@ def test_small_stack_plan_matches_the_library(Be, lq, L, mode):
 @pytest.mark.cuda
 def test_small_stack_wrappers_refuse_a_grid_that_cannot_be_resident():
     dev = _card()
-    for which in ("scan", "flat_band"):
+    for which in ("scan", "step", "flat_band"):
         with pytest.raises(RuntimeError, match="cooperative|too large|fits"):
             _small_stack_calls(dev, which, 100000)[0]()
         _small_stack_calls(dev, which)[0]()  # the card's own grid still runs

@@ -72,3 +72,23 @@ def test_resident_plain_matches_k1_per_entry(dtype):
         np.testing.assert_allclose(k2.numpy(), k1.numpy(), atol=1e-5, rtol=1e-5)
     else:
         assert rel_err(k2.numpy(), k1.numpy()) <= 2e-2
+
+
+@pytest.mark.parametrize("Be,lq,per_layer", [(96, 111, 9), (10, 111, 9), (9, 111, 11), (6, 111, 11), (8, 16, 11)])
+def test_resident_phases_follow_the_product_routes(Be, lq, per_layer):
+    """The Python list of K2's phases (one card-clock stamp each) mirrors
+    the kernel: the copy of x in, then per layer nine phases where the
+    residual products take the Hopper GEMM's LayerNorm epilogues (>= 1024
+    rows: LN1 with the motion rows' cross step, LN3) and eleven (a phase
+    for each of them) below."""
+    from msmd_tpu_torch.ops.kernels.gemm import gemm_plan
+
+    L = 3
+    names = tdr.resident_phases(Be, lq, 512, 2048, L)
+    assert names[0] == "load" and len(names) == 1 + L * per_layer
+    layer = names[1:1 + per_layer]
+    assert names[1:] == layer * L
+    assert layer[:3] == ["qkv", "self_attention", "self_out"] and "cross_ln" in layer
+    assert layer[-3:-1] == ["ffn1", "ffn2"] or layer[-2:] == ["ffn1", "ffn2"]
+    hopper = gemm_plan(Be * lq, 512, 2048, "resid_ln")["route"] == "wgmma"
+    assert ("ln1" in layer) == ("ln3" in layer) == (not hopper)

@@ -40,3 +40,23 @@ def test_step_kernel_matches_jax_kernel(dtype):
         np.testing.assert_allclose(got, want, atol=1e-5)
     else:
         assert np.abs(got - want).max() / np.abs(want).max() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed,T,at", [(11, 5, -1), (12, 5, 0)])
+def test_step_kernel_matches_jax_kernel_at_other_steps(dtype, seed, T, at):
+    """K4's plain twin (the kernel's rounding points, the gathered cross
+    output over every row) against the JAX kernel on a second seed, with
+    the step's rows taken from T-step tables at the last step (t = 1) and
+    at the first (t = T)."""
+    scan, step, kw = sampler_case("cpu", P=7, N=8, F=32, H=4, L=2, FF=64, T=T, seed=seed, dtype=dtype)
+    pack, kmem, vmem, motion, emb, sc, z, _ = scan
+    step = (pack, kmem, vmem, motion, emb[at], sc[at], z[at], step[7])
+    got = tks.fused_sampler_step(*step, **kw).numpy()
+    jargs, static = jax_sampler_inputs(step, kw, step=True)
+    want = np.asarray(jdk.fused_sampler_step(*jargs, **static, interpret=True))
+    assert got.shape == want.shape == (8, 67)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    else:
+        assert np.abs(got - want).max() / np.abs(want).max() <= 2e-2

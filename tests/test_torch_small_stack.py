@@ -14,11 +14,12 @@ from msmd_tpu_torch.ops.kernels import small_stack as ss
 FLAGSHIP = dict(lq=111, F=512, FF=2048, H=8, L=8)
 # (Be, mode, extra): K3's step (two CFG entries, 100 motion rows, motion
 # decoder 256 wide), the 2-slot round's identity band, batch 1 without the
-# alignment mask (full cross)
+# alignment mask (full cross), K4's step (K3's with the gathered cross)
 FLAGSHIP_PLANS = [(2, "entry", dict(n_cur=100, Fd=256)), (4, "flat_band", {}), (2, "flat_full", {}),
-                  (4, "flat_full", {}), (2, "flat_band", {})]
+                  (4, "flat_full", {}), (2, "flat_band", {}), (2, "entry_gather", dict(n_cur=100, Fd=256))]
 TINY_PLANS = [(2, 15, 128, 256, 2, 2, "entry", dict(n_cur=11, Fd=64)), (3, 37, 128, 256, 2, 1, "flat_band", {}),
-              (6, 37, 128, 256, 2, 2, "flat_full", dict(tile=3)), (1, 16, 256, 512, 4, 1, "flat_band", {})]
+              (6, 37, 128, 256, 2, 2, "flat_full", dict(tile=3)), (1, 16, 256, 512, 4, 1, "flat_band", {}),
+              (2, 15, 128, 256, 2, 2, "entry_gather", dict(n_cur=11, Fd=64))]
 
 
 def _plans():
@@ -139,6 +140,29 @@ def test_flat_route_switches_at_the_hopper_gemm_rows(Be, lq, F, FF, chain):
     assert ss.flat_uses_chain(Be, lq, F, FF) is chain
 
 
+@pytest.mark.parametrize("sms,per_sm", [(132, 1), (114, 1), (132, 2)])
+def test_k4_step_plan_is_k3s_with_the_gathered_cross(sms, per_sm):
+    """K4's step (mode "entry_gather") has K3's phases in K3's order with
+    the same items, except that its cross output's product ``wco`` runs
+    over all E * lq rows, split-K only where K / 64 divides, with at least
+    as many items as K3's two-row one and no more than one round of the
+    grid beyond its tiles."""
+    k3 = ss.small_stack_plan(2, mode="entry", sms=sms, per_sm=per_sm, n_cur=100, Fd=256, **FLAGSHIP)
+    k4 = ss.small_stack_plan(2, mode="entry_gather", sms=sms, per_sm=per_sm, n_cur=100, Fd=256, **FLAGSHIP)
+    assert [(p["name"], p["kind"]) for p in k4["phases"]] == [(p["name"], p["kind"]) for p in k3["phases"]]
+    assert k4["phases_per_step"] == 3 + 11 * FLAGSHIP["L"] and k4["launches_per_step"] == 1
+    for a, b in zip(k3["phases"], k4["phases"]):
+        if a["name"] != "wco":
+            assert a["items"] == b["items"], a["name"]
+    co = k4["products"]["co"]
+    R, grid = 2 * FLAGSHIP["lq"], k4["grid"]
+    assert (co["M"], co["N"], co["K"], co["bm"]) == (R, FLAGSHIP["F"], FLAGSHIP["F"], 64)
+    assert (co["K"] // ss.SB_BK) % co["split"] == 0
+    tiles = -(-R // 64) * FLAGSHIP["F"] // ss.SB_BN
+    assert tiles * co["split"] <= max(grid, tiles) and 2 * tiles * co["split"] > min(grid, ss.max_items(co))
+    assert k3["products"]["co"]["M"] == 2
+
+
 def test_plan_rows_match_the_c_layout():
     """``plan_rows`` lists (kind, items, M, N, K, bm, split) as the C plans
     do, and ``c_plan_rows`` reads that layout back."""
@@ -160,6 +184,15 @@ def test_scan_stamps_count():
     assert ks.scan_stamps(1, 2) == 2 + 24
 
 
+def test_step_stamps_count_matches_the_plan():
+    """K4's one launch a step stamps its start and the end of each phase
+    of its plan."""
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    plan = ss.small_stack_plan(2, mode="entry_gather", n_cur=100, Fd=256, **FLAGSHIP)
+    assert ks.scan_stamps(1, FLAGSHIP["L"]) == 1 + plan["phases_per_step"]
+
+
 @pytest.mark.parametrize("width", [1, 0])
 def test_flat_wrapper_on_cpu_tensors_takes_its_plain_twin(width):
     from msmd_tpu_torch.measure import decoder_flat_case
@@ -174,6 +207,19 @@ def test_flat_wrapper_on_cpu_tensors_takes_its_plain_twin(width):
         want = kd.fused_decoder_forward_plain(*args)
     assert kd.fused_decoder_forward_flat.launches == before
     assert torch.equal(got, want)
+
+
+def test_step_wrapper_on_cpu_tensors_takes_its_plain_twin():
+    from msmd_tpu_torch.measure import sampler_case
+    from msmd_tpu_torch.ops.kernels import sampler as ks
+
+    _, step, kw = sampler_case("cpu", P=2, N=5, F=128, H=2, L=2, FF=256, T=3)
+    before = ks.fused_sampler_step.launches
+    with torch.no_grad():
+        got = ks.fused_sampler_step(*step, **kw)
+        want = ks.fused_sampler_step_plain(*step, **kw)
+    assert ks.fused_sampler_step.launches == before
+    assert got.shape == (5, 67) and torch.equal(got, want)
 
 
 def test_scan_wrapper_on_cpu_tensors_takes_its_plain_twin():
