@@ -48,13 +48,20 @@ Phases, each printing one JSON line:
    - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
      no TF32).
    - training FFN block (K7), forward and backward: rows 1776 (batch 16 x
-     111), F 512, FFN 2048, bf16, dropout 0.1, a fixed seed; out and each
-     of the seven gradients gated at max |err| / max |plain| <= 2e-2, and
-     the dropout bits of the kernels' device generator equal to the plain
-     generator's with 0 mismatches (both salts, all rows). No one PyTorch
-     call computes K7 (``library_ms`` null); the unfused torch-op chain
-     (F.linear, gelu, dropout, layer_norm, and its autograd backward) is
-     timed beside it as ``chain_ms``.
+     111), F 512, FFN 2048, bf16, dropout 0.1 and 0, a fixed seed; out and
+     each of the seven gradients gated at max |err| / max |plain| <= 2e-2
+     at both rates, two calls bit-equal (``bit_equal_across_calls``), the
+     dropout bits of the kernels' device generator equal to the plain
+     generator's with 0 mismatches (both salts, all rows), and the device
+     kernels of one call in torch.profiler (``launches_per_call``) equal to
+     the plan's (``ops/kernels/ffn_train.py::ffn_train_plan``: at these
+     rows the wgmma route of ``csrc/gemm_train.cuh``, 2 and 6 launches;
+     ``kernel_route``). No one PyTorch call computes K7 (``library_ms``
+     null); the unfused torch-op chain (F.linear, gelu, dropout,
+     layer_norm, and its autograd backward) is timed beside it as
+     ``chain_ms``; K7 also with the L2 flushed before each call, and by its
+     kernels' device time alone (``device_ms``, torch.profiler: its warm
+     ``ms`` also holds the host's time to issue each call).
    - K1's flat-mask mode (``decoder_flat``) in its two cross forms, lq =
      111, the same layers, in the tiles the denoiser picks: the identity
      band at Be = 4 (the 2-slot serving round) and the full masked cross at
@@ -699,27 +706,34 @@ def _flat_and_resident_entries(dev, logs):
 
 
 def _k7_entries(dev):
-    """K7 forward and backward against their plain versions, their mask
-    bits against the plain generator, and their times beside their bounds
-    and the unfused torch-op chain's."""
+    """K7 forward and backward against their plain versions (at p 0.1 and p
+    0), their mask bits against the plain generator, two calls bit-equal,
+    the launches a call from torch.profiler beside the plan's, and their
+    times beside their bounds and the unfused torch-op chain's."""
     import torch
 
-    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, ffn_train_case, ffn_train_chain
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, cuda_ms_flushed, ffn_train_case, ffn_train_chain
     from msmd_tpu_torch.ops.kernels import ffn_train as k7
 
     args, gbar = ffn_train_case(dev)
     x, w1, b1, w2, b2, g, b, seed, p = args
     R, F, FF = x.shape[0], x.shape[1], w1.shape[0]
-    got = [k7.ffn_train_forward(*args)] + list(k7.ffn_train_backward(x, gbar, *args[1:]))
-    want = [k7.ffn_train_forward_plain(*args)] + list(k7.ffn_train_backward_plain(x, gbar, *args[1:]))
-    torch.cuda.synchronize()
     names = ("out", "dx", "dw1", "db1", "dw2", "db2", "dg", "db")
-    rel = {n: _rel(a.float(), w.float()) for n, a, w in zip(names, got, want)}
-    err = {n: float((a.float() - w.float()).abs().max()) for n, a, w in zip(names, got, want)}
-    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    calls = lambda a: [k7.ffn_train_forward(*a)] + list(k7.ffn_train_backward(a[0], gbar, *a[1:]))
+    rel, err, finite = {}, {}, True
+    for case in (args, args[:8] + (0.0,)):
+        got, again = calls(case), calls(case)
+        want = [k7.ffn_train_forward_plain(*case)] + list(k7.ffn_train_backward_plain(case[0], gbar, *case[1:]))
+        torch.cuda.synchronize()
+        key = "" if case[8] == p else "_p0"
+        rel.update({n + key: _rel(a.float(), w.float()) for n, a, w in zip(names, got, want)})
+        err.update({n + key: float((a.float() - w.float()).abs().max()) for n, a, w in zip(names, got, want)})
+        finite = finite and all(bool(torch.isfinite(a).all()) for a in got)
+        if not key:
+            bit_equal = {n: bool(torch.equal(a, c)) for n, a, c in zip(names, got, again)}
+        del got, again, want
     mismatches = sum(int((k7.kernel_mask_bits(seed, salt, R, cols) != k7.philox_bits(seed, salt, R, cols, dev)).sum())
                      for salt, cols in ((1, FF), (2, F)))
-    del got, want
 
     with torch.enable_grad():
         leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2, g, b)]
@@ -731,24 +745,34 @@ def _k7_entries(dev):
     for key, bwd in (("ffn_train_fwd", False), ("ffn_train_bwd", True)):
         flops, nbytes = k7.ffn_train_work(R, F, FF, bwd)
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        plan = k7.ffn_train_plan(R, F, FF, bwd)
         if bwd:
             fn = lambda: k7.ffn_train_backward(x, gbar, *args[1:])
             plain = lambda: k7.ffn_train_backward_plain(x, gbar, *args[1:])
-            gated = {n: rel[n] for n in names[1:]}
+            gated = [n for n in names[1:]]
         else:
             fn, plain = (lambda: k7.ffn_train_forward(*args)), (lambda: k7.ffn_train_forward_plain(*args))
-            gated = {"out": rel["out"]}
+            gated = ["out"]
+        gated = {n + k: rel[n + k] for n in gated for k in ("", "_p0")}
+        launched = _device_launches(fn, "gemm_train_kernel" if plan["route"] == "wgmma" else "tgemm_kernel")
+        per_call = launched["kernel"] + launched["other_kernels"]
+        equal = {n: bit_equal[n] for n in (names[1:] if bwd else names[:1])}
         entries[key] = dict(
             name="fused_ffn_ln_train " + ("backward" if bwd else "forward"), route="cuda",
             source="msmd_tpu_torch/csrc/ffn_train.cu",
             replaces="msmd_tpu/ops/pallas/ffn_train_kernel.py:" + ("304" if bwd else "261"),
+            kernel_route=plan["route"], planned_launches_per_call=plan["launches"], launches_per_call=per_call,
+            device_kernels_per_call=launched, row_chunks=plan["row_chunks"], grids=plan["grids"],
             max_abs_err=max(err[n] for n in gated), rel_err=gated,
-            tolerance=f"max|err|/max|plain| <= {GATE} for each output; mask bits exact",
-            mask_bit_mismatches=mismatches, rows=R, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            tolerance=f"max|err|/max|plain| <= {GATE} for each output at p {p} and p 0; mask bits exact; "
+                      "two calls bit-equal",
+            mask_bit_mismatches=mismatches, bit_equal_across_calls=equal, rows=R,
+            ms=cuda_ms(fn, 50, 10), device_ms=_device_ms_per_call(fn), ms_l2_flushed=cuda_ms_flushed(fn, 20),
+            plain_ms=cuda_ms(plain, 3, warmup=1), bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             library="none: no one call computes it", chain_ms=chain_bwd_ms if bwd else chain_fwd_ms,
             flops=flops, bytes=nbytes,
-            ok=finite and mismatches == 0 and all(v <= GATE for v in gated.values()),
+            ok=finite and mismatches == 0 and all(v <= GATE for v in gated.values()) and all(equal.values())
+            and per_call == plan["launches"],
         )
     return entries
 

@@ -12,9 +12,8 @@
 // are rounded to bf16 once, after the whole row sum.
 //
 // Weights come in the nn.Linear layout: w1 (FFN, F), w2 (F, FFN), so
-// x W1 = x w1^T. The six products are one tiled bf16 tensor-core GEMM
-// (wmma, cp.async ring as in decoder_common.cuh) whose A and B operands
-// may each be read transposed, with fused epilogues.
+// x W1 = x w1^T. Each route reads every operand as it lies, transposed
+// where a product needs it.
 //
 // Dropout masks: bits = Philox4x32-10(key = (seed, salt), counter =
 // (col / 4, row, 0, 0))[col % 4], keep = bits >= thr, scaled by 1/(1-p);
@@ -26,46 +25,29 @@
 //
 // Bounds on an H100 SXM at rows 1776, F 512, FFN 2048: the forward's two
 // products are 7.45 GFLOP (7.5 us at 989 TFLOP/s), the backward's six
-// 22.3 GFLOP (22.6 us); both are bound by operations. This first version
-// stages the hidden state in a workspace inside one call (written and read
-// back once per pass) and reduces the weight gradients over all rows in
-// one block per output tile, so the sums are deterministic (no atomics).
+// 22.3 GFLOP (22.6 us); both are bound by operations.
+//
+// Two routes, chosen by shape (never by failure):
+// - Hopper (ffn_wgmma_ok: >= 1024 rows, F = 512, FFN in whole 256-column
+//   tiles): the warp-specialized wgmma GEMM of gemm_train.cuh with the
+//   masks, the residual, the LayerNorm and its backward in the epilogues.
+//   The forward is two launches (FFN1 into the bf16 hidden state h, FFN2
+//   with the LayerNorm), the backward six: FFN1 again (h, and m1 gelu'(u)
+//   in f32), FFN2 again with the LayerNorm backward (dr, dy and the column
+//   partials of db2, dg, db), dh = dy w2 (du, db1's partials), dx = dr +
+//   du w1, dW1 = du^T x and dW2 = dy^T h in one grouped launch, and one
+//   pass that sums the column partials in a fixed order (ffn_reduce_kernel).
+//   Every sum has one order, so two calls give the same bits.
+// - Every other shape: the first version's chain of 3 (forward) and 15
+//   (backward) launches on a wmma tile over a cp.async ring with fused
+//   epilogues, a LayerNorm kernel and column sums in two passes.
 
 #include <type_traits>
 
 #include "decoder_common.cuh"
+#include "gemm_train.cuh"
 
 namespace {
-
-// --------------------------------------------------------------------------
-// Philox4x32-10 dropout bits
-// --------------------------------------------------------------------------
-
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t k0, uint32_t k1, uint4 c) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u, W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i > 0) {
-      k0 += W0;
-      k1 += W1;
-    }
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// the bits of columns 4g .. 4g + 3 of `row`
-__device__ __forceinline__ uint4 mask_bits4(uint32_t seed, uint32_t salt, int row, int g) {
-  return philox4x32_10(seed, salt, make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(row), 0u, 0u));
-}
-
-struct Dropout {
-  const int* seed;  // device scalar
-  uint32_t thr;     // keep iff bits >= thr; 0 keeps everything
-  float scale;      // 1 / (1 - p), as the wrapper rounds it to f32
-};
 
 // multipliers (0 or scale) of 8 consecutive columns c0 .. c0 + 7, c0 % 8 == 0
 __device__ __forceinline__ void mask8(const Dropout& d, uint32_t salt, int row, int c0, float m[8]) {
@@ -81,6 +63,7 @@ __device__ __forceinline__ void mask8(const Dropout& d, uint32_t salt, int row, 
   for (int t = 0; t < 8; ++t) m[t] = bits[t] >= d.thr ? d.scale : 0.0f;
 }
 
+// the multiplier (0 or scale) of column c of `row`
 __device__ __forceinline__ float mask1(const Dropout& d, uint32_t salt, int row, int c) {
   if (d.thr == 0u) return 1.0f;
   const uint4 v = mask_bits4(static_cast<uint32_t>(*d.seed), salt, row, c / 4);
@@ -503,40 +486,21 @@ cudaError_t forward_to_residual(cudaStream_t st, const bf16* x, const bf16* w1, 
   return tgemm<false, true, E_OUT>(st, g2);
 }
 
-}  // namespace
-
-extern "C" size_t msmd_ffn_train_workspace_bytes(int R, int F, int FF, int backward) {
-  size_t total = 0;
-  carve_ffn(nullptr, R, F, FF, backward != 0, &total);
-  return total;
-}
-
-// out (R, F) bf16 = LN(x + drop2(drop1(gelu(x w1^T + b1)) w2^T + b2))
-extern "C" int msmd_ffn_train_forward(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
-                                      const float* gam, const float* bet, const int* seed, unsigned int thr,
-                                      float scale, bf16* out, void* ws, int R, int F, int FF, cudaStream_t st) {
-  if (!ffn_shapes_ok(R, F, FF)) return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t forward_wmma(cudaStream_t st, const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                         const bf16* b2, const float* gam, const float* bet, const Dropout& drop, bf16* out, void* ws,
+                         int R, int F, int FF) {
   size_t total = 0;
   const FfnWorkspace w = carve_ffn(ws, R, F, FF, false, &total);
-  const Dropout drop{seed, thr, scale};
   RETURN_IF_ERROR(forward_to_residual(st, x, w1, b1, w2, b2, drop, w, false, R, F, FF));
   ln_fwd_kernel<<<(R * 32 + ROW_THREADS - 1) / ROW_THREADS, ROW_THREADS, 0, st>>>(w.r, gam, bet, out, R, F);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
-// Recomputes the forward from x with the same masks, then dx (R, F) bf16,
-// dw1 (FFN, F) and dw2 (F, FFN) bf16, db1 (FFN) and db2 (F) bf16, dg and
-// db (F) f32.
-extern "C" int msmd_ffn_train_backward(const bf16* x, const bf16* gbar, const bf16* w1, const bf16* b1,
-                                       const bf16* w2, const bf16* b2, const float* gam, const float* bet,
-                                       const int* seed, unsigned int thr, float scale, bf16* dx, bf16* dw1,
-                                       bf16* db1, bf16* dw2, bf16* db2, float* dg, float* db, void* ws, int R,
-                                       int F, int FF, cudaStream_t st) {
-  (void)bet;
-  if (!ffn_shapes_ok(R, F, FF)) return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t backward_wmma(cudaStream_t st, const bf16* x, const bf16* gbar, const bf16* w1, const bf16* b1,
+                          const bf16* w2, const bf16* b2, const float* gam, const Dropout& drop, bf16* dx, bf16* dw1,
+                          bf16* db1, bf16* dw2, bf16* db2, float* dg, float* db, void* ws, int R, int F, int FF) {
   size_t total = 0;
   const FfnWorkspace w = carve_ffn(ws, R, F, FF, true, &total);
-  const Dropout drop{seed, thr, scale};
   RETURN_IF_ERROR(forward_to_residual(st, x, w1, b1, w2, b2, drop, w, true, R, F, FF));
   ln_bwd_kernel<<<(R * 32 + ROW_THREADS - 1) / ROW_THREADS, ROW_THREADS, 0, st>>>(w.r, gbar, gam, drop, w.dr, w.dyf,
                                                                                   w.dyb, w.gy, R, F);
@@ -562,8 +526,269 @@ extern "C" int msmd_ffn_train_backward(const bf16* x, const bf16* gbar, const bf
   RETURN_IF_ERROR(colsum(st, w.gp, w.part, db1, R, FF));
   RETURN_IF_ERROR(colsum(st, w.dyf, w.part, db2, R, F));
   RETURN_IF_ERROR(colsum(st, w.gy, w.part, dg, R, F));
-  RETURN_IF_ERROR(colsum(st, gbar, w.part, db, R, F));
-  return static_cast<int>(cudaSuccess);
+  return colsum(st, gbar, w.part, db, R, F);
+}
+
+// --------------------------------------------------------------------------
+// the Hopper route (gemm_train.cuh)
+// --------------------------------------------------------------------------
+
+// The shapes it takes: enough rows, F the two 256-column halves of a
+// LayerNorm cluster, FFN in whole 256-column tiles. Any row count from
+// there on: TMA zero-fills past the last row.
+bool ffn_wgmma_ok(int R, int F, int FF) { return R >= SM90_MIN_ROWS && F == 2 * WS_BN && FF > 0 && FF % WS_BN == 0; }
+
+int row_blocks(int R) { return (R + WS_BM - 1) / WS_BM; }
+
+// The weight gradients' tiles: (FFN / 128) (F / 256) of dW1 and (F / 128)
+// (FFN / 256) of dW2, each a cluster of two K-slices.
+int wgrad_tiles(int F, int FF) { return 2 * (FF / WS_BM) * (F / WS_BN); }
+
+constexpr int RED_THREADS = 256;
+// the reduction pass: blocks of 32 columns of db1, db2, dg and db (F, FFN
+// multiples of 32)
+int reduce_grid(int F, int FF) { return (FF + 3 * F) / 32; }
+
+struct TrainWs {
+  bf16* h;     // (R, FFN) bf16 hidden state
+  float* gp;   // (R, FFN) m1 gelu'(u)
+  bf16* du;    // (R, FFN) bf16 du
+  float* dr;   // (R, F)
+  bf16* dy;    // (R, F) bf16 dy
+  float* cp2;  // (3, 16 row blocks, F) column partials of dy, gbar yhat, gbar (a warp's 8 rows each)
+  float* cp1;  // (8 row blocks, FFN) column partials of du (a warp's 16 rows each)
+};
+
+TrainWs carve_train(void* ws, int R, int F, int FF, bool backward, size_t* total) {
+  const size_t rf = (size_t)R * F, rff = (size_t)R * FF, rb = row_blocks(R);
+  const size_t b = backward ? 1 : 0;
+  const size_t sizes[7] = {rff * 2, b * rff * 4, b * rff * 2, b * rf * 4, b * rf * 2, b * 3 * 16 * rb * F * 4,
+                           b * 8 * rb * FF * 4};
+  char* p = static_cast<char*>(ws);
+  void* ptrs[7];
+  size_t off = 0;
+  for (int i = 0; i < 7; ++i) {
+    ptrs[i] = p ? p + off : nullptr;
+    off += align256(sizes[i]);
+  }
+  *total = off;
+  return TrainWs{(bf16*)ptrs[0], (float*)ptrs[1], (bf16*)ptrs[2], (float*)ptrs[3],
+                 (bf16*)ptrs[4], (float*)ptrs[5], (float*)ptrs[6]};
+}
+
+TrainProblem problem(int M, int N, int K, const Dropout& drop) {
+  TrainProblem p{};
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.drop = drop;
+  return p;
+}
+
+struct ReduceArgs {
+  const float* cp1;
+  const float* cp2;
+  int rows1, rows2;  // the column partials' rows
+  bf16* db1;
+  bf16* db2;
+  float* dg;
+  float* db;
+  int F, FF;
+};
+
+// The column partials summed in a fixed order: db1 over du's, db2, dg and
+// db over theirs; 8 row groups of a block each sum every 8th row of a
+// column, then the groups in order.
+__global__ void __launch_bounds__(RED_THREADS) ffn_reduce_kernel(const ReduceArgs a) {
+  __shared__ float red[8][32];
+  const int col = blockIdx.x * 32 + threadIdx.x % 32, grp = threadIdx.x / 32;
+  // column col of db1 (0 .. FFN), then of db2, dg, db (F each); a block's 32
+  // columns lie in one of them
+  const int set = col < a.FF ? -1 : (col - a.FF) / a.F, c = set < 0 ? col : (col - a.FF) % a.F;
+  const int rows = set < 0 ? a.rows1 : a.rows2, ld = set < 0 ? a.FF : a.F;
+  const float* p = set < 0 ? a.cp1 + c : a.cp2 + (long)set * a.rows2 * a.F + c;
+  float s = 0.0f;
+  for (int r = grp; r < rows; r += 8) s += p[(long)r * ld];
+  red[grp][threadIdx.x % 32] = s;
+  __syncthreads();
+  if (grp != 0) return;
+  for (int g = 1; g < 8; ++g) s += red[g][threadIdx.x];
+  if (set < 0) {
+    a.db1[c] = __float2bfloat16(s);
+  } else if (set == 0) {
+    a.db2[c] = __float2bfloat16(s);
+  } else if (set == 1) {
+    a.dg[c] = s;
+  } else {
+    a.db[c] = s;
+  }
+}
+
+// FFN1 (x w1^T, epilogue TR_H or TR_HG) into h (and gp)
+template <int EPI>
+cudaError_t hidden_wgmma(cudaStream_t st, const bf16* x, const bf16* w1, const bf16* b1, const Dropout& drop,
+                         const TrainWs& w, int R, int F, int FF) {
+  TrainMaps m{};
+  RETURN_IF_ERROR(make_a_map(&m.a[0], x, F, R, F, WS_BM));
+  RETURN_IF_ERROR(make_w_map(&m.b[0], w1, FF, F));
+  TrainLaunch L{};
+  L.p[0] = problem(R, FF, F, drop);
+  L.p[0].bias = b1;
+  L.p[0].out = w.h;
+  L.p[0].fout = w.gp;
+  return gemm_train<EPI>(st, m, L, row_blocks(R) * (FF / WS_BN));
+}
+
+// FFN2 (h w2^T) with the LayerNorm (TR_LN) or its backward (TR_LN_BWD)
+template <int EPI>
+cudaError_t residual_wgmma(cudaStream_t st, const bf16* x, const bf16* gbar, const bf16* w2, const bf16* b2,
+                           const float* gam, const float* bet, const Dropout& drop, bf16* out, const TrainWs& w, int R,
+                           int F, int FF) {
+  TrainMaps m{};
+  RETURN_IF_ERROR(make_a_map(&m.a[0], w.h, FF, R, FF, WS_BM));
+  RETURN_IF_ERROR(make_w_map(&m.b[0], w2, F, FF));
+  TrainLaunch L{};
+  L.p[0] = problem(R, F, FF, drop);
+  L.p[0].bias = b2;
+  L.p[0].xres = x;
+  L.p[0].gbar = gbar;
+  L.p[0].gam = gam;
+  L.p[0].bet = bet;
+  L.p[0].out = out;
+  L.p[0].fout = w.dr;
+  L.p[0].colpart = w.cp2;
+  L.p[0].colpart_rows = 16 * row_blocks(R);
+  return gemm_train<EPI>(st, m, L, tr_cluster(EPI) * row_blocks(R));
+}
+
+cudaError_t forward_wgmma(cudaStream_t st, const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                          const bf16* b2, const float* gam, const float* bet, const Dropout& drop, bf16* out, void* ws,
+                          int R, int F, int FF) {
+  size_t total = 0;
+  const TrainWs w = carve_train(ws, R, F, FF, false, &total);
+  RETURN_IF_ERROR(hidden_wgmma<TR_H>(st, x, w1, b1, drop, w, R, F, FF));
+  return residual_wgmma<TR_LN>(st, x, nullptr, w2, b2, gam, bet, drop, out, w, R, F, FF);
+}
+
+cudaError_t backward_wgmma(cudaStream_t st, const bf16* x, const bf16* gbar, const bf16* w1, const bf16* b1,
+                           const bf16* w2, const bf16* b2, const float* gam, const Dropout& drop, bf16* dx, bf16* dw1,
+                           bf16* db1, bf16* dw2, bf16* db2, float* dg, float* db, void* ws, int R, int F, int FF) {
+  size_t total = 0;
+  const TrainWs w = carve_train(ws, R, F, FF, true, &total);
+  const Dropout none{drop.seed, 0u, 1.0f};  // the products past the masks
+  const int rb = row_blocks(R);
+  // the forward again: h and gp; then dr, dy and the column partials of
+  // db2, dg and db
+  RETURN_IF_ERROR(hidden_wgmma<TR_HG>(st, x, w1, b1, drop, w, R, F, FF));
+  RETURN_IF_ERROR(residual_wgmma<TR_LN_BWD>(st, x, gbar, w2, b2, gam, nullptr, drop, w.dy, w, R, F, FF));
+  {  // dh = dy w2 (w2 (F, FFN) read N-major): du = dh gp, db1's partials
+    TrainMaps m{};
+    RETURN_IF_ERROR(make_a_map(&m.a[0], w.dy, F, R, F, WS_BM));
+    RETURN_IF_ERROR(make_b_map(&m.b[0], w2, F, FF, 1));
+    TrainLaunch L{};
+    L.p[0] = problem(R, FF, F, none);
+    L.p[0].fin = w.gp;
+    L.p[0].out = w.du;
+    L.p[0].colpart = w.cp1;
+    L.p[0].colpart_rows = 8 * rb;
+    RETURN_IF_ERROR(gemm_train<TR_DU>(st, m, L, rb * (FF / WS_BN)));
+  }
+  {  // dx = dr + du w1 (w1 (FFN, F) read N-major), K split over the cluster
+    TrainMaps m{};
+    RETURN_IF_ERROR(make_a_map(&m.a[0], w.du, FF, R, FF, WS_BM));
+    RETURN_IF_ERROR(make_b_map(&m.b[0], w1, FF, F, 1));
+    TrainLaunch L{};
+    L.p[0] = problem(R, F, FF, none);
+    L.p[0].fin = w.dr;
+    L.p[0].out = dx;
+    RETURN_IF_ERROR(gemm_train<TR_DX>(st, m, L, tr_cluster(TR_DX) * rb));
+  }
+  {  // dW1 = du^T x and dW2 = dy^T h: A MN-major, B N-major, K = the rows
+    TrainMaps m{};
+    RETURN_IF_ERROR(make_b_map(&m.a[0], w.du, R, FF, 1));
+    RETURN_IF_ERROR(make_b_map(&m.b[0], x, R, F, 1));
+    RETURN_IF_ERROR(make_b_map(&m.a[1], w.dy, R, F, 1));
+    RETURN_IF_ERROR(make_b_map(&m.b[1], w.h, R, FF, 1));
+    TrainLaunch L{};
+    L.p[0] = problem(FF, F, R, none);
+    L.p[0].out = dw1;
+    L.p[1] = problem(F, FF, R, none);
+    L.p[1].out = dw2;
+    L.blocks0 = tr_cluster(TR_WGRAD) * (FF / WS_BM) * (F / WS_BN);
+    RETURN_IF_ERROR(gemm_train<TR_WGRAD>(st, m, L, tr_cluster(TR_WGRAD) * wgrad_tiles(F, FF)));
+  }
+  const ReduceArgs ra{w.cp1, w.cp2, 8 * rb, 16 * rb, db1, db2, dg, db, F, FF};
+  ffn_reduce_kernel<<<reduce_grid(F, FF), RED_THREADS, 0, st>>>(ra);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" size_t msmd_ffn_train_workspace_bytes(int R, int F, int FF, int backward) {
+  size_t total = 0;
+  if (ffn_wgmma_ok(R, F, FF)) {
+    carve_train(nullptr, R, F, FF, backward != 0, &total);
+  } else {
+    carve_ffn(nullptr, R, F, FF, backward != 0, &total);
+  }
+  return total;
+}
+
+// What msmd_ffn_train_forward (backward = 0) or _backward runs at (R, F,
+// FFN): out = {route (1 the Hopper GEMM, 0 the wmma chain), launches, the
+// weight gradients' row chunks (0 where none), then on the Hopper route
+// the grid of each launch in order (0 past the last)}; all -1 for a shape
+// neither takes.
+extern "C" void msmd_ffn_train_plan(int R, int F, int FF, int backward, long* out) {
+  for (int i = 0; i < 9; ++i) out[i] = -1;
+  if (!ffn_shapes_ok(R, F, FF)) return;
+  for (int i = 2; i < 9; ++i) out[i] = 0;
+  if (!ffn_wgmma_ok(R, F, FF)) {
+    out[0] = 0;
+    out[1] = backward ? 15 : 3;
+    return;
+  }
+  const int rb = row_blocks(R), wide = rb * (FF / WS_BN), pairs = tr_cluster(TR_LN) * rb;
+  out[0] = 1;
+  if (!backward) {
+    out[1] = 2;
+    out[3] = wide;
+    out[4] = pairs;
+    return;
+  }
+  const int chunks = tr_cluster(TR_WGRAD);
+  const long grids[6] = {wide, pairs, wide, pairs, (long)chunks * wgrad_tiles(F, FF), reduce_grid(F, FF)};
+  out[1] = 6;
+  out[2] = chunks;
+  for (int i = 0; i < 6; ++i) out[3 + i] = grids[i];
+}
+
+// out (R, F) bf16 = LN(x + drop2(drop1(gelu(x w1^T + b1)) w2^T + b2))
+extern "C" int msmd_ffn_train_forward(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
+                                      const float* gam, const float* bet, const int* seed, unsigned int thr,
+                                      float scale, bf16* out, void* ws, int R, int F, int FF, cudaStream_t st) {
+  if (!ffn_shapes_ok(R, F, FF)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, thr, scale};
+  if (ffn_wgmma_ok(R, F, FF)) return static_cast<int>(forward_wgmma(st, x, w1, b1, w2, b2, gam, bet, drop, out, ws, R, F, FF));
+  return static_cast<int>(forward_wmma(st, x, w1, b1, w2, b2, gam, bet, drop, out, ws, R, F, FF));
+}
+
+// Recomputes the forward from x with the same masks, then dx (R, F) bf16,
+// dw1 (FFN, F) and dw2 (F, FFN) bf16, db1 (FFN) and db2 (F) bf16, dg and
+// db (F) f32.
+extern "C" int msmd_ffn_train_backward(const bf16* x, const bf16* gbar, const bf16* w1, const bf16* b1,
+                                       const bf16* w2, const bf16* b2, const float* gam, const float* bet,
+                                       const int* seed, unsigned int thr, float scale, bf16* dx, bf16* dw1,
+                                       bf16* db1, bf16* dw2, bf16* db2, float* dg, float* db, void* ws, int R,
+                                       int F, int FF, cudaStream_t st) {
+  (void)bet;
+  if (!ffn_shapes_ok(R, F, FF)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, thr, scale};
+  if (ffn_wgmma_ok(R, F, FF))
+    return static_cast<int>(backward_wgmma(st, x, gbar, w1, b1, w2, b2, gam, drop, dx, dw1, db1, dw2, db2, dg, db,
+                                           ws, R, F, FF));
+  return static_cast<int>(backward_wmma(st, x, gbar, w1, b1, w2, b2, gam, drop, dx, dw1, db1, dw2, db2, dg, db, ws,
+                                        R, F, FF));
 }
 
 // The raw Philox bits of the dropout masks, (R, C) uint32 (C % 4 == 0):

@@ -25,16 +25,29 @@ version makes the same masks by default (``masks="philox"``); its
 ``masks="jax"``, for the CPU parity tests only, gives the bits of the JAX
 kernel's interpret mode, the iota hash ``_det_bits`` with its per-tile
 offset, which is a lattice, not random bits, and is not used for training.
+
+Routes (``ffn_train_plan``, mirrored by the library's
+``msmd_ffn_train_plan``), chosen by shape: from ``MIN_ROWS`` rows with F =
+512 and FFN a multiple of 256, the warp-specialized wgmma GEMM of
+``csrc/gemm_train.cuh`` (the forward 2 launches, the backward 6, the
+LayerNorm products and dx as clusters of two column halves x two K-slices,
+the weight gradients as clusters of two K-slices (row chunks), the column
+sums of the bias and LayerNorm gradients by a last pass); every other
+shape the wmma chain of the first version (3 and 15 launches). The
+LayerNorm of the wgmma route combines two 256-column halves
+(``ln_backward_pair_plain`` is its plain twin).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from msmd_tpu_torch import _build
+from msmd_tpu_torch.ops.kernels.gemm import MIN_ROWS
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -186,7 +199,6 @@ def ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p: float, mask
     """K7's backward in plain PyTorch, by recomputation from x with the same
     masks (``ffn_train_kernel.py``:161-219). Returns (dx, dw1, db1, dw2,
     db2, dg, db) in the dtypes of (x, w1, b1, w2, b2, g, b)."""
-    rnd = lambda a: a.to(w1.dtype).float()
     x2, u, m1, h, m2, r = _recompute(x, w1, b1, w2, b2, seed, p, masks)
     gb = gbar.reshape(x2.shape).float()
     mu = r.mean(dim=-1, keepdim=True)
@@ -195,6 +207,13 @@ def ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p: float, mask
     yh = (r - mu) * rs
     dyh = gb * g.float()
     dr = rs * (dyh - dyh.mean(dim=-1, keepdim=True) - yh * (dyh * yh).mean(dim=-1, keepdim=True))
+    return _grads(x, x2, gb, yh, dr, u, m1, h, m2, w1, b1, w2, b2, g, b)
+
+
+def _grads(x, x2, gb, yh, dr, u, m1, h, m2, w1, b1, w2, b2, g, b):
+    """The seven gradients from the LayerNorm's (yhat, dr) and the
+    recomputed forward."""
+    rnd = lambda a: a.to(w1.dtype).float()
     dy = dr * m2 if m2 is not None else dr
     dh = rnd(dy) @ w2.float()
     dgl = dh * m1 if m1 is not None else dh
@@ -211,6 +230,101 @@ def ffn_train_backward_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p: float, mask
     )
 
 
+def ln_backward_pair_plain(r, gbar, gamma):
+    """The LayerNorm backward of K7's wgmma route (``gemm_train.cuh``,
+    ``tr_epilogue_ln``) in plain PyTorch: (yhat, dr) of rows r (n, F) whose
+    two F / 2-column halves lie in two CTAs. Each half gives its sum and its
+    sum of squared deviations from its own mean, combined as Chan et al.'s
+    pairwise update (``ws_row_stats``); then each half's sums of dyhat =
+    gbar gamma and of dyhat yhat, added across the halves."""
+    F = r.shape[-1]
+    n = F // 2
+    halves = (r[:, :n], r[:, n:])
+    s = [t.sum(dim=-1) for t in halves]
+    sq = [(t - si[:, None] / n).square().sum(dim=-1) for t, si in zip(halves, s)]
+    delta = s[1] / n - s[0] / n
+    m2 = (sq[0] + sq[1]) + delta * delta * (0.25 * F)
+    mean, rs = (s[0] + s[1]) / F, torch.rsqrt(m2 / F + 1e-5)
+    yh = (r - mean[:, None]) * rs[:, None]
+    dyh = gbar * gamma
+    a = dyh[:, :n].sum(dim=-1) + dyh[:, n:].sum(dim=-1)
+    by = (dyh * yh)[:, :n].sum(dim=-1) + (dyh * yh)[:, n:].sum(dim=-1)
+    return yh, rs[:, None] * (dyh - (a / F)[:, None] - yh * (by / F)[:, None])
+
+
+def ffn_train_backward_pair_plain(x, gbar, w1, b1, w2, b2, g, b, seed, p: float, masks: str = "philox"):
+    """``ffn_train_backward_plain`` with the LayerNorm backward of the
+    wgmma route (``ln_backward_pair_plain``) in place of the whole-row one."""
+    x2, u, m1, h, m2, r = _recompute(x, w1, b1, w2, b2, seed, p, masks)
+    gb = gbar.reshape(x2.shape).float()
+    yh, dr = ln_backward_pair_plain(r, gb, g.float())
+    return _grads(x, x2, gb, yh, dr, u, m1, h, m2, w1, b1, w2, b2, g, b)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+TILE_M, TILE_N, TILE_K = 128, 256, 64  # gemm_train.cuh: WS_BM, WS_BN, WS_BK
+CLUSTER = 4  # tr_cluster of the N = 512 products: two column halves x two K-slices
+WGRAD_CLUSTER = 2  # tr_cluster of the weight gradients: two K-slices
+
+
+def takes_wgmma(R: int, F: int, FF: int) -> bool:
+    """Whether K7 runs on the wgmma GEMM at this shape (``ffn_wgmma_ok``)."""
+    return R >= MIN_ROWS and F == 2 * TILE_N and FF > 0 and FF % TILE_N == 0
+
+
+def k_halves(K: int):
+    """The two K-slices of a split product: the first and the second half of
+    K's 64-deep k-steps, the first the larger (gemm_train_kernel's kb, ke),
+    as ranges of K."""
+    steps = -(-K // TILE_K)
+    h = -(-steps // 2) * TILE_K
+    return [(0, min(K, h)), (h, K)]
+
+
+def _product(M: int, N: int, K: int, epilogue: str, splits) -> dict:
+    """A product's output tiles (m0, n0), each with the K ranges summed into
+    it in order; ``splits`` the ranges of K."""
+    tiles = [(m0, n0) for m0 in range(0, M, TILE_M) for n0 in range(0, N, TILE_N)]
+    return {"M": M, "N": N, "K": K, "epilogue": epilogue, "tile": (TILE_M, TILE_N),
+            "tiles": [{"m0": m0, "n0": n0, "k": list(splits)} for m0, n0 in tiles]}
+
+
+def ffn_train_plan(R: int, F: int, FF: int, backward: bool) -> dict:
+    """What K7's forward (``backward`` False) or backward runs at R rows:
+    ``route`` "wgmma" or "wmma", ``launches``, the weight gradients'
+    ``row_chunks`` (0 where none) and, on the wgmma route, ``grids`` (the
+    CTAs of each launch in order) and ``products`` (each product's tiles and
+    the K ranges summed into each, in order). Raises for a shape neither
+    route takes."""
+    if R < 1 or F % 128 or FF % 128 or F > 1024:
+        raise ValueError(f"ffn_train: R={R}, F={F}, FFN={FF}: needs R >= 1, F and FFN multiples of 128, F <= 1024")
+    if not takes_wgmma(R, F, FF):
+        return {"route": "wmma", "launches": 15 if backward else 3, "row_chunks": 0, "grids": [], "products": {}}
+    rb = -(-R // TILE_M)
+    wide, pairs = rb * (FF // TILE_N), CLUSTER * rb
+    halves = k_halves(FF)
+    products = {
+        "ffn1": dict(_product(R, FF, F, "hidden_grad" if backward else "hidden", [(0, F)]), cluster=1),
+        "ffn2": dict(_product(R, F, FF, "layernorm_backward" if backward else "layernorm", halves), cluster=CLUSTER),
+    }
+    if not backward:
+        return {"route": "wgmma", "launches": 2, "row_chunks": 0, "grids": [wide, pairs], "products": products}
+    rows = k_halves(R)
+    products.update(
+        dh=dict(_product(R, FF, F, "du", [(0, F)]), cluster=1),
+        dx=dict(_product(R, F, FF, "dx", halves), cluster=CLUSTER),
+        dw1=dict(_product(FF, F, R, "wgrad", rows), cluster=WGRAD_CLUSTER),
+        dw2=dict(_product(F, FF, R, "wgrad", rows), cluster=WGRAD_CLUSTER),
+    )
+    wgrad = WGRAD_CLUSTER * 2 * (FF // TILE_M) * (F // TILE_N)
+    grids = [wide, pairs, wide, pairs, wgrad, (FF + 3 * F) // 32]  # the last: 32 columns of db1, db2, dg, db a block
+    return {"route": "wgmma", "launches": 6, "row_chunks": WGRAD_CLUSTER, "grids": grids, "products": products}
+
+
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -227,8 +341,22 @@ def _lib():
         lib.msmd_ffn_train_backward.restype = ci
         lib.msmd_ffn_train_mask_bits.argtypes = [vp, ci, ci, ci, vp, vp]
         lib.msmd_ffn_train_mask_bits.restype = ci
+        lib.msmd_ffn_train_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ctypes.c_long)]
+        lib.msmd_ffn_train_plan.restype = None
         lib._msmd_typed = True
     return lib
+
+
+def kernel_plan(R: int, F: int, FF: int, backward: bool) -> Optional[dict]:
+    """``msmd_ffn_train_plan`` as the library computes it on the current
+    card: ``ffn_train_plan``'s route, launches, row_chunks and grids (None
+    where neither route takes the shape)."""
+    out = (ctypes.c_long * 9)()
+    _lib().msmd_ffn_train_plan(R, F, FF, int(backward), out)
+    if out[0] < 0:
+        return None
+    return {"route": "wgmma" if out[0] == 1 else "wmma", "launches": out[1], "row_chunks": out[2],
+            "grids": [g for g in out[3:] if g > 0]}
 
 
 def _check(name, x, w1, b1, w2, b2, g, b, seed, gbar=None):

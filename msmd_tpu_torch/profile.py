@@ -7,6 +7,7 @@ one guided batch-48 window and one train step.
     python -m msmd_tpu_torch.profile --flat-rows # flat_rows only
     python -m msmd_tpu_torch.profile --resident  # resident only
     python -m msmd_tpu_torch.profile --compare   # compare only (also from an older checkout)
+    python -m msmd_tpu_torch.profile --ffn-train # ffn_train only (also from an older checkout)
 
 Prints JSON lines:
 
@@ -49,6 +50,13 @@ Prints JSON lines:
   shapes and the walls of a 48-slot batcher round through K1 and through
   K2 and of a ``ret_traj`` batch-1 window, through public entry points
   only, so that a copy of this file times an older checkout too.
+- ``ffn_train`` (``--ffn-train``, alone): K7 forward and backward at the
+  train step's shapes (1776 rows, F 512, FFN 2048), at p 0.1 and at p 0
+  (no mask drawn: the masks' share of the time): each launch of
+  one call in launch order with its device time (torch.profiler's device
+  events, averaged over 5 calls), the launches a call, and the call's ms
+  from CUDA events, warm and with the L2 flushed. It calls only the
+  wrapper, so the same function times an older checkout of the package.
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
@@ -113,7 +121,9 @@ _K1_PARTS = (("gemm_sm90_kernel<0>", "qkv"), ("gemm_sm90_kernel<2>", "ffn1"),
 
 def _k1_part(key: str) -> str:
     return next((part for prefix, part in _K1_PARTS if key.startswith(prefix)), "other")
-_K7_KERNELS = ("tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel")
+# K7 (csrc/ffn_train.cu): its wgmma route (gemm_train.cuh) and the wmma chain of other shapes
+_K7_KERNELS = ("gemm_train_kernel", "ffn_reduce_kernel", "tgemm_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+               "colsum_partial_kernel", "colsum_final_kernel")
 # the guided window runs no K1, so these are K6's (csrc/ffn.cu) there, or
 # K9's (csrc/layer_tail.cu) on the fused_tail route, which runs no K6
 _GUIDED_LAYER_KERNELS = ("gemm_ws_kernel", "gemm_kernel", "ln_kernel")
@@ -125,7 +135,7 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln_person|ln|cast|lbs|"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_train|ffn_reduce|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln_person|ln|cast|lbs|"
                   r"colsum_partial|colsum_final|attn_mid|masked_attn|chain_masked|chain_load|"
                   r"resident|scan|step|flat)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
@@ -356,6 +366,49 @@ def compare(dev) -> None:
     print(json.dumps({"phase": "compare", **out}), flush=True)
 
 
+def _device_events(fn, calls: int) -> list:
+    """(kernel, us) of each device kernel of ``calls`` back-to-back calls of
+    ``fn``, in launch order (no memcpy or memset)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(_short(e.name), e.time_range.elapsed_us()) for e in events]
+
+
+def ffn_train_split(dev, calls: int = 5) -> None:
+    """K7 forward and backward at the train step's shapes, at dropout 0.1
+    and 0 (no mask is drawn): each launch of one call with its device time,
+    averaged over ``calls`` calls, beside the call's ms (CUDA events, warm
+    and L2-flushed)."""
+    from msmd_tpu_torch.measure import cuda_ms, cuda_ms_flushed, ffn_train_case
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    for p in (0.1, 0.0):
+        args, gbar = ffn_train_case(dev, p=p)
+        x = args[0]
+        out = {}
+        for name, fn in (("forward", lambda: k7.ffn_train_forward(*args)),
+                         ("backward", lambda: k7.ffn_train_backward(x, gbar, *args[1:]))):
+            events = _device_events(fn, calls)
+            per = len(events) // calls
+            launches = [{"kernel": events[i][0], "us": sum(events[c * per + i][1] for c in range(calls)) / calls}
+                        for i in range(per)]
+            out[name] = {"launches_per_call": per, "launches": launches,
+                         "device_ms_per_call": sum(us for _, us in events) / calls / 1e3,
+                         "ms": cuda_ms(fn, 20), "ms_l2_flushed": cuda_ms_flushed(fn, 20)}
+        print(json.dumps({"phase": "ffn_train", "rows": int(x.shape[0]), "F": int(x.shape[1]),
+                          "FFN": int(args[1].shape[0]), "p": p, "calls": calls, **out}), flush=True)
+
+
 FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
 
 
@@ -397,6 +450,9 @@ def main(argv=None) -> int:
         return 0
     if "--compare" in argv:
         compare(torch.device("cuda", 0))
+        return 0
+    if "--ffn-train" in argv:
+        ffn_train_split(torch.device("cuda", 0))
         return 0
     from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, decoder_flat_case,
                                         generate, sampler_case, seeded_audio)

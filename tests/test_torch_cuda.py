@@ -484,6 +484,76 @@ def test_ffn_train_function_on_the_card():
         k7.ffn_train_forward(args[0].t().contiguous().t(), *args[1:])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,p", [(1776, 0.1), (1776, 0.0), (1777, 0.1), (1777, 0.0), (1040, 0.1)])
+def test_ffn_train_wgmma_route_matches_plain_and_repeats_bit_for_bit(rows, p):
+    """K7 on the wgmma route (``csrc/gemm_train.cuh``) at the train step's
+    shapes, one row past them (a ragged last row block and a ragged last
+    k-step of the weight gradients) and a few row blocks past the route's
+    threshold, with and without dropout: out and the seven gradients
+    against the plain versions, and two calls equal bit for bit."""
+    from msmd_tpu_torch.measure import ffn_train_case
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    args, gbar = ffn_train_case(_card(), rows=rows, F=512, FF=2048, p=p, seed=7)
+    assert k7.ffn_train_plan(rows, 512, 2048, True)["route"] == "wgmma"
+    before = (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches)
+    got = [k7.ffn_train_forward(*args)] + list(k7.ffn_train_backward(args[0], gbar, *args[1:]))
+    again = [k7.ffn_train_forward(*args)] + list(k7.ffn_train_backward(args[0], gbar, *args[1:]))
+    want = [k7.ffn_train_forward_plain(*args)] + list(k7.ffn_train_backward_plain(args[0], gbar, *args[1:]))
+    torch.cuda.synchronize()
+    assert (k7.ffn_train_forward.launches, k7.ffn_train_backward.launches) == (before[0] + 2, before[1] + 2)
+    for name, a, b, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2", "dg", "db"), got, again, want):
+        assert a.shape == w.shape and a.dtype == w.dtype and bool(torch.isfinite(a).all()), name
+        print(f"K7 rows={rows} p={p} {name} rel_err={_rel(a, w):.3e}")
+        assert _rel(a, w) <= 2e-2, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,FF", [(1776, 512, 2048), (1777, 512, 2048), (1040, 512, 2048), (1023, 512, 2048),
+                                       (100, 128, 256), (1776, 256, 1024), (1776, 512, 1024)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_ffn_train_plan_matches_the_library(rows, F, FF, backward):
+    """K7's pure-Python plan equals what the library launches on this card
+    (route, launches, row chunks of the weight gradients, each launch's
+    grid)."""
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    _card()
+    plan = k7.ffn_train_plan(rows, F, FF, backward)
+    assert k7.kernel_plan(rows, F, FF, backward) == {k: plan[k] for k in ("route", "launches", "row_chunks", "grids")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,FF,route", [(1776, 512, 2048, "wgmma"), (100, 128, 256, "wmma")])
+def test_ffn_train_launches_per_call(rows, F, FF, route):
+    """One forward and one backward call run the plan's launches on the
+    card (device kernels in torch.profiler): 2 and 6 on the wgmma route,
+    3 and 15 on the wmma chain that the small shapes keep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msmd_tpu_torch.measure import ffn_train_case
+    from msmd_tpu_torch.ops.kernels import ffn_train as k7
+
+    args, gbar = ffn_train_case(_card(), rows=rows, F=F, FF=FF, seed=8)
+    for backward, call in ((False, lambda: k7.ffn_train_forward(*args)),
+                           (True, lambda: k7.ffn_train_backward(args[0], gbar, *args[1:]))):
+        plan = k7.ffn_train_plan(rows, F, FF, backward)
+        assert plan["route"] == route
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        assert len(kernels) == plan["launches"], kernels
+        if route == "wgmma":
+            assert all("gemm_train_kernel" in n or "ffn_reduce_kernel" in n for n in kernels), kernels
+
+
 def _rel(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
