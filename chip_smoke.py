@@ -45,8 +45,16 @@ Phases, each printing one JSON line:
      step; its entry gives K3's launch facts for it (grid, phases, launches
      a step from torch.profiler, registers), its ms beside K3's ms a step
      in the same call (``k3_ms_per_step``).
-   - FLAME decode (K5): N = 4800 frames, V = 5023; max |err| <= 1e-4 (f32,
-     no TF32).
+   - FLAME decode (K5, 3xTF32 on wgmma): N = 4800 frames (the batch-48
+     window) and N = 100 (batch 1), V = 5023; max |err| against the f32
+     plain version <= 1e-4 and, the f32-class check that one TF32 product
+     misses, <= 1e-5; two calls bit-equal; the plan's two device kernels a
+     call (``ops/kernels/lbs.py::lbs_plan``: the betas split, the kernel) in
+     torch.profiler; registers and spills (``-Xptxas -v``); warm and
+     L2-flushed ms beside the 3xTF32 bound (``measure.lbs_bound``), the
+     f32 CUDA-core bound of the same work (``f32_simt_bound_ms``) and f32
+     ``torch.matmul`` of the blend product alone with TF32 off
+     (``blend_matmul_ms``).
    - training FFN block (K7), forward and backward: rows 1776 (batch 16 x
      111), F 512, FFN 2048, bf16, dropout 0.1 and 0, a fixed seed; out and
      each of the seven gradients gated at max |err| / max |plain| <= 2e-2
@@ -220,22 +228,13 @@ def ptxas_usage(log: str, kernel: str) -> dict:
     name holds ``kernel`` in one library's ``-Xptxas -v`` output, and the
     most spill bytes of any function that library compiles (the small-row
     stack's phase functions are not inlined)."""
-    import re
+    from msmd_tpu_torch._build import ptxas_entries
 
-    out, entry, most = {}, None, {"spill_stores": 0, "spill_loads": 0}
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)'?", line)
-        if m:
-            entry = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            stack, st, ld = (int(g) for g in m.groups())
-            most = {"spill_stores": max(most["spill_stores"], st), "spill_loads": max(most["spill_loads"], ld)}
-            if entry and kernel in entry:
-                out.update(stack_frame=stack, spill_stores=st, spill_loads=ld)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry and kernel in entry:
-            out["registers"] = int(m.group(1))
+    out, funcs = {}, ptxas_entries(log).items()
+    for name, usage in funcs:
+        if kernel in name:
+            out.update(usage)
+    most = {k: max([u.get(k, 0) for _, u in funcs], default=0) for k in ("spill_stores", "spill_loads")}
     return {**out, "most_spill_any_function": most}
 
 
@@ -481,10 +480,9 @@ def _small_stack_fields(plan: dict, usage: dict, launched: dict, steps: int, pla
 def phase_kernels(dev, logs):
     import torch
 
-    from msmd_tpu_torch.measure import (BF16_PEAK, F32_PEAK, HBM_RATE, bound, cuda_ms, cuda_ms_flushed,
-                                        decoder_case, decoder_work, lbs_case, lbs_work, sampler_case, sampler_work)
+    from msmd_tpu_torch.measure import (BF16_PEAK, HBM_RATE, bound, cuda_ms, cuda_ms_flushed, decoder_case,
+                                        decoder_work, sampler_case, sampler_work)
     from msmd_tpu_torch.ops.kernels import decoder as kd
-    from msmd_tpu_torch.ops.kernels import lbs as kl
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
     out = {}
@@ -579,24 +577,7 @@ def phase_kernels(dev, logs):
         )
         del scan, step, got, want, again, at_T
 
-        fused, (betas_ext, rt) = lbs_case(dev)
-        got = kl.skin_cuda(fused, betas_ext, rt)
-        want = kl.skin_plain(fused, betas_ext, rt)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= 1e-4 and got.shape == (4800, 5023, 3)
-        flops, nbytes = lbs_work(fused, betas_ext, rt)
-        bound_ms, bound_by = bound(flops, nbytes, F32_PEAK)
-        out["lbs"] = dict(
-            name="flame_vertices", route="cuda", source="msmd_tpu_torch/csrc/lbs.cu",
-            replaces="msmd_tpu/ops/pallas/lbs_kernel.py:197",
-            max_abs_err=err, tolerance="max|err| <= 1e-4 (f32)",
-            ms=cuda_ms(lambda: kl.skin_cuda(fused, betas_ext, rt), 20),
-            plain_ms=cuda_ms(lambda: kl.skin_plain(fused, betas_ext, rt), 3, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, flops=flops, bytes=nbytes, ok=ok,
-        )
-        del got, want
+        out["lbs"] = _lbs_entry(dev, logs)
         out.update(_flat_and_resident_entries(dev, logs))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
@@ -605,6 +586,63 @@ def phase_kernels(dev, logs):
     if bad:
         raise SystemExit(f"chip_smoke: kernel(s) disagree with their plain version: {bad}")
     return out
+
+
+LBS_GATE, LBS_F32_GATE = 1e-4, 1e-5  # max |err| against the f32 plain version
+
+
+def _lbs_entry(dev, logs):
+    """K5 at N = 4800 (a batch-48 window) and N = 100 (batch 1), V = 5023,
+    each against the plain version (max |err| <= 1e-4 and the f32-class
+    <= 1e-5), finite, of its shape, two calls bit-equal, the plan's device
+    kernels a call in torch.profiler, timed warm and L2-flushed beside its
+    bound (3xTF32), the f32 CUDA-core bound and f32 ``torch.matmul`` of
+    the blend product alone (no TF32; a yardstick the port never calls).
+    The entry's top-level numbers are N = 4800's."""
+    import torch
+
+    from msmd_tpu_torch.measure import cuda_ms, cuda_ms_flushed, lbs_bound, lbs_case, lbs_work
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    usage = {name: ptxas_usage(logs.get("lbs", ""), mangled) for name, mangled in
+             (("lbs_kernel", "lbs_kernel"), ("lbs_split_kernel", "lbs_split_kernel"))}
+    forms = {}
+    for N in (4800, 100):
+        fused, (betas_ext, rt) = lbs_case(dev, N=N)
+        call = lambda: kl.skin_cuda(fused, betas_ext, rt)
+        got, again, want = call(), call(), kl.skin_plain(fused, betas_ext, rt)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        blend, skin, nbytes = lbs_work(fused, betas_ext, rt)
+        bound_ms, bound_by, simt_ms = lbs_bound(blend, skin, nbytes)
+        plan = kl.lbs_plan(N, fused.n_verts, torch.cuda.get_device_properties(dev).multi_processor_count)
+        KB = betas_ext.shape[1]
+        bases = fused.dirs.permute(1, 0, 2).reshape(KB, -1).contiguous()  # (KB, 3 Vp)
+        ms, launched = cuda_ms(call, 20, 5), _device_launches(call, "lbs")
+        forms[N] = dict(
+            frames=N, verts=fused.n_verts, max_abs_err=err,
+            tolerance=f"max|err| <= {LBS_GATE} and <= {LBS_F32_GATE}", ms=ms, ms_l2_flushed=cuda_ms_flushed(call, 20),
+            plain_ms=cuda_ms(lambda: kl.skin_plain(fused, betas_ext, rt), 3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, f32_simt_bound_ms=simt_ms, tflops=(blend + skin) / ms / 1e9,
+            blend_matmul_ms=cuda_ms(lambda: torch.matmul(betas_ext, bases), 20, 5),
+            matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+            matmul_precision=torch.get_float32_matmul_precision(), blend_flops=blend, skin_flops=skin,
+            bytes=nbytes, plan=plan, launches_per_call=launched, planned_launches_per_call=plan["launches"],
+            bit_equal_across_calls=bool(torch.equal(got, again)),
+            ok=bool(torch.isfinite(got).all()) and tuple(got.shape) == (N, fused.n_verts, 3)
+            and err <= LBS_GATE and err <= LBS_F32_GATE and bool(torch.equal(got, again))
+            and launched["kernel"] == plan["launches"],
+        )
+        del fused, betas_ext, rt, got, again, want, bases
+    top = forms[4800]
+    return dict(name="flame_vertices", route="cuda", source="msmd_tpu_torch/csrc/lbs.cu",
+                replaces="msmd_tpu/ops/pallas/lbs_kernel.py:197", library_ms=None,
+                library="none: no one call computes it (blend_matmul_ms is the product part alone)",
+                **{k: top[k] for k in ("max_abs_err", "tolerance", "ms", "ms_l2_flushed", "plain_ms", "bound_ms",
+                                       "bound_by", "f32_simt_bound_ms", "blend_matmul_ms", "matmul_allow_tf32",
+                                       "bit_equal_across_calls", "launches_per_call",
+                                       "planned_launches_per_call")},
+                forms={str(k): v for k, v in forms.items()}, ptxas=usage, ok=all(f["ok"] for f in forms.values()))
 
 
 NO_LIBRARY = "none: no one call computes a decoder stack"

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -71,6 +72,25 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def ptxas_entries(log: str) -> Dict[str, dict]:
+    """Each function of one library's ``-Xptxas -v`` output (``build``'s
+    log), by its mangled name: registers, stack frame and spill bytes."""
+    out: Dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out[entry].update(zip(("stack_frame", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,6 +27,7 @@ import torch
 
 BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s
 F32_PEAK = 67e12  # f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12  # HBM3 bytes/s
 
 SEED = 0
@@ -263,13 +264,25 @@ def lbs_case(dev, N=4800, V=5023, seed=SEED):
 
 
 def lbs_work(fused, betas_ext, rt):
-    """(flops, bytes) of one call of the skinning kernel."""
+    """(blend flops, skinning flops, bytes) of one call of the skinning
+    kernel: the blend product once (the kernel's three TF32 products are
+    its way of doing it at f32 accuracy), the function's inputs read once
+    and its output written once."""
     N, KB, V = betas_ext.shape[0], betas_ext.shape[1], fused.n_verts
-    # blendshapes: 3 coordinates x KB multiply-adds; skinning: 5 joints x
-    # 3 rows x (3 multiply-adds + 1 add) + 3 weighted accumulations
-    flops = N * V * (3 * 2 * KB + 5 * (3 * 7 + 3 * 2))
+    blend = N * V * 3 * 2 * KB  # 3 coordinates x KB multiply-adds
+    skin = N * V * 5 * (3 * 7 + 3 * 2)  # 5 joints x 3 rows x (3 multiply-adds + 1 add) + 3 weighted sums
     nbytes = 4 * (N * KB + N * 60 + 3 * KB * V + 3 * V + 5 * V + N * V * 3)
-    return flops, nbytes
+    return blend, skin, nbytes
+
+
+def lbs_bound(blend: int, skin: int, nbytes: int):
+    """K5's bound at f32 accuracy: (ms, what bounds it) of the larger of
+    three TF32 products of the blend on the tensor cores, the skinning on
+    the f32 CUDA cores and the bytes; and the bound of the whole function on
+    the f32 CUDA cores."""
+    times = {"operations": max(3 * blend / TF32_PEAK, skin / F32_PEAK), "bytes": nbytes / HBM_RATE}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, bound(blend + skin, nbytes, F32_PEAK)[0]
 
 
 def ffn_train_case(dev, rows=1776, F=512, FF=2048, p=0.1, seed=SEED):

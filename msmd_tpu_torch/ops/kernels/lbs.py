@@ -6,8 +6,11 @@ flame_vertices_fused``: blendshapes as ``template + betas_ext @ dirs`` per
 coordinate, then 5-joint skinning ``sum_j W[v, j] (R_j p + t_j)`` with no
 per-vertex transform materialised. The kinematic chain (Rodrigues on the
 joint rotations, the 5-node rigid transform) is O(N * 5) work and stays in
-plain torch, as the JAX package keeps it in jnp. The kernel works in f32
-throughout (no TF32).
+plain torch, as the JAX package keeps it in jnp. The kernel runs the blend
+product on the tensor cores at f32 accuracy as three TF32 products
+(3xTF32: each operand split into hi and lo TF32 parts, lo.hi + hi.lo +
+hi.hi summed in f32): ``tf32_split_plain`` and ``skin_tf32_plain`` model
+that arithmetic on the CPU, ``lbs_plan`` picks the kernel's tiles.
 """
 
 from __future__ import annotations
@@ -24,17 +27,37 @@ from msmd_tpu_torch.ops.lbs import batch_rigid_transform, vertices2joints
 from msmd_tpu_torch.ops.rotations import batch_rodrigues
 
 N_JOINTS = 5
+LBS_KSTEP = 16  # basis rows a k-step of the kernel: KB is padded to a multiple
+LBS_FRAMES = 128  # frames a tile
+LBS_VERTICES = 64  # vertices a tile: n = 3 x 64 = 192 a wgmma
+H100_SMS = 132
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def tf32_split_plain(x: torch.Tensor):
+    """(hi, lo) of an f32 tensor: hi = x rounded to TF32 (10 mantissa bits,
+    to nearest, ties away from zero: ``cvt.rna.tf32.f32``), lo = x - hi
+    rounded the same way; |x - hi - lo| <= 2^-22 |x| for normal x."""
+
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 class FusedFlame:
     """Kernel-friendly FLAME buffers on the model's device.
 
     - ``dirs`` (3, n_basis, Vp): [shapedirs | posedirs] per coordinate,
-      vertices padded to a multiple of ``lane``
+      vertices padded to a multiple of ``lane`` (the plain version's layout,
+      and the K-major one of a product that contracts over vertices)
+    - ``dirs_hi``, ``dirs_lo`` (3, Vp, kbp): ``dirs`` K-major, the basis
+      rows padded with zeros to ``kbp`` (a multiple of ``LBS_KSTEP``), split
+      into TF32 parts (``tf32_split_plain``): the kernel's B operand
     - ``template`` (3, Vp) and ``weights_t`` (N_JOINTS, Vp)
     - ``j_template`` (J, 3), ``j_dirs`` (S, J, 3): the joint regressor
       reduced to the betas, so the shaped mesh is never built
@@ -51,6 +74,9 @@ class FusedFlame:
         pad = self.vp - V
         self.dirs = F.pad(torch.cat([sd, pd], dim=1), (0, pad)).contiguous()
         self.n_basis = self.dirs.shape[1]
+        self.kbp = _round_up(self.n_basis, LBS_KSTEP)
+        km = F.pad(self.dirs.transpose(1, 2), (0, self.kbp - self.n_basis))  # (3, Vp, kbp)
+        self.dirs_hi, self.dirs_lo = (t.contiguous() for t in tf32_split_plain(km))
         self.template = F.pad(model.v_template.t(), (0, pad)).contiguous()
         self.weights_t = F.pad(model.lbs_weights.t(), (0, pad)).contiguous()
         self.j_template = vertices2joints(model.J_regressor, model.v_template[None])[0]
@@ -74,10 +100,9 @@ def skin_inputs(fused: FusedFlame, shape_params, expression_params, pose_params=
     return betas_ext, rt
 
 
-def skin_plain(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch: (N, n_basis), (N, 60) -> (N, V, 3)."""
-    N = betas_ext.shape[0]
-    planes = fused.template[:, None, :] + torch.einsum("bk,ckv->cbv", betas_ext, fused.dirs)  # (3, N, Vp)
+def _skin(fused: FusedFlame, planes: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """The skinning of posed planes (3, N, Vp) with rt (N, 60) -> (N, V, 3)."""
+    N = planes.shape[1]
     R = rt.reshape(N, N_JOINTS, 12)
     out = torch.zeros_like(planes)
     for j in range(N_JOINTS):
@@ -89,40 +114,91 @@ def skin_plain(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> 
     return out.permute(1, 2, 0)[:, : fused.n_verts]
 
 
+def skin_plain(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: (N, n_basis), (N, 60) -> (N, V, 3)."""
+    planes = fused.template[:, None, :] + torch.einsum("bk,ckv->cbv", betas_ext, fused.dirs)  # (3, N, Vp)
+    return _skin(fused, planes, rt)
+
+
+def skin_tf32_plain(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The kernel's arithmetic on any device: the blend product from the
+    TF32 parts of betas_ext and of ``dirs_hi`` / ``dirs_lo``, each part
+    product exact in f32 and summed in f32, lo.hi + hi.lo + hi.hi
+    (``passes=3``, the kernel) or hi.hi alone (``passes=1``, one TF32
+    product), then the skinning."""
+    a_hi, a_lo = tf32_split_plain(F.pad(betas_ext, (0, fused.kbp - fused.n_basis)))
+    prod = lambda a, d: torch.einsum("bk,cvk->cbv", a, d)
+    blend = prod(a_hi, fused.dirs_hi)
+    if passes == 3:
+        blend = (prod(a_lo, fused.dirs_hi) + prod(a_hi, fused.dirs_lo)) + blend
+    elif passes != 1:
+        raise ValueError(f"skin_tf32_plain: passes must be 1 or 3, got {passes}")
+    return _skin(fused, fused.template[:, None, :] + blend, rt)
+
+
+def lbs_plan(N: int, V: int, sms: int = H100_SMS) -> dict:
+    """The kernel's tiles for N frames and V vertices on ``sms`` SMs: tiles of
+    ``LBS_FRAMES`` frames by ``LBS_VERTICES`` vertices, frames fastest, on a
+    persistent grid of min(tiles, sms) blocks, block b taking tiles b, b +
+    grid, .... Two launches: the betas split, then the kernel."""
+    if N <= 0 or V <= 0:
+        raise ValueError(f"lbs_plan: N and V must be positive, got {N}, {V}")
+    frame_tiles, vertex_tiles = -(-N // LBS_FRAMES), -(-V // LBS_VERTICES)
+    tiles = frame_tiles * vertex_tiles
+    return {"vw": LBS_VERTICES, "frames": LBS_FRAMES, "frame_tiles": frame_tiles, "vertex_tiles": vertex_tiles,
+            "tiles": tiles, "grid": min(tiles, sms), "launches": 2}
+
+
 def _lib():
     lib = _build.load("lbs")
     if not getattr(lib, "_msmd_typed", False):
-        lib.msmd_lbs_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.msmd_lbs_forward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
         lib.msmd_lbs_forward.restype = ctypes.c_int
         lib._msmd_typed = True
     return lib
 
 
-def skin_cuda(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: (N, n_basis), (N, 60) f32 on the card -> (N, V, 3)."""
-    N = betas_ext.shape[0]
+def _launch(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor, stamps: bool):
+    N, dev = betas_ext.shape[0], betas_ext.device
     named = dict(betas_ext=(betas_ext, (N, fused.n_basis)), rt=(rt, (N, N_JOINTS * 12)),
-                 dirs=(fused.dirs, (3, fused.n_basis, fused.vp)), template=(fused.template, (3, fused.vp)),
-                 weights_t=(fused.weights_t, (N_JOINTS, fused.vp)))
+                 dirs_hi=(fused.dirs_hi, (3, fused.vp, fused.kbp)), dirs_lo=(fused.dirs_lo, (3, fused.vp, fused.kbp)),
+                 template=(fused.template, (3, fused.vp)), weights_t=(fused.weights_t, (N_JOINTS, fused.vp)))
     for name, (t, shape) in named.items():
-        if t.device.type != "cuda" or t.device != betas_ext.device:
-            raise ValueError(f"flame_vertices: {name} must be on {betas_ext.device}, got {t.device}")
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flame_vertices: {name} must be on {dev}, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"flame_vertices: {name} must be float32, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"flame_vertices: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"flame_vertices: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flame_vertices: {name} must be 16-byte aligned")
+    plan = lbs_plan(N, fused.n_verts, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
-    out = torch.empty(N, fused.n_verts, 3, dtype=torch.float32, device=betas_ext.device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ws = torch.empty(2, N, fused.kbp, dtype=torch.float32, device=dev)
+    out = torch.empty(N, fused.n_verts, 3, dtype=torch.float32, device=dev)
+    st = torch.zeros(plan["grid"], 3, dtype=torch.int64, device=dev) if stamps else None
     rc = lib.msmd_lbs_forward(
-        ptr(betas_ext), ptr(rt), ptr(fused.dirs), ptr(fused.template), ptr(fused.weights_t), ptr(out),
-        N, fused.n_basis, fused.n_verts, fused.vp,
-        ctypes.c_void_p(torch.cuda.current_stream(betas_ext.device).cuda_stream),
+        _build.ptr(betas_ext), _build.ptr(rt), _build.ptr(fused.dirs_hi), _build.ptr(fused.dirs_lo),
+        _build.ptr(fused.template), _build.ptr(fused.weights_t), _build.ptr(ws), _build.ptr(out),
+        N, fused.n_basis, fused.kbp, fused.n_verts, fused.vp, plan["grid"],
+        _build.ptr(st) if stamps else None, _build.stream(dev),
     )
     _build.check(lib, rc, "flame_vertices")
-    return out
+    return out, st
+
+
+def skin_cuda(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: (N, n_basis), (N, 60) f32 on the card -> (N, V, 3)."""
+    return _launch(fused, betas_ext, rt, stamps=False)[0]
+
+
+def lbs_stamps(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """One launch with the card's clock recorded: (grid, 3) int64, each
+    block's nanoseconds in its main loops, in its epilogues (then ending
+    in a block barrier) and in all."""
+    return _launch(fused, betas_ext, rt, stamps=True)[1]
 
 
 def flame_vertices_plain(fused: FusedFlame, shape_params, expression_params, pose_params=None,

@@ -8,6 +8,7 @@ one guided batch-48 window and one train step.
     python -m msmd_tpu_torch.profile --resident  # resident only
     python -m msmd_tpu_torch.profile --compare   # compare only (also from an older checkout)
     python -m msmd_tpu_torch.profile --ffn-train # ffn_train only (also from an older checkout)
+    python -m msmd_tpu_torch.profile --lbs       # lbs only (also from an older checkout)
 
 Prints JSON lines:
 
@@ -57,6 +58,11 @@ Prints JSON lines:
   events, averaged over 5 calls), the launches a call, and the call's ms
   from CUDA events, warm and with the L2 flushed. It calls only the
   wrapper, so the same function times an older checkout of the package.
+- ``lbs`` (``--lbs``, alone): K5 at N = 4800, 130 and 100 frames, V =
+  5023 (``lbs_split``): its tile plan, ms warm and L2-flushed, device kernels and time
+  of one call, TFLOP/s, registers and spills, f32 ``torch.matmul`` of the
+  blend product alone, and the call split into main loop and the rest,
+  by depth and (where the library records them) from the card's clock.
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
@@ -135,7 +141,7 @@ def _short(name: str) -> str:
     """A kernel of this package by its short name and template arguments
     (from the demangled ``<1, 64>`` or the mangled ``ILi1ELi64EE`` form),
     any other kernel by the start of its name."""
-    m = re.search(r"(?<![a-z_])(tgemm|gemm_train|ffn_reduce|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln_person|ln|cast|lbs|"
+    m = re.search(r"(?<![a-z_])(tgemm|gemm_train|ffn_reduce|gemm_sm90|gemm_ws|gemm|self_attn|person_attn|ln_fwd|ln_bwd|ln_person|ln|cast|lbs_split|lbs|"
                   r"colsum_partial|colsum_final|attn_mid|masked_attn|chain_masked|chain_load|"
                   r"resident|scan|step|flat)_kernel"
                   r"(?:<([\w, ]+)>|I((?:L[ib]\d+E)+)E)?", name)
@@ -409,6 +415,73 @@ def ffn_train_split(dev, calls: int = 5) -> None:
                           "FFN": int(args[1].shape[0]), "p": p, "calls": calls, **out}), flush=True)
 
 
+LBS_FRAMES = (4800, 130, 100)  # a batch-48 window, two 128-frame tiles, a batch-1 window
+LBS_DEPTH = 8  # the depth split's second call: this many times the basis rows
+LBS_KSTEP = 16  # basis rows a k-step, in both the first kernel and its redesign
+
+
+def lbs_split(dev, calls: int = 20) -> None:
+    """K5 (``csrc/lbs.cu``) at N = 4800 frames (a batch-48 window), 130 and
+    100 (batch 1), V = 5023: the plan's tiles (where the package has a
+    plan); ms from CUDA events, warm and with the L2
+    flushed; the device kernels of one call and their time (torch.profiler);
+    the achieved TFLOP/s; each kernel's registers and spills (``-Xptxas
+    -v``, when this process built the library); f32 ``torch.matmul`` of the
+    blend product alone (betas_ext by the (KB, 3 Vp) bases, no TF32) as a
+    yardstick; and the call split into the product's main loop and the rest
+    (skinning, stores, pipeline fill, launch). The split comes by depth:
+    the same call with ``LBS_DEPTH`` times the basis rows, t(K) = rest +
+    k-steps x per-k-step; and, where the library records them
+    (``lbs_stamps``), from the card's clock: each block's time in its
+    main loops and in its epilogues. It calls only the wrapper, so the same function
+    times an older checkout of the package."""
+    import subprocess
+
+    from msmd_tpu_torch import _build
+    from msmd_tpu_torch.measure import SEED, cuda_ms, cuda_ms_flushed, lbs_case, lbs_work
+    from msmd_tpu_torch.models.flame import synthetic_flame
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    usage = {_short(k): v for k, v in _build.ptxas_entries(_build.build(["lbs"]).get("lbs", "")).items()}
+    torch.set_float32_matmul_precision("highest")
+    for N in LBS_FRAMES:
+        fused, (betas_ext, rt) = lbs_case(dev, N=N)
+        KB, V = betas_ext.shape[1], fused.n_verts
+        work = lbs_work(fused, betas_ext, rt)  # (flops, bytes), or (blend, skinning flops, bytes)
+        flops = sum(work[:-1])
+        fn = lambda: kl.skin_cuda(fused, betas_ext, rt)
+        events = _device_events(fn, calls)
+        ms = cuda_ms(fn, calls, 5)
+        bases = fused.dirs.permute(1, 0, 2).reshape(KB, -1).contiguous()  # (KB, 3 Vp)
+        deep = kl.FusedFlame(synthetic_flame(n_verts=V, n_shape=100 + (LBS_DEPTH - 1) * KB, seed=SEED, device=dev))
+        g = torch.Generator().manual_seed(SEED + 5)
+        deep_betas = (0.3 * torch.randn(N, deep.n_basis, generator=g)).to(dev)
+        deep_ms = cuda_ms(lambda: kl.skin_cuda(deep, deep_betas, rt), calls, 2)
+        ksteps, deep_ksteps = -(-KB // LBS_KSTEP), -(-deep.n_basis // LBS_KSTEP)
+        per_kstep = (deep_ms - ms) / (deep_ksteps - ksteps)
+        out = {"phase": "lbs", "card": smi, "frames": N, "verts": V, "basis": KB,
+               "plan": kl.lbs_plan(N, V) if hasattr(kl, "lbs_plan") else None, "ms": ms,
+               "ms_l2_flushed": cuda_ms_flushed(fn, calls),
+               "device_ms_per_call": sum(us for _, us in events) / calls / 1e3,
+               "launches_per_call": len(events) // calls, "kernels": sorted({k for k, _ in events}),
+               "flops": flops, "work": list(work), "tflops": flops / ms / 1e9,
+               "blend_matmul_ms": cuda_ms(lambda: torch.matmul(betas_ext, bases), calls, 5),
+               "depth_split": {"deep_basis": deep.n_basis, "deep_ms": deep_ms, "us_per_kstep": per_kstep * 1e3,
+                               "main_loop_ms": per_kstep * ksteps, "rest_ms": ms - per_kstep * ksteps},
+               "ptxas": usage}
+        if hasattr(kl, "lbs_stamps"):
+            st = kl.lbs_stamps(fused, betas_ext, rt).double()  # (blocks, 3): main loops, epilogues, whole (ns)
+            out["stamps"] = {"blocks": st.shape[0], "main_loop_us_mean": float(st[:, 0].mean()) / 1e3,
+                             "epilogue_us_mean": float(st[:, 1].mean()) / 1e3,
+                             "block_us_mean": float(st[:, 2].mean()) / 1e3,
+                             "block_us_max": float(st[:, 2].max()) / 1e3,
+                             "main_loop_share": float(st[:, 0].sum() / st[:, 2].sum())}
+        print(json.dumps(out), flush=True)
+        del fused, betas_ext, rt, bases, deep, deep_betas
+
+
 FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
 
 
@@ -453,6 +526,9 @@ def main(argv=None) -> int:
         return 0
     if "--ffn-train" in argv:
         ffn_train_split(torch.device("cuda", 0))
+        return 0
+    if "--lbs" in argv:
+        lbs_split(torch.device("cuda", 0))
         return 0
     from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, decoder_flat_case,
                                         generate, sampler_case, seeded_audio)
@@ -546,7 +622,7 @@ def main(argv=None) -> int:
         by_kernel = profile_device_ms(run)
         busy = sum(by_kernel.values())
         stack = sum(v for k, v in by_kernel.items() if k.split("<")[0] in family)
-        lbs = sum(v for k, v in by_kernel.items() if k.startswith("lbs_kernel"))
+        lbs = sum(v for k, v in by_kernel.items() if k.startswith(("lbs_kernel", "lbs_split_kernel")))
         name = "decoder_kernel_ms" if phase == "main_path" else "sampler_kernel_ms"
         print(json.dumps({
             "phase": phase, "batch": batch, "windows": 1, "diff_steps": cfg.n_diff_steps,

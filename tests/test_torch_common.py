@@ -218,3 +218,32 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         Trainer(MSMDConfig(**tiny_cfg_kwargs()), tmp_path / "exp", audio_config=AudioEncoderConfig(**TINY_AUDIO))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--exp_name", "x", "--data_root", str(tmp_path), "--exp_root", str(tmp_path / "exps")])
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__ba0e7ed7_6_lbs_cu_28ec209010lbs_kernelENS_7LbsMapsENS_7LbsArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__ba0e7ed7_6_lbs_cu_28ec209010lbs_kernelENS_7LbsMapsENS_7LbsArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Function properties for _Z10phase_stepv
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Compiling entry function '_Z16lbs_split_kernelPKfPfiii' for 'sm_90a'
+ptxas info    : Function properties for _Z16lbs_split_kernelPKfPfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, 384 bytes cmem[0]
+"""
+
+
+def test_ptxas_entries_reads_each_function_of_a_log():
+    """``_build.ptxas_entries``, the one parser of ``-Xptxas -v`` logs that
+    ``chip_smoke.py`` and ``profile.py`` read registers and spills from."""
+    from msmd_tpu_torch._build import ptxas_entries
+
+    got = ptxas_entries(PTXAS_LOG)
+    assert got == {
+        "_ZN38_GLOBAL__N__ba0e7ed7_6_lbs_cu_28ec209010lbs_kernelENS_7LbsMapsENS_7LbsArgsE":
+            dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=254),
+        "_Z10phase_stepv": dict(stack_frame=16, spill_stores=8, spill_loads=12),
+        "_Z16lbs_split_kernelPKfPfiii": dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=18),
+    }
+    assert ptxas_entries("") == {}

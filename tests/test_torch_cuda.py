@@ -248,20 +248,53 @@ def test_resident_stamps_follow_its_phases():
 
 
 @pytest.mark.cuda
-def test_lbs_kernel_matches_plain():
+@pytest.mark.parametrize("N,V", [(1, 37), (100, 37), (130, 37), (4800, 37), (1, 5023), (100, 5023), (130, 5023),
+                                 (1040, 5023)])
+def test_lbs_kernel_matches_plain(N, V):
+    """K5 (3xTF32 on wgmma) at ragged frame and vertex counts, from one
+    tile to more tiles than SMs (a block then takes several): within 1e-5 of the f32 plain version (one TF32
+    product would miss it), finite, two calls bit-equal, the plan's two
+    device kernels a call; the public entry point counts its launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from msmd_tpu_torch.measure import lbs_case
     from msmd_tpu_torch.ops.kernels import lbs as kl
 
-    fused, (betas_ext, rt) = lbs_case(_card(), N=130, V=5023, seed=3)
+    fused, (betas_ext, rt) = lbs_case(_card(), N=N, V=V, seed=3)
     got = kl.skin_cuda(fused, betas_ext, rt)
     want = kl.skin_plain(fused, betas_ext, rt)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.cuda.synchronize()
+    print(f"N {N} V {V} tiles {kl.lbs_plan(N, V)['tiles']} max|err| {float((got - want).abs().max()):.3g}")
+    assert got.shape == (N, V, 3) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, kl.skin_cuda(fused, betas_ext, rt))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kl.skin_cuda(fused, betas_ext, rt)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "lbs" in e.name]
+    assert len(kernels) == kl.lbs_plan(N, V)["launches"], kernels
     before = kl.flame_vertices.launches
     z = torch.zeros(4, 100, device=betas_ext.device)
     verts = kl.flame_vertices(fused, z, z[:, :50], z[:, :6])
-    assert kl.flame_vertices.launches == before + 1 and verts.shape == (4, 5023, 3)
+    assert kl.flame_vertices.launches == before + 1 and verts.shape == (4, V, 3)
     with pytest.raises(ValueError, match="contiguous"):
-        kl.skin_cuda(fused, betas_ext.t().contiguous().t(), rt)
+        kl.skin_cuda(fused, betas_ext.repeat(1, 2)[:, ::2], rt)
+
+
+@pytest.mark.cuda
+def test_lbs_stamps_cover_every_block():
+    """K5's card-clock stamps: one row a block of the plan's grid, its main
+    loops and epilogues within its whole time."""
+    from msmd_tpu_torch.measure import lbs_case
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    fused, (betas_ext, rt) = lbs_case(_card(), N=300, V=5023, seed=4)
+    st = kl.lbs_stamps(fused, betas_ext, rt).cpu()
+    plan = kl.lbs_plan(300, 5023, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert st.shape == (plan["grid"], 3)
+    assert bool((st[:, 0] > 0).all()) and bool((st[:, 1] > 0).all())
+    assert bool((st[:, 0] + st[:, 1] <= st[:, 2]).all())
 
 
 @pytest.mark.cuda
