@@ -55,6 +55,13 @@ Phases, each printing one JSON line:
      f32 CUDA-core bound of the same work (``f32_simt_bound_ms``) and f32
      ``torch.matmul`` of the blend product alone with TF32 off
      (``blend_matmul_ms``).
+   - the FLAME decode's backward (K5 bwd, the skinning terms of the VJP):
+     N = 1760 frames (clip 1's predicted frames of a batch-16 train step),
+     V = 5023, a seeded cotangent; dv, dR and dt each gated at max |err| /
+     max |plain| <= 1e-4 against ``skin_vjp_plain`` (JAX's einsums, gw
+     materialised), two calls bit-equal, dv zero past V, two device kernels
+     a call in torch.profiler; warm and L2-flushed ms beside its bound
+     (``measure.lbs_bwd_bound``: bytes); registers and spills.
    - training FFN block (K7), forward and backward: rows 1776 (batch 16 x
      111), F 512, FFN 2048, bf16, dropout 0.1 and 0, a fixed seed; out and
      each of the seven gradients gated at max |err| / max |plain| <= 2e-2
@@ -164,6 +171,27 @@ Phases, each printing one JSON line:
    steps/s, training audio seconds per wall second, the peak memory and
    the device-busy share of one profiled step, then the same steps with
    ``fused_ffn_train`` off (steps/s only, not gated).
+
+10. train_vertex: the training configuration of phase 9 at the HDTF
+   layout with the vertex-space loss (``measure.build_train_path(...,
+   vertex=True)``: axis-angle pose, the loss weights of
+   ``load_loss_weights``, a ``FusedFlame`` over ``synthetic_flame(5023)``,
+   seeded FLAME-layout denormalisation statistics, ``two_clip_batch`` and
+   ``fused_ffn_train`` on), one warm-up step and ``TRAIN_STEPS`` timed
+   steps. Every loss finite and every ``vert`` term > 0; trainable
+   parameters moved and frozen ones not (as phase 9); K5 4 and K5 bwd 2
+   launches a step (two clips x gt and pred; pred's backward), K7 8 forward
+   and 8 backward (one 2B-row decoder); the gradient of the vertex terms of
+   the loss with respect to the denoiser's output on one window through K5
+   + K5 bwd within 1e-4 of max |plain| of the one through plain
+   ``flame_forward``.
+   Then the same steps with the sequential loop (K7 16 and 16 a step, K5
+   and K5 bwd as before): its steps/s beside the batched one. Then from one
+   saved state, 2 steps without and 2 with ``remat_denoiser``: losses
+   within 1e-3 of each other (the first bit-equal in practice; the
+   backward's atomics move the second), the remat peak memory lower, K7's
+   forward 16 a step under remat (each layer's recompute). It prints
+   steps/s, the device-busy share of one profiled step and both peaks.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; each path runs a warm-up window first, so the timed run holds no
@@ -578,6 +606,7 @@ def phase_kernels(dev, logs):
         del scan, step, got, want, again, at_T
 
         out["lbs"] = _lbs_entry(dev, logs)
+        out["lbs_bwd"] = _lbs_bwd_entry(dev, logs)
         out.update(_flat_and_resident_entries(dev, logs))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
@@ -643,6 +672,55 @@ def _lbs_entry(dev, logs):
                                        "bit_equal_across_calls", "launches_per_call",
                                        "planned_launches_per_call")},
                 forms={str(k): v for k, v in forms.items()}, ptxas=usage, ok=all(f["ok"] for f in forms.values()))
+
+
+LBS_BWD_GATE = 1e-4  # max |err| / max |plain| of dv, dR and dt (f32, other summation orders)
+
+
+def _lbs_bwd_entry(dev, logs):
+    """K5 bwd at N = 1760 (clip 1's predicted frames of a batch-16 train
+    step), V = 5023, against the skinning terms of the plain VJP
+    (``skin_vjp_plain``, JAX's einsums with gw materialised) on the same
+    card tensors: dv, dR and dt each gated at max |err| / max |plain|, two
+    calls bit-equal, dv zero past V, the two device kernels a call in
+    torch.profiler; timed warm and L2-flushed beside its bound."""
+    import torch
+
+    from msmd_tpu_torch.measure import cuda_ms, cuda_ms_flushed, lbs_bwd_bound, lbs_bwd_case, lbs_bwd_work
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    fused, betas_ext, rt, planes, g = lbs_bwd_case(dev)
+    N, V = rt.shape[0], fused.n_verts
+    call = lambda: kl.skin_vjp_cuda(fused, planes, rt, g)
+    (dv, d_rt), (dv2, d_rt2) = call(), call()
+    want_dv, want_rt = kl.skin_vjp_plain(fused, planes, rt, g)
+    torch.cuda.synchronize()
+    got_rt, want = d_rt.reshape(N, 5, 3, 4), want_rt.reshape(N, 5, 3, 4)
+    rel = {"dv": _rel(dv, want_dv), "dR": _rel(got_rt[..., :3], want[..., :3]),
+           "dt": _rel(got_rt[..., 3], want[..., 3])}
+    err = max(float((dv - want_dv).abs().max()), float((d_rt - want_rt).abs().max()))
+    bit_equal = bool(torch.equal(dv, dv2)) and bool(torch.equal(d_rt, d_rt2))
+    del dv2, d_rt2, want_dv, want_rt, want, got_rt
+    flops, nbytes = lbs_bwd_work(fused, N)
+    bound_ms, bound_by = lbs_bwd_bound(fused, N)
+    ms, launched = cuda_ms(call, 50, 5), _device_launches(call, "lbs_bwd")
+    out = dict(
+        name="flame_vertices backward (skinning VJP)", route="cuda", source="msmd_tpu_torch/csrc/lbs_bwd.cu",
+        replaces="msmd_tpu/ops/pallas/lbs_kernel.py:92", frames=N, verts=V, max_abs_err=err, rel_err=rel,
+        tolerance=f"max|err|/max|plain| <= {LBS_BWD_GATE} for dv, dR and dt; two calls bit-equal",
+        ms=ms, ms_l2_flushed=cuda_ms_flushed(call, 20),
+        plain_ms=cuda_ms(lambda: kl.skin_vjp_plain(fused, planes, rt, g), 5, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library="none: no one call computes it (plain_ms is JAX's einsum chain, gw materialised)",
+        flops=flops, bytes=nbytes, gbytes_per_s=nbytes / ms / 1e6, launches_per_call=launched,
+        planned_launches_per_call=2, bit_equal_across_calls=bit_equal,
+        ptxas={k: ptxas_usage(logs.get("lbs_bwd", ""), k) for k in ("lbs_bwd_kernel", "lbs_bwd_reduce_kernel")},
+        ok=all(v <= LBS_BWD_GATE for v in rel.values()) and bool(torch.isfinite(dv).all())
+        and bool(torch.isfinite(d_rt).all()) and not bool(dv[:, :, V:].any()) and bit_equal
+        and launched["kernel"] == 2,
+    )
+    del fused, betas_ext, rt, planes, g, dv, d_rt
+    return out
 
 
 NO_LIBRARY = "none: no one call computes a decoder stack"
@@ -831,7 +909,8 @@ def _counted():
 
     return {"decoder": kd.fused_decoder_forward, "decoder_flat": kd.fused_decoder_forward_flat,
             "resident": kdr.fused_decoder_forward_resident, "scan": ks.fused_sampler_scan,
-            "step": ks.fused_sampler_step, "lbs": kl.flame_vertices, "ffn_train_fwd": k7.ffn_train_forward,
+            "step": ks.fused_sampler_step, "lbs": kl.flame_vertices, "lbs_bwd": kl.skin_backward,
+            "ffn_train_fwd": k7.ffn_train_forward,
             "ffn_train_bwd": k7.ffn_train_backward, "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle,
             "tail": k9.fused_layer_tail}
 
@@ -1227,6 +1306,217 @@ def phase_train(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the vertex-space training step
+# ---------------------------------------------------------------------------
+
+VERTEX_GRAD_GATE = 1e-4  # max |err| / max |plain| of d loss / d target, K5 + K5 bwd against flame_forward
+REMAT_STEPS = 2
+# remat against no remat from one saved state: the first step's gradients within REMAT_GRAD_GATE of max |g|
+# (a recompute that drew fresh dropout masks or a fresh K7 seed moves them by ~10%); its loss bit-equal (no
+# backward has run); the second step's loss within REMAT_LOSS_RTOL (the backward's atomics, index_put in the
+# step embedding, reach it through one Adam update)
+REMAT_GRAD_GATE = 1e-5
+REMAT_LOSS_RTOL = 1e-4
+
+
+def _vertex_steps(path, batch, steps):
+    """``steps`` train steps; returns (loss, vert) of each, device scalars."""
+    from msmd_tpu_torch.train.loop import train_step
+
+    out = []
+    for _ in range(steps):
+        m = train_step(path["cfg"], path["model"], path["style_enc"], path["opt"], batch, path["generator"],
+                       path["host_generator"], path["flame"], path["coef_stats"])
+        out.append((m["loss"], m["vert"]))
+    return out
+
+
+def _timed_vertex_steps(path, batch, steps):
+    import torch
+
+    _vertex_steps(path, batch, 1)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _vertex_steps(path, batch, steps)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+def _vertex_grad_check(path, batch):
+    """One clip-1 window of the step's inputs through the model (no grad),
+    then the gradient of the vertex terms of the loss (vert, vel, smooth,
+    weighted) with respect to the denoiser's output through K5 + K5 bwd
+    (the ``FusedFlame``) and through plain ``flame_forward`` (its
+    ``FlameModel``): max |err| / max |plain|, and each route's vert term."""
+    import torch
+
+    from msmd_tpu_torch.losses import compute_loss, load_loss_weights
+
+    cfg, model, fused = path["cfg"], path["model"], path["flame"]
+    n_prev = cfg.n_prev_motions
+    gen = torch.Generator(device=batch["motion_0"].device).manual_seed(77)
+    with torch.no_grad():
+        style = path["style_enc"](batch["motion_1"], gen, False)[0]
+        prev_m = batch["motion_0"][:, -n_prev:]
+        prev_a = model.extract_audio_feature(batch["audio_0"])[:, -n_prev:]
+        shape = batch["shape_0"][:, 0]
+        eps, target, _, _ = model(batch["motion_1"], batch["audio_1"], shape, style, prev_motion_feat=prev_m,
+                                  prev_audio_feat=prev_a, generator=gen, train=False)
+    # the terms on the vertices only: the others (noise, head pose) do not pass through K5
+    weights = {k: w for k, w in load_loss_weights(cfg).items() if k in ("vert", "vel", "smooth") and w > 0}
+    grads, terms = [], []
+    for flame in (fused, fused.model):
+        t = target.float().detach().requires_grad_(True)
+        out = compute_loss(cfg, False, shape, batch["motion_1"], eps, t, prev_m, path["coef_stats"], flame)
+        grads.append(torch.autograd.grad(sum(out[k] * w for k, w in weights.items()), t)[0])
+        terms.append(float(out["vert"].detach()))
+    return _rel(grads[0], grads[1]), terms
+
+
+def _first_step_grads(path, batch, state, remat):
+    """From ``state``, the first step's loss and gradients (no update):
+    (loss, {name: grad}) over the trainable parameters."""
+    from msmd_tpu_torch.train.loop import two_clip_loss
+
+    _restore(path, state)
+    path["opt"].adam.zero_grad(set_to_none=True)
+    path["cfg"].remat_denoiser = remat
+    total, _ = two_clip_loss(path["cfg"], path["model"], path["style_enc"], batch, path["generator"],
+                             path["host_generator"], train=True, flame=path["flame"], coef_stats=path["coef_stats"])
+    total.backward()
+    grads = {n: p.grad.detach().clone() for m in (path["model"], path["style_enc"]) for n, p in m.named_parameters()
+             if p.grad is not None}
+    path["opt"].adam.zero_grad(set_to_none=True)
+    path["cfg"].remat_denoiser = False
+    return float(total), grads
+
+
+def _grad_gap(a, b):
+    """max |a - b| over every gradient, over max |b|; inf where the two
+    sets of gradients differ in their parameters."""
+    if a.keys() != b.keys():
+        return math.inf
+    top = max(float(g.abs().max()) for g in b.values())
+    return max(float((a[n] - b[n]).abs().max()) for n in b) / top
+
+
+def _train_state(path):
+    import copy
+
+    return (copy.deepcopy(path["model"].state_dict()), copy.deepcopy(path["style_enc"].state_dict()),
+            copy.deepcopy(path["opt"].state_dict()), path["generator"].get_state(),
+            path["host_generator"].get_state())
+
+
+def _restore(path, state):
+    """``state`` back into the path; the optimizer's tensors copied, since
+    Adam's ``load_state_dict`` keeps (and later updates) the tensors it is
+    given where their device and type already fit."""
+    import copy
+
+    model_sd, style_sd, opt_sd, gen, host = state
+    path["model"].load_state_dict(model_sd)
+    path["style_enc"].load_state_dict(style_sd)
+    path["opt"].load_state_dict(copy.deepcopy(opt_sd))
+    path["generator"].set_state(gen)
+    path["host_generator"].set_state(host)
+
+
+def phase_train_vertex(dev, smi):
+    import torch
+
+    from msmd_tpu_torch.measure import build_train_path, train_batch
+    from msmd_tpu_torch.profile import profile_device_ms
+
+    path = build_train_path(dev, vertex=True)
+    cfg, model, style_enc = path["cfg"], path["model"], path["style_enc"]
+    batch = train_batch(cfg, dev)
+    params = [(n, p) for m in (model, style_enc) for n, p in m.named_parameters()]
+    before = {n: p.detach().clone() for n, p in params}
+    out, wall, launches, peak_gb = _timed_vertex_steps(path, batch, TRAIN_STEPS)
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in params}
+    unreached = tuple(f"denoising_net.transformer.layers.{cfg.n_layers - 1}.cross_attn.{w}_proj." for w in "qk")
+    trainable = [n for n, p in params if p.requires_grad and not n.startswith(unreached)]
+    frozen = [n for n, p in params if not p.requires_grad]
+    del before
+    busy_ms = sum(profile_device_ms(lambda: _vertex_steps(path, batch, 1)).values())
+    step_s = wall / TRAIN_STEPS
+    grad_rel, vert_terms = _vertex_grad_check(path, batch)
+
+    cfg.two_clip_batch = False  # the sequential loop on the same model and batch
+    seq_out, seq_wall, seq_launches, seq_peak = _timed_vertex_steps(path, batch, TRAIN_STEPS)
+    cfg.two_clip_batch = True
+
+    state = _train_state(path)
+    ref_loss, ref_grads = _first_step_grads(path, batch, state, False)
+    rep_loss, rep_grads = _first_step_grads(path, batch, state, False)
+    rep_gap = _grad_gap(rep_grads, ref_grads)  # the backward's own run-to-run spread
+    del rep_grads
+    remat_loss, remat_grads = _first_step_grads(path, batch, state, True)
+    remat_gap = _grad_gap(remat_grads, ref_grads)
+    del ref_grads, remat_grads
+    remat = {}
+    for flag in (False, True):
+        _restore(path, state)
+        cfg.remat_denoiser = flag
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        r = _vertex_steps(path, batch, REMAT_STEPS)
+        torch.cuda.synchronize()
+        remat[flag] = dict(losses=[float(l) for l, _ in r], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches=_counts())
+    cfg.remat_denoiser = False
+    del state
+
+    L, T = cfg.n_layers, TRAIN_STEPS
+    losses = [float(l) for l, _ in out]
+    checks = {
+        "finite_losses": all(math.isfinite(l) for l in losses + [float(l) for l, _ in seq_out]),
+        "vert_positive": all(float(v) > 0 for _, v in out + seq_out) and min(vert_terms) > 0,
+        "trainable_moved": not [n for n in trainable if not moved[n]],
+        "frozen_unchanged": not any(moved[n] for n in frozen) and len(frozen) > 0,
+        # two_clip_batch: the decoder once on 2B rows; each clip decodes gt and pred, pred's backward
+        "lbs_launches": launches["lbs"] == 4 * T and seq_launches["lbs"] == 4 * T,
+        "lbs_bwd_launches": launches["lbs_bwd"] == 2 * T and seq_launches["lbs_bwd"] == 2 * T,
+        "k7_launches": launches["ffn_train_fwd"] == L * T and launches["ffn_train_bwd"] == L * T
+        and seq_launches["ffn_train_fwd"] == 2 * L * T and seq_launches["ffn_train_bwd"] == 2 * L * T,
+        "grad_through_k5_matches_flame_forward": grad_rel <= VERTEX_GRAD_GATE,
+        "remat_same_gradients": remat_gap <= REMAT_GRAD_GATE,
+        "remat_same_losses": remat_loss == ref_loss and remat[True]["losses"][0] == remat[False]["losses"][0]
+        and all(abs(a - b) <= REMAT_LOSS_RTOL * abs(b) for a, b in zip(remat[True]["losses"], remat[False]["losses"])),
+        "remat_lowers_peak_mem": remat[True]["peak_mem_gb"] < remat[False]["peak_mem_gb"],
+        # under remat K7's forward runs again in each layer's recompute
+        "remat_k7_launches": remat[True]["launches"]["ffn_train_fwd"] == 2 * L * REMAT_STEPS
+        and remat[True]["launches"]["ffn_train_bwd"] == L * REMAT_STEPS
+        and remat[False]["launches"]["ffn_train_fwd"] == L * REMAT_STEPS,
+        "no_sampling_kernels": all(launches[k] == 0 for k in ("decoder", "scan", "step")),
+    }
+    B = batch["motion_0"].shape[0]
+    emit({"phase": "train_vertex", "batch": B, "clips": 2, "clip_seconds": cfg.n_motions / cfg.fps,
+          "dataset_type": cfg.dataset_type, "two_clip_batch": True, "flame_verts": path["flame"].n_verts,
+          "steps": T, "losses": losses, "vert": [float(v) for _, v in out], "wall_s": wall,
+          "steps_per_s": 1.0 / step_s, "peak_mem_gb": peak_gb,
+          "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / (step_s * 1e3),
+          "sequential_steps_per_s": T / seq_wall, "sequential_peak_mem_gb": seq_peak,
+          "sequential_losses": [float(l) for l, _ in seq_out],
+          "launches": launches, "sequential_launches": seq_launches,
+          "grad_rel_err_k5_vs_flame_forward": grad_rel, "vert_k5_vs_flame_forward": vert_terms,
+          "remat": {str(k).lower(): v for k, v in remat.items()},
+          "remat_first_step": {"loss": remat_loss, "no_remat_loss": ref_loss, "grad_gap": remat_gap,
+                               "no_remat_repeat_grad_gap": rep_gap, "no_remat_repeat_loss": rep_loss},
+          "remat_tolerance": f"first step: gradients max |remat - no remat| <= {REMAT_GRAD_GATE} max |no remat|, "
+                             f"loss bit-equal; second step: loss |remat - no remat| <= {REMAT_LOSS_RTOL} |no remat|",
+          "trainable_params": len(trainable), "frozen_params": len(frozen),
+          "trainable_not_moved": [n for n in trainable if not moved[n]][:20], "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: train_vertex checks failed: {checks}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -1245,12 +1535,15 @@ def main() -> int:
     del built
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, smi)
+    torch.cuda.empty_cache()
+    vertex_launches = phase_train_vertex(dev, smi)
     kernels["decoder"]["launches"] = main_launches["decoder"]
     kernels["lbs"]["launches"] = main_launches["lbs"]
     kernels["scan"]["launches"] = b1_launches["scan"]
     kernels["step"]["launches"] = traj_launches["step"]
     for k in ("ffn_train_fwd", "ffn_train_bwd"):
         kernels[k]["launches"] = train_launches[k]
+    kernels["lbs_bwd"]["launches"] = vertex_launches["lbs_bwd"]
     kernels["ffn"]["launches"] = guided_launches["default"]["ffn"]
     kernels["attn"]["launches"] = guided_launches["attn_kernel"]["attn"]
     kernels["tail"]["launches"] = guided_launches["fused_tail"]["tail"]
@@ -1258,8 +1551,8 @@ def main() -> int:
         kernels[k]["launches"] = serving_launches[k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    order = ("decoder", "decoder_flat", "resident", "scan", "step", "lbs", "ffn_train_fwd", "ffn_train_bwd",
-             "ffn", "attn", "tail")
+    order = ("decoder", "decoder_flat", "resident", "scan", "step", "lbs", "lbs_bwd", "ffn_train_fwd",
+             "ffn_train_bwd", "ffn", "attn", "tail")
     emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

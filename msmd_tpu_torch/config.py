@@ -209,6 +209,13 @@ class MSMDConfig:
         return dataclasses.replace(self, **kw)
 
 
+def is_hdtf(dataset_type: str) -> bool:
+    """Whether ``dataset_type`` has the HDTF / FLAME coefficient layout: a
+    54-wide style input, and the vertex-space loss at its own weights
+    (reference: training_script.py:428, style_encoder.py:7-12)."""
+    return dataset_type[:9] == "HDTF_TFHP" or dataset_type == "flame_mead_ravdess"
+
+
 @dataclass(frozen=True)
 class AudioEncoderConfig:
     """wav2vec2 / HuBERT base architecture (facebook/hubert-base-ls960);

@@ -129,8 +129,10 @@ def load_model(model_root, model_name: str, iter_num: str, audio_config: Optiona
     _, model_sd, style_sd, _ = load_reference_pt(ckpt_path)
     model = get_diffusion_model(cfg, audio_config=audio_config, device=dev)
     load_flax_params(model, reference_msmd_to_flax(model_sd, cfg))
-    style_enc = get_style_encoder(cfg).to(dev).eval()
-    load_flax_params(style_enc, reference_style_enc_to_flax(style_sd))
+    style_tree = reference_style_enc_to_flax(style_sd)
+    in_dim = style_tree["input_layers"]["conv_0"]["kernel"].shape[1]  # 54 or 67, as the checkpoint was trained
+    style_enc = get_style_encoder(cfg, input_dim=in_dim).to(dev).eval()
+    load_flax_params(style_enc, style_tree)
     return model, style_enc, cfg
 
 

@@ -1,11 +1,18 @@
-"""The MSMD parameter-space loss suite (the port of ``msmd_tpu/losses.py``;
-reference: utils/common.py:198-454, 769-832, training_script.py:406-438).
+"""The MSMD loss suite (the port of ``msmd_tpu/losses.py``; reference:
+utils/common.py:117-620, 769-832, training_script.py:406-438): the
+parameter-space ``compute_loss_no_vert`` and the vertex-space
+``compute_loss``, which decodes FLAME vertices through the fused decode
+(``ops/kernels/lbs.py::flame_vertices``: K5 and its backward K5 bwd on the
+card) for a ``FusedFlame``, or through ``flame_forward`` for a
+``FlameModel``.
 
 The reference's quirks are kept: every term is halved except head_trans
 (the loop sums two clips); masked means are means over the selected
 elements; the velocity and smoothness masks are the base mask shifted by
-1 and 2 frames; head pose is the last 3 channels; the param-space
-head-transition term is unmasked. The vertex-space ``compute_loss``, the
+1 and 2 frames; the param-space variant takes head pose as the last 3
+channels and an unmasked head-transition term, the vertex-space variant
+head pose at channels 50:53 (the 50-exp HDTF / FLAME layout) and a
+head-transition term masked by the current window's first frames. The
 espnet variant and the auxiliary style-adherence and NT-Xent losses are
 not ported yet.
 """
@@ -15,6 +22,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from msmd_tpu_torch.config import is_hdtf
 
 LOSS_KEYS = ("noise", "vert", "vel", "smooth", "head_angle", "head_vel", "head_smooth", "head_trans")
 
@@ -56,17 +65,23 @@ def _base_mask(cfg, batch_size: int, end_idx: Optional[torch.Tensor], is_startin
     return mask
 
 
-def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int) -> torch.Tensor:
+def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Window-boundary continuity of the head pose: velocities of
     [gt[-3:], pred[:3]] at frames [2:4] vs [1:3], accelerations
-    consecutive-matched; the param-space reference's unmasked means
-    (utils/common.py:352-368, 417)."""
+    consecutive-matched. Without ``mask`` the param-space reference's
+    unmasked means (utils/common.py:352-368, 417); with it the vertex-space
+    reference's means over the current window's first 2 and 3 frames
+    (utils/common.py:585-590)."""
     if n_prev < 3:
         raise ValueError("head_trans loss requires n_prev_motions >= 3")
     trans = torch.cat([head_pose_gt[:, n_prev - 3:n_prev], head_pose_pred[:, n_prev:n_prev + 3]], dim=1)
     vel = trans[:, 1:] - trans[:, :-1]
     accel = vel[:, 1:] - vel[:, :-1]
-    return crit(vel[:, 2:4], vel[:, 1:3]).mean() + crit(accel[:, 1:], accel[:, :-1]).mean()
+    l_vel, l_accel = crit(vel[:, 2:4], vel[:, 1:3]), crit(accel[:, 1:], accel[:, :-1])
+    if mask is None:
+        return l_vel.mean() + l_accel.mean()
+    return _masked_mean(l_vel, mask[:, n_prev:n_prev + 2]) + _masked_mean(l_accel, mask[:, n_prev:n_prev + 3])
 
 
 def compute_loss_no_vert(cfg, is_starting_sample: bool, shape_coef, motion_coef_gt: torch.Tensor,
@@ -126,6 +141,146 @@ def compute_loss_no_vert(cfg, is_starting_sample: bool, shape_coef, motion_coef_
     return out
 
 
+# ---------------------------------------------------------------------------
+# coefficient <-> dict helpers (reference: utils/common.py:117-196)
+# ---------------------------------------------------------------------------
+
+def get_pose_input(coef_dict, rot_repr: str, with_global_pose: bool) -> torch.Tensor:
+    if rot_repr != "aa":
+        raise ValueError(f"Unknown rotation representation: {rot_repr}")
+    pose = coef_dict["pose"] if with_global_pose else coef_dict["pose"][..., -3:]
+    return pose[..., :-2]  # drop the mouth's rotation about y and z
+
+
+def _stat(stats, key: str, like: torch.Tensor) -> torch.Tensor:
+    v = stats[key]
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=like.dtype)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def get_motion_coef(coef_dict, rot_repr: str, with_global_pose: bool = False, norm_stats=None) -> torch.Tensor:
+    if norm_stats is not None:
+        if rot_repr != "aa":
+            raise ValueError(f"Unknown rotation representation {rot_repr}!")
+        coef_dict = {k: (coef_dict[k] - _stat(norm_stats, f"{k}_mean", coef_dict[k]))
+                     / _stat(norm_stats, f"{k}_std", coef_dict[k]) for k in ("exp", "pose")}
+    return torch.cat([coef_dict["exp"], get_pose_input(coef_dict, rot_repr, with_global_pose)], dim=-1)
+
+
+def get_coef_dict(motion_coef: torch.Tensor, shape_coef: Optional[torch.Tensor] = None, denorm_stats=None,
+                  with_global_pose: bool = False, rot_repr: str = "aa") -> Dict[str, torch.Tensor]:
+    """Split an HDTF-layout motion coefficient into {exp (50), pose (6)}
+    (+ shape, broadcast over the frames), denormalised by ``denorm_stats``
+    (reference: utils/common.py:140-173)."""
+    if rot_repr != "aa":
+        raise ValueError(f"Unknown rotation representation {rot_repr}!")
+    coef_dict = {"exp": motion_coef[..., :50]}
+    if with_global_pose:
+        pose = motion_coef[..., 50:]
+    else:
+        pose = torch.cat([torch.zeros_like(motion_coef[..., :3]), motion_coef[..., -1:]], dim=-1)
+    coef_dict["pose"] = torch.cat([pose, torch.zeros_like(motion_coef[..., :2])], dim=-1)
+    if shape_coef is not None:
+        if motion_coef.ndim == 3:
+            if shape_coef.ndim == 2:
+                shape_coef = shape_coef[:, None]
+            if shape_coef.shape[1] == 1:
+                shape_coef = shape_coef.expand(shape_coef.shape[0], motion_coef.shape[1], shape_coef.shape[-1])
+        coef_dict["shape"] = shape_coef
+    if denorm_stats is not None:
+        coef_dict = {k: v * _stat(denorm_stats, f"{k}_std", v) + _stat(denorm_stats, f"{k}_mean", v)
+                     for k, v in coef_dict.items()}
+    if not with_global_pose:  # the JAX package's .at[..., :3].set(0), out of place
+        p = coef_dict["pose"]
+        coef_dict["pose"] = torch.cat([torch.zeros_like(p[..., :3]), p[..., 3:]], dim=-1)
+    return coef_dict
+
+
+def _decode_vertices(flame, shape, exp, pose, ignore_global_rot: bool = False) -> torch.Tensor:
+    """FLAME vertices through the fused decode for a ``FusedFlame``
+    (``flame_vertices``), through ``flame_forward`` for a ``FlameModel``."""
+    from msmd_tpu_torch.models.flame import flame_forward
+    from msmd_tpu_torch.ops.kernels.lbs import FusedFlame, flame_vertices
+
+    if isinstance(flame, FusedFlame):
+        return flame_vertices(flame, shape, exp, pose, ignore_global_rot=ignore_global_rot)
+    return flame_forward(flame, shape, exp, pose, ignore_global_rot=ignore_global_rot)[0]
+
+
+def coef_dict_to_vertices(coef_dict, flame, rot_repr: str = "aa", ignore_global_rot: bool = False) -> torch.Tensor:
+    """Decode a (..., 50)-exp coefficient dict to vertices (..., V, 3)
+    (reference: utils/common.py:176-196) in one call, without the
+    reference's chunking for GPU memory."""
+    if rot_repr != "aa":
+        raise ValueError(f"Unknown rot_repr: {rot_repr}")
+    lead = coef_dict["exp"].shape[:-1]
+    flat = {k: v.reshape(-1, v.shape[-1]) for k, v in coef_dict.items()}
+    verts = _decode_vertices(flame, flat["shape"], flat["exp"], flat["pose"], ignore_global_rot)
+    return verts.reshape(*lead, *verts.shape[1:])
+
+
+def compute_loss(cfg, is_starting_sample: bool, shape_coef: torch.Tensor, motion_coef_gt: torch.Tensor,
+                 noise: torch.Tensor, target: torch.Tensor, prev_motion_coef: Optional[torch.Tensor], coef_stats,
+                 flame, end_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Vertex-space losses (``msmd_tpu/losses.py``:254-327; reference:
+    utils/common.py:456-620): the noise term in coefficient space; vert,
+    vel and smooth on FLAME vertices decoded from the ``coef_stats``
+    denormalised coefficients; head pose at channels 50:53."""
+    crit = _criterion(cfg.criterion)
+    B, dev = motion_coef_gt.shape[0], target.device
+    zero = torch.zeros((), dtype=target.dtype, device=dev)
+    out = {k: zero for k in LOSS_KEYS}
+
+    if cfg.target == "noise":
+        mask = _base_mask(cfg, B, end_idx, True, dev)
+        out["noise"] = _masked_mean(crit(noise, target[:, cfg.n_prev_motions:]), mask) / 2
+        return out
+    if cfg.target != "sample":
+        raise ValueError(f"Unknown diffusion target: {cfg.target}")
+
+    if is_starting_sample:
+        target = target[:, cfg.n_prev_motions:]
+    else:
+        motion_coef_gt = torch.cat([prev_motion_coef, motion_coef_gt], dim=1)
+        if cfg.no_constrain_prev:
+            target = torch.cat([prev_motion_coef, target[:, cfg.n_prev_motions:]], dim=1)
+
+    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev)
+    out["noise"] = _masked_mean(crit(motion_coef_gt, target), mask) / 2
+    diff = lambda t: t[:, 1:] - t[:, :-1]
+
+    if cfg.l_vert > 0 or cfg.l_vel > 0:
+        seq_len = target.shape[1]
+        verts = []
+        for coef in (motion_coef_gt, target):
+            d = get_coef_dict(coef, shape_coef, coef_stats, with_global_pose=False, rot_repr=cfg.rot_repr)
+            v = _decode_vertices(flame, d["shape"].reshape(-1, 100), d["exp"].reshape(-1, 50),
+                                 d["pose"].reshape(-1, 6))
+            verts.append(v.reshape(-1, seq_len, v.shape[-2], 3))
+        verts_gt, verts_pred = verts
+        if cfg.l_vert > 0:
+            out["vert"] = _masked_mean(crit(verts_gt, verts_pred), mask) / 2
+        if cfg.l_vel > 0:
+            out["vel"] = _masked_mean(crit(diff(verts_gt), diff(verts_pred)), mask[:, 1:]) / 2
+        if cfg.l_smooth > 0:
+            vel_pred = diff(verts_pred)
+            out["smooth"] = _masked_mean(crit(vel_pred[:, 1:], vel_pred[:, :-1]), mask[:, 2:]) / 2
+
+    if not cfg.no_head_pose:
+        head_gt, head_pred = motion_coef_gt[..., 50:53], target[..., 50:53]
+        if cfg.l_head_angle > 0:
+            out["head_angle"] = _masked_mean(crit(head_gt, head_pred), mask) / 2
+        if cfg.l_head_vel > 0:
+            out["head_vel"] = _masked_mean(crit(diff(head_gt), diff(head_pred)), mask[:, 1:]) / 2
+        if cfg.l_head_smooth > 0:
+            hvp = diff(head_pred)
+            out["head_smooth"] = _masked_mean(crit(hvp[:, 1:], hvp[:, :-1]), mask[:, 2:]) / 2
+        if not is_starting_sample and cfg.l_head_trans > 0:
+            out["head_trans"] = _head_trans_loss(crit, head_gt, head_pred, cfg.n_prev_motions, mask)
+    return out
+
+
 def _truncate_seq(x: torch.Tensor, end_idx: torch.Tensor, pad_mode: str) -> torch.Tensor:
     """Zero (or replicate the last kept frame) at and after ``end_idx``
     along axis 1, per batch row."""
@@ -163,8 +318,7 @@ def load_loss_weights(cfg) -> Dict[str, float]:
     if not cfg.use_vertex_space:
         w["vel"] *= 4.5e-8
         w["smooth"] *= 4e-7
-    is_hdtf = cfg.dataset_type[:9] == "HDTF_TFHP" or cfg.dataset_type == "flame_mead_ravdess"
-    if not is_hdtf and cfg.use_vertex_space:
+    if not is_hdtf(cfg.dataset_type) and cfg.use_vertex_space:
         w["vert"] *= 1e-7
         w["vel"] *= 1e-7
         w["smooth"] *= 2e-8

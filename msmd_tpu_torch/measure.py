@@ -13,7 +13,10 @@ K8 over 96 entries of 111 rows with 8 heads of 64, and K9 over the motion
 rows Be x 110 = 10560; K1's flat-mask mode at the 2-slot serving shape
 (Be = 4 entries of lq = 111 rows in one tile, the identity band) and at
 the batch-1 shape of a model without the alignment mask (Be = 2, the
-full masked cross-attention), and K2 at K1's batch-48 shapes. A bound is
+full masked cross-attention), and K2 at K1's batch-48 shapes; K5 bwd at a
+vertex-space train step's clip-1 frames (N = 1760, batch 16 x 110), and
+the training configuration at the HDTF vertex-space layout
+(``build_train_path(..., vertex=True)``). A bound is
 the least time an H100
 SXM could take for the same work: the larger of the bytes that must move
 (each input read once, each output written once) over the memory rate
@@ -285,6 +288,35 @@ def lbs_bound(blend: int, skin: int, nbytes: int):
     return times[by] * 1e3, by, bound(blend + skin, nbytes, F32_PEAK)[0]
 
 
+LBS_BWD_FRAMES = 1760  # clip 1's predicted frames a train step decodes: batch 16 x (10 + 100)
+
+
+def lbs_bwd_case(dev, N=LBS_BWD_FRAMES, V=5023, seed=SEED):
+    """Seeded inputs of K5 bwd: (fused, betas_ext, rt, planes (3, N, Vp), g
+    (N, V, 3)), g a seeded cotangent of the vertices."""
+    from msmd_tpu_torch.ops.kernels.lbs import posed_planes
+
+    fused, (betas_ext, rt) = lbs_case(dev, N=N, V=V, seed=seed)
+    g = torch.randn(N, V, 3, generator=torch.Generator().manual_seed(seed + 5)).to(dev)
+    return fused, betas_ext, rt, posed_planes(fused, betas_ext), g
+
+
+def lbs_bwd_work(fused, N: int):
+    """(flops, bytes) of one call of K5 bwd: g, the planes, rt and the
+    weights read once, dv and d_rt written once; per vertex and joint 3
+    products g w_j, and per row d 3 multiply-adds into dR, 1 add into dt and
+    3 multiply-adds into dv."""
+    V, vp = fused.n_verts, fused.vp
+    flops = N * V * 5 * (3 + 3 * (2 * 3 + 1 + 2 * 3))
+    nbytes = 4 * (N * V * 3 + 3 * N * vp + N * 60 + 5 * vp + 3 * N * vp + N * 60)
+    return flops, nbytes
+
+
+def lbs_bwd_bound(fused, N: int):
+    """K5 bwd's bound: (ms, what bounds it), f32 on the CUDA cores."""
+    return bound(*lbs_bwd_work(fused, N), F32_PEAK)
+
+
 def ffn_train_case(dev, rows=1776, F=512, FF=2048, p=0.1, seed=SEED):
     """Seeded K7 inputs: ((x, w1, b1, w2, b2, g, b, seed, p), gbar) with
     bf16 activations and weights in the nn.Linear layout, f32 LayerNorm
@@ -363,32 +395,57 @@ def ffn_train_chain(x, w1, b1, w2, b2, g, b, p):
     return F.layer_norm(x + y, (x.shape[-1],), g.to(x.dtype), b.to(x.dtype))
 
 
-def build_train_path(dev, fused_ffn_train: bool = True, cfg_kw=None, audio_kw=None, seed=SEED):
+VERTEX_TRAIN = dict(dataset_type="HDTF_TFHP", use_vertex_space=True, rot_repr="aa", two_clip_batch=True)
+
+
+def flame_coef_stats(seed=SEED) -> dict:
+    """Seeded denormalisation statistics in the FLAME layout (shape 100,
+    exp 50, pose 6), as NumPy: the real ones come with a dataset."""
+    rs = np.random.RandomState(seed + 9)
+    out = {}
+    for k, n, s in (("shape", 100, 0.3), ("exp", 50, 0.3), ("pose", 6, 0.1)):
+        out[f"{k}_mean"] = (rs.randn(n) * 0.1 * s).astype(np.float32)
+        out[f"{k}_std"] = (s * (0.5 + rs.rand(n))).astype(np.float32)
+    return out
+
+
+def build_train_path(dev, fused_ffn_train: bool = True, cfg_kw=None, audio_kw=None, seed=SEED, vertex=False):
     """The slice's training configuration: the default MSMD (8 x 512
     denoiser, HuBERT-base encoder, VAE2 style encoder) at bf16 over f32
     parameters, batch 16, ``fused_ffn_train``, seeded random weights, the
     audio encoder's freezing policy, Adam, and the two generators. The
     rate is constant (``warm_iter`` 0): the default warm-up starts at
-    rate 0, and a few steps should move every trainable parameter.
-    Returns dict(cfg, model, style_enc, opt, generator, host_generator)."""
+    rate 0, and a few steps should move every trainable parameter. With
+    ``vertex`` the HDTF vertex-space loss (``VERTEX_TRAIN``: the HDTF
+    layout, axis-angle pose, ``two_clip_batch``) over a ``FusedFlame`` of
+    ``synthetic_flame(5023)`` with ``flame_coef_stats``; the style
+    encoder reads the 67-wide motion, as the trainer builds it.
+    Returns dict(cfg, model, style_enc, opt, generator, host_generator,
+    flame, coef_stats)."""
     from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
     from msmd_tpu_torch.models.diffusion import get_diffusion_model
+    from msmd_tpu_torch.models.flame import synthetic_flame
     from msmd_tpu_torch.models.layers import init_params
     from msmd_tpu_torch.models.style_encoder import get_style_encoder
+    from msmd_tpu_torch.ops.kernels.lbs import FusedFlame
     from msmd_tpu_torch.train.loop import TrainOptimizer, freeze
 
     kw = dict(batch_size=TRAIN_BATCH, fused_ffn_train=fused_ffn_train, warm_iter=0, use_indicator=True,
-              use_cross_style=True, seed=seed)
+              use_cross_style=True, seed=seed, **(VERTEX_TRAIN if vertex else {}))
     kw.update(cfg_kw or {})
     cfg = MSMDConfig(**kw)
     model = get_diffusion_model(cfg, audio_config=AudioEncoderConfig(**(audio_kw or {})), dtype=torch.bfloat16,
                                 device=dev, seed=seed)
-    style_enc = init_params(get_style_encoder(cfg, torch.bfloat16), seed + 1).to(dev)
+    style_enc = init_params(get_style_encoder(cfg, torch.bfloat16, input_dim=cfg.motion_feat_dim), seed + 1).to(dev)
     freeze(cfg, model)
     opt = TrainOptimizer(cfg, list(model.parameters()) + list(style_enc.parameters()))
+    flame = coef_stats = None
+    if vertex:
+        flame = FusedFlame(synthetic_flame(n_verts=5023, seed=seed, device=dev))
+        coef_stats = {k: torch.as_tensor(v, device=dev) for k, v in flame_coef_stats(seed).items()}
     return dict(cfg=cfg, model=model, style_enc=style_enc, opt=opt,
                 generator=torch.Generator(device=dev).manual_seed(seed + 1),
-                host_generator=torch.Generator().manual_seed(seed + 2))
+                host_generator=torch.Generator().manual_seed(seed + 2), flame=flame, coef_stats=coef_stats)
 
 
 def train_batch(cfg, dev, batch_size: int = TRAIN_BATCH, seed: int = SEED + 20):
@@ -410,7 +467,8 @@ def run_train_steps(path: dict, batch, steps: int):
     from msmd_tpu_torch.train.loop import train_step
 
     return [train_step(path["cfg"], path["model"], path["style_enc"], path["opt"], batch, path["generator"],
-                       path["host_generator"])["loss"] for _ in range(steps)]
+                       path["host_generator"], path.get("flame"), path.get("coef_stats"))["loss"]
+            for _ in range(steps)]
 
 
 # ---------------------------------------------------------------------------

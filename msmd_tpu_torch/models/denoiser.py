@@ -13,7 +13,8 @@ dropout, the width-1 band stays an identity V-gather when
 ``cfg.identity_band_train`` (the default) and is a masked softmax
 otherwise, the sinusoidal PE takes dropout 0.1 when the PE is not
 learned, and ``cfg.fused_ffn_train`` sends every layer's FFN block through
-K7 (``msmd_tpu/models/denoiser.py``:169-226). In eval mode
+K7 (``msmd_tpu/models/denoiser.py``:169-226); ``cfg.remat_denoiser``
+checkpoints every decoder layer. In eval mode
 ``fused_decoder`` (the sampler's packed weights, memory K/V and masks)
 runs the whole stack through K1 per-entry, K1 flat-mask or K2; otherwise
 the decoder takes ``fused_ffn`` (K6), ``attn_kernel`` (K8) and
@@ -164,7 +165,8 @@ class DenoisingNetwork(nn.Module):
                 memory = torch.cat([prev_audio_feat, audio_feat], dim=1).to(dt)
             feat_out = self.transformer(feats_in, memory, memory_mask, memory_kv, identity_band, rng,
                                         cfg.fused_ffn_train, fused_ffn and rng is None,
-                                        fused_tail and identity_band and memory_kv is not None, attn_kernel)
+                                        fused_tail and identity_band and memory_kv is not None, attn_kernel,
+                                        remat=cfg.remat_denoiser)
 
         decoded = self.motion_dec_2(gelu(self.motion_dec_1(feat_out[:, 1:])))  # (N, L_p + L, D + K)
         K = cfg.num_of_basis

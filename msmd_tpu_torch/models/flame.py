@@ -1,14 +1,21 @@
 """FLAME head model, vertices only (the port of part of
 ``msmd_tpu/models/flame.py``; reference: utils/flame.py:59-244).
 
-The licensed ``generic_model.pkl`` is not shipped; ``synthetic_flame``
-builds a random model with FLAME's joint tree and buffer shapes from
-the same ``np.random.RandomState(seed)`` draws as the JAX package, so
-both packages hold identical buffers for a seed.
+The licensed ``generic_model.pkl`` is not shipped: ``load_flame`` reads it
+where a user has it (chumpy-pickled arrays without chumpy, the shape basis
+sliced to the reference's [:n_shape] + [300:300 + n_exp]), and
+``synthetic_flame`` builds a random model with FLAME's joint tree and
+buffer shapes from the same ``np.random.RandomState(seed)`` draws as the
+JAX package, so both packages hold identical buffers for a seed.
+``load_flame`` keeps the landmark embedding's arrays when given one, but
+the landmark outputs are not ported: ``flame_forward`` returns None for
+them.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
 from dataclasses import dataclass
 from typing import Optional
 
@@ -31,6 +38,13 @@ class FlameModel:
     lbs_weights: torch.Tensor  # (V, J)
     parents: np.ndarray  # (J,) static
     faces: np.ndarray  # (F, 3) static
+    # the landmark embedding, kept for the landmark outputs (not ported)
+    lmk_faces_idx: Optional[torch.Tensor] = None  # (51,)
+    lmk_bary_coords: Optional[torch.Tensor] = None  # (51, 3)
+    dynamic_lmk_faces_idx: Optional[torch.Tensor] = None  # (79, 17)
+    dynamic_lmk_bary_coords: Optional[torch.Tensor] = None  # (79, 17, 3)
+    full_lmk_faces_idx: Optional[torch.Tensor] = None  # (68,)
+    full_lmk_bary_coords: Optional[torch.Tensor] = None  # (68, 3)
 
     @property
     def n_verts(self) -> int:
@@ -39,6 +53,72 @@ class FlameModel:
     @property
     def device(self) -> torch.device:
         return self.v_template.device
+
+
+@dataclass(frozen=True)
+class FLAMEConfig:
+    flame_model_path: Optional[str] = None
+    n_shape: int = 100
+    n_exp: int = 50
+    flame_lmk_embedding_path: Optional[str] = None
+
+
+class _ChumpylessUnpickler(pickle.Unpickler):
+    """Unpickles FLAME's generic_model.pkl without chumpy: a chumpy.Ch
+    becomes an object holding its pickled state (its array in ``.r`` or
+    ``.x``)."""
+
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            class _Ch:
+                def __setstate__(self, state):
+                    self.__dict__.update(state)
+
+            return _Ch
+        if module == "scipy.sparse.csc" and name == "csc_matrix":
+            from scipy.sparse import csc_matrix
+
+            return csc_matrix
+        return super().find_class(module, name)
+
+
+def _to_np(a, dtype=np.float32) -> np.ndarray:
+    if hasattr(a, "todense"):
+        a = np.asarray(a.todense())
+    if hasattr(a, "r"):  # chumpy
+        a = a.r
+    if "x" in getattr(a, "__dict__", {}):
+        a = a.__dict__["x"]
+    return np.asarray(a, dtype=dtype)
+
+
+def load_flame(config: FLAMEConfig, device="cuda") -> FlameModel:
+    """FLAME's buffers from generic_model.pkl (and the landmark embedding's
+    .npy when given) on ``device``, the shape basis sliced to [:n_shape] +
+    [300:300 + n_exp] (reference: utils/flame.py:78-80)."""
+    dev = resolve_device(device)
+    with open(config.flame_model_path, "rb") as f:
+        data = _ChumpylessUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+    shapedirs = _to_np(data["shapedirs"])
+    shapedirs = np.concatenate([shapedirs[:, :, :config.n_shape], shapedirs[:, :, 300:300 + config.n_exp]], axis=2)
+    posedirs = _to_np(data["posedirs"])
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # (P, V * 3)
+    parents = _to_np(data["kintree_table"], np.int64)[0]
+    parents[0] = -1
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    lmk = {}
+    if config.flame_lmk_embedding_path:
+        e = np.load(config.flame_lmk_embedding_path, allow_pickle=True, encoding="latin1")[()]
+        lmk = dict(
+            lmk_faces_idx=t(np.asarray(e["static_lmk_faces_idx"], np.int64)),
+            lmk_bary_coords=t(np.asarray(e["static_lmk_bary_coords"], np.float32)),
+            dynamic_lmk_faces_idx=t(_to_np(e["dynamic_lmk_faces_idx"], np.int64)),
+            dynamic_lmk_bary_coords=t(_to_np(e["dynamic_lmk_bary_coords"], np.float32)),
+            full_lmk_faces_idx=t(np.asarray(e["full_lmk_faces_idx"], np.int64).reshape(-1)),
+            full_lmk_bary_coords=t(np.asarray(e["full_lmk_bary_coords"], np.float32).reshape(-1, 3)),
+        )
+    return FlameModel(t(_to_np(data["v_template"])), t(shapedirs), t(posedirs), t(_to_np(data["J_regressor"])),
+                      t(_to_np(data["weights"])), parents, _to_np(data["f"], np.int64), **lmk)
 
 
 def synthetic_flame(n_verts: int = FLAME_N_VERTS, n_shape: int = 100, n_exp: int = 50, seed: int = 0,

@@ -18,15 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from msmd_tpu_torch.config import is_hdtf
 from msmd_tpu_torch.models.layers import Conv1d, LayerNorm, dropout
 from msmd_tpu_torch.models.transformer import TransformerEncoderLayer
 from msmd_tpu_torch.ops.seq import apply_pe_single_row, sinusoidal_table
 
 
 def style_input_dim(dataset_type: str) -> int:
-    if dataset_type[:9] == "HDTF_TFHP" or dataset_type == "flame_mead_ravdess":
-        return 54
-    return 67
+    return 54 if is_hdtf(dataset_type) else 67
 
 
 class _ConvStem(nn.Module):
@@ -99,7 +98,12 @@ class StyleEncoderVAE2(nn.Module):
         return mu + eps.to(device=mu.device, dtype=mu.dtype) * torch.exp(0.5 * logvar)
 
 
-def get_style_encoder(cfg, dtype=torch.float32) -> StyleEncoderVAE2:
+def get_style_encoder(cfg, dtype=torch.float32, input_dim: Optional[int] = None) -> StyleEncoderVAE2:
     """The factory's default, VAE2 (reference: style_encoder.py:7-12);
-    the VAE is not ported yet."""
-    return StyleEncoderVAE2(d_style=cfg.d_style, input_dim=style_input_dim(cfg.dataset_type), dtype=dtype)
+    the VAE is not ported yet. ``input_dim`` defaults to the reference's
+    width for the dataset (54 on the HDTF / FLAME layouts, else 67); the
+    JAX package's flax convolutions take theirs from the motion they first
+    see, so its training step's encoder reads the 67-wide motion on every
+    layout, and the port's trainer asks for that width."""
+    input_dim = style_input_dim(cfg.dataset_type) if input_dim is None else input_dim
+    return StyleEncoderVAE2(d_style=cfg.d_style, input_dim=input_dim, dtype=dtype)

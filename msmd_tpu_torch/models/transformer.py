@@ -16,6 +16,8 @@ the JAX package:
   scale of the gathered V row, drawn per (batch, row, head); the person
   row keeps real attention-weight dropout.
 
+With ``remat`` (``remat_denoiser``) each training layer is checkpointed and
+recomputed in the backward, drawing the same masks (``_remat_layer``).
 With ``fused_ffn_train`` a training layer's FFN block (FFN, dropout,
 residual, LayerNorm) is the kernel K7 (``ops/kernels/ffn_train.py``),
 with a fresh mask seed drawn from ``rng`` per layer call. In eval mode
@@ -299,12 +301,41 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, x, memory=None, memory_mask=None, memory_kv: Optional[List[KVCache]] = None,
                 cross_identity_band: bool = False, rng: Rng = None, fused_ffn_train: bool = False,
-                fused_ffn: bool = False, fused_tail: bool = False, attn_kernel: bool = False):
+                fused_ffn: bool = False, fused_tail: bool = False, attn_kernel: bool = False,
+                remat: bool = False):
+        """``remat`` (``remat_denoiser``): in a training forward that builds a
+        graph, each layer is checkpointed (``_remat_layer``)."""
+        remat = remat and rng is not None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             kv = memory_kv[i] if memory_kv is not None else None
-            x = layer(x, memory, memory_mask, kv, cross_identity_band, rng, fused_ffn_train,
-                      fused_ffn, fused_tail, attn_kernel)
+            args = (memory, memory_mask, kv, cross_identity_band)
+            flags = (fused_ffn_train, fused_ffn, fused_tail, attn_kernel)
+            x = _remat_layer(layer, x, args, rng, flags) if remat else layer(x, *args, rng, *flags)
         return x
+
+
+def _remat_layer(layer: nn.Module, x: torch.Tensor, args, rng: torch.Generator, flags) -> torch.Tensor:
+    """One decoder layer under ``torch.utils.checkpoint`` (the port of
+    ``nn.remat`` of each layer, ``msmd_tpu/models/transformer.py``:438-475):
+    its activations are recomputed in the backward instead of kept. The
+    layer's dropout masks and K7's seed come from ``rng``, which checkpoint
+    does not restore, so the layer draws from a copy of ``rng``'s state
+    taken before the call, in the forward and again in the recompute, and
+    ``rng`` then moves on as far as the layer drew: the recompute draws the
+    same masks, and the draws after the layer are those without remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    state, used = rng.get_state(), []
+
+    def run(x_):
+        g = torch.Generator(device=rng.device)
+        g.set_state(state)
+        used.append(g)
+        return layer(x_, *args, g, *flags)
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    rng.set_state(used[0].get_state())
+    return out
 
 
 class TransformerEncoderLayer(nn.Module):

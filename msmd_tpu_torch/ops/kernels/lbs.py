@@ -11,6 +11,13 @@ product on the tensor cores at f32 accuracy as three TF32 products
 (3xTF32: each operand split into hi and lo TF32 parts, lo.hi + hi.lo +
 hi.hi summed in f32): ``tf32_split_plain`` and ``skin_tf32_plain`` model
 that arithmetic on the CPU, ``lbs_plan`` picks the kernel's tiles.
+
+The gradient (``FlameSkin``, the port of ``FusedFlame.skin_fn``'s custom
+VJP, ``msmd_tpu/ops/pallas/lbs_kernel.py``:80-108) recomputes the posed
+planes and forms ``d_betas = dv . dirs^T`` with f32 ``torch.matmul``, as
+JAX leaves them to jnp einsums; its skinning terms (``dv``, ``dR``, ``dt``)
+are the kernel K5 bwd (``csrc/lbs_bwd.cu``) on the card and
+``skin_vjp_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -158,6 +165,16 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.load("lbs_bwd")
+    if not getattr(lib, "_msmd_typed", False):
+        lib.msmd_lbs_backward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.msmd_lbs_backward.restype = ctypes.c_int
+        lib.msmd_lbs_bwd_tile.restype = ctypes.c_int
+        lib._msmd_typed = True
+    return lib
+
+
 def _launch(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor, stamps: bool):
     N, dev = betas_ext.shape[0], betas_ext.device
     named = dict(betas_ext=(betas_ext, (N, fused.n_basis)), rt=(rt, (N, N_JOINTS * 12)),
@@ -201,9 +218,86 @@ def lbs_stamps(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> 
     return _launch(fused, betas_ext, rt, stamps=True)[1]
 
 
+def skin_vjp_plain(fused: FusedFlame, planes: torch.Tensor, rt: torch.Tensor, g: torch.Tensor):
+    """The skinning terms of the VJP (JAX's ``bwd``, term for term): posed
+    planes (3, N, Vp), rt (N, 60) and the output's cotangent g (N, V, 3)
+    -> (dv (3, N, Vp), d_rt (N, 60))."""
+    N = rt.shape[0]
+    gp = F.pad(g.permute(2, 0, 1), (0, fused.vp - fused.n_verts))  # (3, N, Vp)
+    R = rt.reshape(N, N_JOINTS, 3, 4)[..., :3]
+    gw = torch.einsum("dbv,jv->dbvj", gp, fused.weights_t)  # (3, N, Vp, J)
+    dv = torch.einsum("dbvj,bjdc->cbv", gw, R)
+    dR = torch.einsum("dbvj,cbv->bjdc", gw, planes)
+    dt = torch.einsum("dbvj->bjd", gw)
+    return dv, torch.cat([dR, dt[..., None]], dim=-1).reshape(N, N_JOINTS * 12)
+
+
+def skin_vjp_cuda(fused: FusedFlame, planes: torch.Tensor, rt: torch.Tensor, g: torch.Tensor):
+    """Launch K5 bwd: ``skin_vjp_plain``'s function on f32 card tensors."""
+    N, V, vp, dev = rt.shape[0], fused.n_verts, fused.vp, rt.device
+    _build.check_args("skin_backward", dev, g=(g, (N, V, 3), torch.float32),
+                      planes=(planes, (3, N, vp), torch.float32), rt=(rt, (N, N_JOINTS * 12), torch.float32),
+                      weights_t=(fused.weights_t, (N_JOINTS, vp), torch.float32))
+    lib = _bwd_lib()
+    tiles = -(-vp // lib.msmd_lbs_bwd_tile())
+    dv = torch.empty(3, N, vp, dtype=torch.float32, device=dev)
+    part = torch.empty(N, tiles, N_JOINTS * 12, dtype=torch.float32, device=dev)
+    d_rt = torch.empty(N, N_JOINTS * 12, dtype=torch.float32, device=dev)
+    rc = lib.msmd_lbs_backward(_build.ptr(g), _build.ptr(planes), _build.ptr(rt), _build.ptr(fused.weights_t),
+                               _build.ptr(dv), _build.ptr(part), _build.ptr(d_rt), N, V, vp, tiles,
+                               _build.stream(dev))
+    _build.check(lib, rc, "skin_backward")
+    return dv, d_rt
+
+
+def posed_planes(fused: FusedFlame, betas_ext: torch.Tensor) -> torch.Tensor:
+    """template + betas_ext . dirs: the posed planes (3, N, Vp), f32."""
+    return (fused.template[:, None, :] + torch.einsum("bk,ckv->cbv", betas_ext, fused.dirs)).contiguous()
+
+
+def skin_backward_plain(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor, g: torch.Tensor):
+    """The VJP of the skinning in plain torch: (d_betas (N, n_basis), d_rt (N, 60))."""
+    dv, d_rt = skin_vjp_plain(fused, posed_planes(fused, betas_ext), rt, g)
+    return torch.einsum("cbv,ckv->bk", dv, fused.dirs), d_rt
+
+
+def skin_backward(fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor, g: torch.Tensor):
+    """The VJP of the skinning: the planes and d_betas by f32 products, the
+    skinning terms by K5 bwd on the card (or its plain version on the CPU)."""
+    if _build.on_cpu("skin_backward", betas_ext):
+        return skin_backward_plain(fused, betas_ext, rt, g)
+    dv, d_rt = skin_vjp_cuda(fused, posed_planes(fused, betas_ext), rt, g.contiguous())
+    skin_backward.launches += 1
+    return torch.einsum("cbv,ckv->bk", dv, fused.dirs), d_rt
+
+
+skin_backward.launches = 0
+
+
+class FlameSkin(torch.autograd.Function):
+    """(betas_ext (N, n_basis), rt (N, 60)) -> verts (N, V, 3): K5 forward
+    on the card (``skin_plain`` on the CPU), ``skin_backward`` as its VJP."""
+
+    @staticmethod
+    def forward(ctx, fused: FusedFlame, betas_ext: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+        ctx.fused = fused
+        ctx.save_for_backward(betas_ext, rt)
+        if _build.on_cpu("flame_vertices", betas_ext):
+            return skin_plain(fused, betas_ext, rt)
+        out = skin_cuda(fused, betas_ext, rt)
+        flame_vertices.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        betas_ext, rt = ctx.saved_tensors
+        d_betas, d_rt = skin_backward(ctx.fused, betas_ext, rt, g.float())
+        return None, d_betas, d_rt
+
+
 def flame_vertices_plain(fused: FusedFlame, shape_params, expression_params, pose_params=None,
                          ignore_global_rot: bool = False) -> torch.Tensor:
-    """``flame_vertices`` with the skinning in plain torch."""
+    """``flame_vertices`` with the skinning in plain torch (under torch autograd)."""
     betas_ext, rt = skin_inputs(fused, shape_params, expression_params, pose_params, ignore_global_rot)
     return skin_plain(fused, betas_ext, rt)
 
@@ -211,16 +305,11 @@ def flame_vertices_plain(fused: FusedFlame, shape_params, expression_params, pos
 def flame_vertices(fused: FusedFlame, shape_params: torch.Tensor, expression_params: torch.Tensor,
                    pose_params: Optional[torch.Tensor] = None, ignore_global_rot: bool = False) -> torch.Tensor:
     """(shape (N, 100), exp (N, 50), pose (N, 6)) -> verts (N, V, 3); the
-    signature of ``flame_vertices_fused``. Tensors on the CPU take the
-    plain version; tensors on the card launch the kernel or raise."""
+    signature of ``flame_vertices_fused``, differentiable in all three
+    (``FlameSkin``). Tensors on the CPU take the plain versions; tensors on
+    the card launch the kernels or raise."""
     betas_ext, rt = skin_inputs(fused, shape_params, expression_params, pose_params, ignore_global_rot)
-    if betas_ext.device.type == "cpu":
-        return skin_plain(fused, betas_ext, rt)
-    if betas_ext.device.type != "cuda":
-        raise ValueError(f"flame_vertices: unsupported device {betas_ext.device}")
-    out = skin_cuda(fused, betas_ext, rt)
-    flame_vertices.launches += 1
-    return out
+    return FlameSkin.apply(fused, betas_ext, rt)
 
 
 flame_vertices.launches = 0

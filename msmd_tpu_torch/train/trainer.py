@@ -1,7 +1,8 @@
 """The training loop around the two-clip step on one device: experiment
 directory, logging, periodic evaluation, checkpoints and resume (the port
 of ``msmd_tpu/train/trainer.py``; reference: training_script.py:49-241
-train(), :244-403 test()). Data and tensor parallelism are not ported.
+train(), :244-403 test()). Data and tensor parallelism are not ported
+(``tp_size > 1`` raises).
 """
 
 from __future__ import annotations
@@ -32,13 +33,13 @@ class Trainer:
     """MSMD and the VAE2 style encoder with seeded random weights on
     ``device`` (default ``"cuda"``; it raises without a card unless the
     caller asks for the CPU), the optimizer, and the two generators of the
-    step: one on the device, one on the host."""
+    step: one on the device, one on the host. ``flame`` (a ``FusedFlame``
+    or a ``FlameModel`` on the device) and ``coef_stats`` (the
+    denormalisation of the FLAME coefficients) feed the vertex-space loss
+    (``msmd_tpu/train/trainer.py``:33-86)."""
 
     def __init__(self, cfg: MSMDConfig, exp_dir, audio_config: Optional[AudioEncoderConfig] = None,
-                 device="cuda"):
-        for flag in ("remat_denoiser", "two_clip_batch"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported")
+                 device="cuda", flame=None, coef_stats: Optional[Dict] = None):
         if cfg.tp_size > 1:
             raise NotImplementedError("tensor parallelism (tp_size > 1) is not ported")
         if audio_config is not None and cfg.audio_encoder_config is None:
@@ -52,7 +53,12 @@ class Trainer:
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.model = get_diffusion_model(cfg, audio_config=audio_config, dtype=dtype, device=self.device,
                                          seed=cfg.seed)
-        self.style_enc = init_params(get_style_encoder(cfg, dtype), cfg.seed + 1).to(self.device)
+        # the encoder reads the motion of the batch, 67 wide on every layout (as JAX's init infers it)
+        self.style_enc = init_params(get_style_encoder(cfg, dtype, input_dim=cfg.motion_feat_dim),
+                                     cfg.seed + 1).to(self.device)
+        self.flame = flame
+        self.coef_stats = None if coef_stats is None else {
+            k: torch.as_tensor(np.asarray(v, np.float32), device=self.device) for k, v in coef_stats.items()}
         freeze(cfg, self.model)
         self.opt = TrainOptimizer(cfg, list(self.model.parameters()) + list(self.style_enc.parameters()))
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
@@ -110,7 +116,7 @@ class Trainer:
         for it in range(self.start_iter, max_iter + 1):
             batch = batch_to(next(train_loader), self.device)
             metrics = train_step(cfg, self.model, self.style_enc, self.opt, batch, self.generator,
-                                 self.host_generator)
+                                 self.host_generator, self.flame, self.coef_stats)
             self.step += 1
             for k, v in metrics.items():  # kept on the device until a log point
                 smooth[k].append(v)
@@ -145,7 +151,8 @@ class Trainer:
         log = defaultdict(list)
         for _ in range(n_rounds):
             for _ in range(n_batches_per_round):
-                metrics = eval_step(self.cfg, self.model, self.style_enc, batch_to(next(val_loader), self.device), gen)
+                metrics = eval_step(self.cfg, self.model, self.style_enc, batch_to(next(val_loader), self.device), gen,
+                                    flame=self.flame, coef_stats=self.coef_stats)
                 for k, v in metrics.items():
                     log[k].append(float(v))
         means = {k: float(np.mean(v)) for k, v in log.items()}

@@ -8,17 +8,28 @@ card). It writes ``<exp_root>/<exp_name>-<stamp>/args.json``, the
 reference checkpoints ``checkpoints/iter_%07d.pt`` (which
 ``python -m msmd_tpu_torch.inference`` and the root ``inference.py`` both
 load) and the port's native checkpoints under ``checkpoints/native``.
-Flags of paths that are not ported (the vertex-space loss, pretrained
-audio weights, profiler traces, remat, the batched two-clip loss, tensor
+With ``--use_vertex_space`` on an HDTF layout the loss decodes FLAME
+vertices from ``--flame_model_path`` (through the fused decode, K5 and its
+backward, with ``--use_fused_lbs``), as the root script wires it
+(training_script.py:144-154). ``--coef_stats_path`` (an .npz or .pkl of
+shape_/exp_/pose_ mean and std in the FLAME layout: 100, 50 and 6 wide)
+denormalises the coefficients before the decode; the JAX script hands the
+train set's normalisation statistics there instead (64 + 3 wide, no
+shape), which its denormalisation cannot read, so the port does not, and
+decodes the coefficients as they are when no file is given. Flags of paths
+that are not ported (pretrained audio weights, profiler traces, tensor
 parallelism) raise when set.
 """
 
 from __future__ import annotations
 
 import argparse
+import pickle
 from datetime import datetime
 from pathlib import Path
 from typing import Optional, Sequence
+
+import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,15 +99,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio_weights", type=str, default=None, help="not ported")
     p.add_argument("--audio_weights_cache", type=str, default=None, help="not ported")
     p.add_argument("--profile_dir", type=str, default=None, help="not ported")
-    p.add_argument("--use_fused_lbs", action="store_true", help="not ported (vertex-space loss)")
+    p.add_argument("--use_fused_lbs", action="store_true",
+                   help="vertex-space loss: decode FLAME vertices through the fused kernel (K5, K5 bwd)")
+    p.add_argument("--coef_stats_path", type=str, default=None,
+                   help="vertex-space loss: FLAME-layout coefficient stats (.npz/.pkl) to denormalise with")
     p.add_argument("--val_batches_cap", type=int, default=0,
                    help="cap batches per periodic-validation round (<= 0: the reference's full epoch)")
     p.add_argument("--fused_ffn_train", action="store_true",
                    help="training FFN block (FFN, dropout, residual, LayerNorm) through the K7 kernel")
     p.add_argument("--identity_band_train", action=argparse.BooleanOptionalAction, default=True,
                    help="identity-band cross-attention in training too (width-1 band)")
-    p.add_argument("--remat_denoiser", action="store_true", help="not ported")
-    p.add_argument("--two_clip_batch", action="store_true", help="not ported")
+    p.add_argument("--remat_denoiser", action="store_true",
+                   help="checkpoint every decoder layer: recompute its activations in the backward")
+    p.add_argument("--two_clip_batch", action="store_true", help="both clips as one 2B-row forward")
     p.add_argument("--tp_size", type=int, default=1, help="not ported beyond 1")
     p.add_argument("--batch_overfit_size", type=int, default=-1, help="overfit smoke mode: dataset of k items")
     p.add_argument("--device", type=str, default="cuda", help="device to run on (cuda or cpu)")
@@ -107,15 +122,23 @@ TINY_AUDIO = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=6
                   conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3), conv_stride=(5, 4, 4))
 
 
+def _load_stats(path) -> dict:
+    """Coefficient statistics from an .npz or a pickled dict."""
+    if str(path).endswith(".npz"):
+        return dict(np.load(path))
+    with open(path, "rb") as f:
+        return dict(pickle.load(f))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    unported = [f"--{n}" for n in ("audio_weights", "profile_dir", "use_fused_lbs") if getattr(args, n)]
-    if args.use_vertex_space and (args.dataset_type[:9] == "HDTF_TFHP" or args.dataset_type == "flame_mead_ravdess"):
-        unported.append("--use_vertex_space on an HDTF layout")
+    unported = [f"--{n}" for n in ("audio_weights", "profile_dir") if getattr(args, n)]
+    if args.tp_size > 1:
+        unported.append("--tp_size > 1")
     if unported:
         raise NotImplementedError("not ported: " + ", ".join(unported))
 
-    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, is_hdtf
     from msmd_tpu_torch.data.pickle_dataset import get_dataset
     from msmd_tpu_torch.device import resolve_device
     from msmd_tpu_torch.train.trainer import Trainer
@@ -129,9 +152,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         exp_dir = Path(args.exp_root) / f"{args.exp_name}-{datetime.now().strftime('%y%m%d_%H%M%S')}"
         exp_dir.mkdir(parents=True, exist_ok=True)
 
+    flame = coef_stats = None
+    if cfg.use_vertex_space and is_hdtf(cfg.dataset_type) and (cfg.l_vert > 0 or cfg.l_vel > 0):
+        from msmd_tpu_torch.models.flame import FLAMEConfig, load_flame
+
+        flame = load_flame(FLAMEConfig(flame_model_path=cfg.flame_model_path), device=dev)
+        if args.use_fused_lbs:
+            from msmd_tpu_torch.ops.kernels.lbs import FusedFlame
+
+            flame = FusedFlame(flame)
+        if cfg.coef_stats_path:
+            coef_stats = _load_stats(cfg.coef_stats_path)
+
     print(f"Loading dataset {cfg.dataset_type} from {cfg.data_root}", flush=True)
     _, _, train_loader, val_loader = get_dataset(cfg, batch_overfit_size=args.batch_overfit_size, seed=cfg.seed)
-    trainer = Trainer(cfg, exp_dir, audio_config=audio_config, device=dev)
+    trainer = Trainer(cfg, exp_dir, audio_config=audio_config, device=dev, flame=flame, coef_stats=coef_stats)
     if args.continue_from:
         start = trainer.maybe_resume(args.continue_from)
         print(f"Resumed from {args.continue_from} at iteration {start}", flush=True)

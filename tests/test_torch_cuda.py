@@ -15,7 +15,9 @@ batch-1 sampler kernels, the training FFN block K7 (forward, and each
 of its seven gradients) and the guided window's layer kernels K6, K8 and
 K9 and each product of their warp-specialized GEMM at bf16, max |err| /
 max |plain| <= 2e-2 (the same bf16 rounding points, other f32 summation
-orders); K7's mask bits exactly; the FLAME decode in f32, atol 1e-4.
+orders); K7's mask bits exactly; the FLAME decode in f32, atol 1e-4, and
+its backward (K5 bwd, and the gradients through ``flame_vertices``) within
+1e-4 of max |plain|.
 """
 
 import pytest
@@ -280,6 +282,68 @@ def test_lbs_kernel_matches_plain(N, V):
     assert kl.flame_vertices.launches == before + 1 and verts.shape == (4, V, 3)
     with pytest.raises(ValueError, match="contiguous"):
         kl.skin_cuda(fused, betas_ext.repeat(1, 2)[:, ::2], rt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", [(1, 37), (3, 1025), (130, 5023), (1760, 5023)])
+def test_lbs_backward_kernel_matches_plain(N, V):
+    """K5 bwd against the skinning terms of the plain VJP: dv and d_rt
+    within 1e-4 of max |plain| (f32, other summation orders), dv zero past
+    V, two calls bit-equal (no atomics), two device kernels a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msmd_tpu_torch.measure import lbs_bwd_case
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    fused, betas_ext, rt, planes, g = lbs_bwd_case(_card(), N=N, V=V, seed=6)
+    got = kl.skin_vjp_cuda(fused, planes, rt, g)
+    want = kl.skin_vjp_plain(fused, planes, rt, g)
+    again = kl.skin_vjp_cuda(fused, planes, rt, g)
+    torch.cuda.synchronize()
+    for name, a, w, c in zip(("dv", "d_rt"), got, want, again):
+        rel = float((a - w).abs().max() / w.abs().max())
+        print(f"N {N} V {V} {name} max|err|/max|plain| {rel:.3g}")
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()) and rel <= 1e-4, name
+        assert torch.equal(a, c), name
+    assert not got[0][:, :, V:].any()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kl.skin_vjp_cuda(fused, planes, rt, g)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "lbs_bwd" in e.name]
+    assert len(kernels) == 2, kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ignore_global_rot", [False, True])
+def test_flame_vertices_carries_its_gradient(ignore_global_rot):
+    """A loss through ``flame_vertices`` (K5 forward, K5 bwd in its VJP) has
+    a grad_fn, and its gradients with respect to shape, exp and pose equal
+    those through ``flame_vertices_plain`` under torch autograd within 1e-4
+    of max |plain|; each wrapper counts its launch."""
+    from msmd_tpu_torch.measure import lbs_case
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    dev = _card()
+    fused, _ = lbs_case(dev, N=1, V=5023, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    leaves = [(torch.randn(300, n, generator=gen) * s).to(dev).requires_grad_(True)
+              for n, s in ((100, 0.3), (50, 0.3), (6, 0.4))]
+    target = torch.randn(300, 5023, 3, generator=gen).to(dev) * 0.1
+    fwd, bwd = kl.flame_vertices.launches, kl.skin_backward.launches
+    loss = ((kl.flame_vertices(fused, *leaves, ignore_global_rot=ignore_global_rot) - target) ** 2).mean()
+    assert loss.grad_fn is not None
+    got = torch.autograd.grad(loss, leaves)
+    assert kl.flame_vertices.launches == fwd + 1 and kl.skin_backward.launches == bwd + 1
+    plain = ((kl.flame_vertices_plain(fused, *leaves, ignore_global_rot=ignore_global_rot) - target) ** 2).mean()
+    want = torch.autograd.grad(plain, leaves)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("shape", "exp", "pose"), got, want):
+        rel = float((a - w).abs().max() / w.abs().max())
+        print(f"d_{name} max|err|/max|plain| {rel:.3g}")
+        assert rel <= 1e-4, name
+    if ignore_global_rot:
+        assert not got[2][:, :3].any()
 
 
 @pytest.mark.cuda
