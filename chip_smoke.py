@@ -3,6 +3,12 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
+Device kernels are read from torch.profiler sessions that
+``measure.profiled`` takes again when the profiler kept fewer kernel
+records than launch calls (it now and then keeps none); the kernels and
+parallel phases report the sessions taken again
+(``profiler_sessions_lost``: kernel records and launch calls of each).
+
 Phases, each printing one JSON line:
 
 1. device: needs ``torch.cuda.is_available()`` (else it exits 1 and prints
@@ -193,6 +199,41 @@ Phases, each printing one JSON line:
    forward 16 a step under remat (each layer's recompute). It prints
    steps/s, the device-busy share of one profiled step and both peaks.
 
+11. parallel (``phase_parallel``), at phase 10's width with
+   ``fused_ffn_train`` (``measure.build_trainer``): a HuBERT-base HF
+   directory (``config.json`` + ``pytorch_model.bin``) written from a
+   second seeded encoder through the port's HF naming, and a
+   ``model.safetensors`` copy by the port's writer, each loaded into the
+   train path as ``--audio_weights`` loads it: every encoder tensor equal
+   to what was written, bit for bit (the positional convolution's
+   weight-norm pair folded by the loader; within 1 ulp of the source).
+   ``Trainer.fit(profile_dir=)`` over 2 iterations writes one trace file
+   that names K5's, K5 bwd's and K7's device kernels and holds a kernel
+   record for every launch call (a fresh trainer's fit is traced again,
+   up to 3 sessions, when the profiler dropped device records);
+   ``device_memory_stats()`` reports a peak. NCCL at world size 1 (a
+   spawned process, PyTorch's deterministic mode): the one-process
+   trainer and the trainer on the data-parallel layout, a warm-up each
+   and ``PAR_STEPS`` steps a turn in the order one, NCCL, NCCL, one;
+   losses and parameters bit-equal; the steps/s of each turn. Two ranks on the one card over gloo (NCCL takes one rank a
+   device): the eval-mode f32 step (the global batch's draws) at dp = 2
+   and at tp = 2, and at dp = 2 the train-mode f32 step with both clips
+   truncated (dropout off; the ranks' frame counts differ), against the
+   one-process step at the CPU tests' bounds;
+   ``PAR_TRAIN_STEPS`` train-mode steps at dp = 2 (a rank K5 4, K5 bwd 2
+   and K7 8 + 8 launches a step, counted by the wrappers; then the device
+   kernels of one more step in torch.profiler) and at tp = 2 (K5 and K5
+   bwd the same, K7 never: the whole-weight kernels stay closed under
+   tensor parallelism), the
+   replicas' parameters equal; ``infer_coeffs`` at R = ``PAR_REPS`` over
+   the two ranks: with the noise pinned to one global draw, each rank's
+   rows against an unsharded call on the same rows of that draw (the same
+   route, K1 flat at Be = 4) within ``PAR_SAMPLE_GATE`` of max |ref|; with
+   the generator's draws, its launches, and its gap to the unsharded call
+   at R (K1 per-entry at Be = 8, another summation order) reported.
+   Every child is joined with a timeout; a failed check or a child's exit
+   code other than 0 fails the phase.
+
 Launch counts are set to 0 just before each path is driven and read just
 after; each path runs a warm-up window first, so the timed run holds no
 one-time set-up. The line before the last is the per-kernel summary
@@ -335,16 +376,12 @@ def _device_ms_per_call(fn, calls: int = 50) -> float:
     """The device time of one call of ``fn``: its kernels' durations in
     torch.profiler over ``calls`` back-to-back calls, summed, over
     ``calls``."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from msmd_tpu_torch.measure import profiled
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(lambda: [fn() for _ in range(calls)])
     return sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
@@ -478,17 +515,9 @@ def _device_launches(call, kernel: str) -> dict:
     """The kernels the card ran in one ``call``, from torch.profiler's
     device events: those of ``kernel`` and the others (the wrapper's own
     torch ops, such as the row-index tensors it builds)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from msmd_tpu_torch.measure import kernel_events, profiled
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "memcpy" not in e.name.lower()
-             and "memset" not in e.name.lower()]
+    names = [e.name for e in kernel_events(profiled(call))]
     ours = sum(kernel in n for n in names)
     return {"kernel": ours, "other_kernels": len(names) - ours}
 
@@ -610,10 +639,12 @@ def phase_kernels(dev, logs):
         out.update(_flat_and_resident_entries(dev, logs))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
-    emit({"phase": "kernels", **out})
-    bad = [k for k, v in out.items() if not v["ok"]]
+    from msmd_tpu_torch.measure import profiled
+
+    emit({"phase": "kernels", **out, "profiler_sessions_lost": profiled.lost})
+    bad = {k: {c: ok for c, ok in v.get("checks", {}).items() if not ok} for k, v in out.items() if not v["ok"]}
     if bad:
-        raise SystemExit(f"chip_smoke: kernel(s) disagree with their plain version: {bad}")
+        raise SystemExit(f"chip_smoke: kernel(s) disagree with their plain version (failed checks): {bad}")
     return out
 
 
@@ -887,9 +918,11 @@ def _k7_entries(dev):
             plain_ms=cuda_ms(plain, 3, warmup=1), bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             library="none: no one call computes it", chain_ms=chain_bwd_ms if bwd else chain_fwd_ms,
             flops=flops, bytes=nbytes,
-            ok=finite and mismatches == 0 and all(v <= GATE for v in gated.values()) and all(equal.values())
-            and per_call == plan["launches"],
+            checks=dict(finite=finite, mask_bits_exact=mismatches == 0,
+                        within_gate=all(v <= GATE for v in gated.values()), bit_equal=all(equal.values()),
+                        planned_launches=per_call == plan["launches"]),
         )
+        entries[key]["ok"] = all(entries[key]["checks"].values())
     return entries
 
 
@@ -1517,6 +1550,442 @@ def phase_train_vertex(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: pretrained audio weights, data and tensor parallelism, sharded
+# sampling and profiler traces
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3  # steps a turn at NCCL world size 1 (two turns a trainer, after a warm-up)
+PAR_TRAIN_STEPS = 2  # train-mode steps a rank at dp = 2 and at tp = 2
+PAR_DET_BATCH = 4  # the deterministic f32 step's global batch
+PAR_REPS = 4  # sharded sampling's repetitions over the two ranks
+PAR_TIMEOUT = 600  # seconds a spawn of ranks may take
+# the CPU tests' bounds (tests/test_torch_parallel.py): loss rtol, gradient max |err| <= 1e-4 max |g| + 1e-6,
+# the updated parameters rtol 3e-3, atol 2e-5 where |g| >= 1e-4 of the largest gradient
+PAR_LOSS_RTOL, PAR_GRAD_REL, PAR_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+PAR_PARAM_RTOL, PAR_PARAM_ATOL, PAR_PARAM_FLOOR = 3e-3, 2e-5, 1e-4
+PAR_SAMPLE_GATE = 1e-5  # max |err| / max |ref| of a rank's rows against the same route unsharded
+TRAIN_KERNELS = {"lbs": "lbs_kernel", "lbs_bwd": "lbs_bwd_kernel", "ffn_train": "gemm_train_kernel"}
+
+
+def _card_setup():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _kernel_events(call, names: dict, agree=lambda whole: whole) -> dict:
+    """How often the card ran each kernel of ``names`` ({key: substring of
+    its device name}) in one ``call``, from torch.profiler (``agree`` as
+    in ``measure.profiled``)."""
+    from msmd_tpu_torch.measure import kernel_events, profiled
+
+    events = [e.name for e in kernel_events(profiled(call, agree=agree))]
+    return {k: sum(sub in n for n in events) for k, sub in names.items()}
+
+
+def _all_ranks(whole: bool) -> bool:
+    """True when the profiler session of every rank of the default group
+    was whole (``measure.profiled``'s ``agree``; a CPU flag, for gloo)."""
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(whole)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _whole(trainer, grads: bool = False) -> dict:
+    """{name: whole tensor} of the trainer's parameters (or gradients) on
+    the card; every rank of its groups takes part."""
+    from msmd_tpu_torch.parallel import tp as tpar
+
+    out = {}
+    for part, module in (("model", trainer.model), ("style", trainer.style_enc)):
+        shards = {id(p): (d, sh) for p, d, sh in tpar.param_shards(module)}
+        for name, p in module.named_parameters():
+            t = p.grad if grads else p.detach()
+            if t is not None:
+                out[f"{part}.{name}"] = (tpar.whole(t, *shards[id(p)]) if id(p) in shards else t).clone()
+    return out
+
+
+def _deterministic(dev, exp_dir, layout, tp, truncated=False):
+    """The eval-mode two-clip loss at f32 (no dropout or truncation; the
+    timesteps, noise, CFG drops and style sample are the global batch's,
+    drawn from one seeded generator) on this rank's rows, its backward and
+    one Adam update (the gradients reduced as the trainer reduces them).
+    With ``truncated`` the train-mode step with the modules' dropout and
+    SpecAugment off, no cross-style swap, and both clips cut at the global
+    batch's ends from the trainer's host generator (the ranks' frame
+    counts differ). Returns (global loss, whole gradients, whole updated
+    parameters)."""
+    import torch
+
+    from msmd_tpu_torch.measure import SEED, build_trainer, train_batch
+    from msmd_tpu_torch.models.layers import SampleRows
+    from msmd_tpu_torch.parallel.mesh import shard_batch
+    from msmd_tpu_torch.train.loop import two_clip_loss
+
+    class EvalModel(torch.nn.Module):  # MSMD with dropout and SpecAugment off in a train-mode step
+        def __init__(self, m):
+            super().__init__()
+            self.m, self.cfg = m, m.cfg
+            self.start_motion_feat, self.start_audio_feat = m.start_motion_feat, m.start_audio_feat
+
+        def forward(self, *a, **kw):
+            return self.m(*a, **dict(kw, train=False))
+
+        def extract_audio_feature(self, audio, frame_num=None, rng=None):
+            return self.m.extract_audio_feature(audio, frame_num)
+
+    class EvalStyle(torch.nn.Module):  # the style encoder without dropout; z from the global draw
+        def __init__(self, e):
+            super().__init__()
+            self.e, self.d_style = e, e.d_style
+
+        def forward(self, x, generator=None, train=False, eps=None):
+            return self.e(x, generator, False, eps=eps)
+
+    cut = dict(trunc_prob1=1.0, trunc_prob2=1.0, prob_cross_style=0.0) if truncated else {}
+    t = build_trainer(dev, exp_dir, layout, batch_size=PAR_DET_BATCH, compute_dtype="float32", tp_size=tp, **cut)
+    batch = train_batch(t.cfg, dev, batch_size=PAR_DET_BATCH, seed=SEED + 40)
+    rows = SampleRows(torch.Generator(device=dev).manual_seed(11), layout.rows(PAR_DET_BATCH), PAR_DET_BATCH)
+    model, style = (EvalModel(t.model), EvalStyle(t.style_enc)) if truncated else (t.model, t.style_enc)
+    total, _ = two_clip_loss(t.cfg, model, style, shard_batch(batch, layout), t.dropout_generator,
+                             t.host_generator, train=truncated, flame=t.flame, coef_stats=t.coef_stats, rows=rows)
+    total.backward()
+    reduce, t.opt.reduce_grads = t.opt.reduce_grads, None
+    if reduce is not None:  # the trainer's reduction, here before the gradients are read
+        reduce(t.opt.params)
+    grads = _whole(t, grads=True)
+    t.opt.step()
+    out = float(layout.average(total.detach())), grads, _whole(t)
+    t.close()
+    return out
+
+
+def _compare_steps(ref, got) -> dict:
+    """The deterministic step against the one-process one, at the CPU
+    tests' bounds."""
+    (rl, rg, rp), (gl, gg, gp) = ref, got
+    if set(gg) != set(rg) or set(gp) != set(rp):
+        return dict(loss=gl, one_process_loss=rl, same_parameters=False, ok=False)
+    grad_gap = max(float((gg[k] - g).abs().max() - PAR_GRAD_REL * g.abs().max()) for k, g in rg.items())
+    top = max(float(g.abs().max()) for g in rg.values())
+    param_gap, checked = 0.0, 0
+    for k, want in rp.items():
+        g = rg.get(k)
+        sure = (g.abs() >= PAR_PARAM_FLOOR * top) if g is not None else None
+        a, b = (gp[k], want) if sure is None else (gp[k][sure], want[sure])
+        param_gap = max(param_gap, float(((a - b).abs() - PAR_PARAM_ATOL - PAR_PARAM_RTOL * b.abs()).max())
+                        if b.numel() else 0.0)
+        checked += int(b.numel())
+    return dict(loss=gl, one_process_loss=rl, loss_rel=abs(gl - rl) / abs(rl),
+                grad_excess=grad_gap, param_excess=param_gap, params_checked=checked, same_parameters=True,
+                ok=abs(gl - rl) <= PAR_LOSS_RTOL * abs(rl) and grad_gap <= PAR_GRAD_ATOL and param_gap <= 0)
+
+
+def _replicas_equal(trainer, layout) -> bool:
+    """Every rank holds the same whole parameters (checksums of rank 0's
+    broadcast and compared, bit for bit)."""
+    import torch
+    import torch.distributed as dist
+
+    sums = torch.stack([torch.stack([v.double().sum(), v.double().abs().sum(), v.double().pow(2).sum()])
+                        for v in _whole(trainer).values()])
+    mine = sums.clone()
+    dist.broadcast(sums, src=0)
+    return bool(torch.equal(sums, mine))
+
+
+def _nccl_world1(tmp):
+    """One rank under NCCL: the one-process trainer and the trainer on the
+    data-parallel layout (its all-reduce over a group of one), from the
+    same seeds, in PyTorch's deterministic mode (an op without a
+    deterministic default may sum in an order that changes between
+    runs): a warm-up step each, then ``PAR_STEPS`` steps a turn in
+    the order one, NCCL, NCCL, one. Returns the losses, whether they and
+    the parameters are bit-equal, and each trainer's steps/s by turn."""
+    import os
+    import warnings
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before this process makes its cuBLAS handles
+    import torch
+
+    from msmd_tpu_torch.measure import build_trainer, train_batch
+    from msmd_tpu_torch.parallel.mesh import Layout, make_layout
+
+    dev = _card_setup()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainers = {"one_process": build_trainer(dev, f"{tmp}/one", Layout()),
+                    "nccl": build_trainer(dev, f"{tmp}/nccl", make_layout(1))}
+        batch = train_batch(trainers["nccl"].cfg, dev)
+        out = {k: dict(losses=[t.train_one(batch)["loss"]], steps_per_s=[], distributed=t.layout.distributed)
+               for k, t in trainers.items()}  # warm-up
+        for name in ("one_process", "nccl", "nccl", "one_process"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name]["losses"] += [trainers[name].train_one(batch)["loss"] for _ in range(PAR_STEPS)]
+            torch.cuda.synchronize()
+            out[name]["steps_per_s"].append(PAR_STEPS / (time.perf_counter() - t0))
+    for o in out.values():
+        o["losses"] = [float(l) for l in o["losses"]]
+    a, b = (_whole(trainers[k]) for k in ("one_process", "nccl"))
+    out["losses_bit_equal"] = out["one_process"]["losses"] == out["nccl"]["losses"]
+    out["params_bit_equal"] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    for t in trainers.values():
+        t.close()
+    return out
+
+
+def _gloo_rank(tmp):
+    """Two ranks on the one card, joined by gloo (NCCL takes one rank a
+    device): the deterministic f32 step at dp = 2 and at tp = 2 against the
+    one-process step; ``PAR_TRAIN_STEPS`` train-mode steps at dp = 2 and
+    at tp = 2 with the kernels each rank ran (the wrappers' counts), then
+    one more step's device events in torch.profiler; sharded ``infer_coeffs``
+    at R = ``PAR_REPS``: with the initial noise and every step's z pinned
+    to one global draw, each rank's rows against an unsharded call of
+    R / 2 repetitions on the rank's rows of that draw (the same kernel
+    route, so equal to ``PAR_SAMPLE_GATE``); and with the draws from the
+    generator (the main path: its launches) against the unsharded call
+    at R on rank 0, whose batch takes another route (K1 per-entry for
+    K1 flat): that gap is reported, not gated."""
+    import torch
+    import torch.distributed as dist
+
+    from msmd_tpu_torch.inference_lib import infer_coeffs
+    from msmd_tpu_torch.measure import SEED, build_trainer, profiled, seeded_audio, train_batch
+    from msmd_tpu_torch.parallel import tp as tpar
+    from msmd_tpu_torch.parallel.mesh import Layout, make_layout
+
+    dev = _card_setup()
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    ref = _deterministic(dev, f"{tmp}/det_one_{rank}", Layout(), 1)  # this rank alone, no group
+    for tp in (1, 2):  # the deterministic step on the layout
+        got = _deterministic(dev, f"{tmp}/det_{tp}_{rank}", make_layout(tp), tp)
+        out[f"deterministic_{'dp2' if tp == 1 else 'tp2'}"] = _compare_steps(ref, got)
+        del got
+        torch.cuda.empty_cache()
+    del ref
+    ref = _deterministic(dev, f"{tmp}/cut_one_{rank}", Layout(), 1, truncated=True)
+    got = _deterministic(dev, f"{tmp}/cut_dp2_{rank}", make_layout(1), 1, truncated=True)
+    out["truncated_dp2"] = _compare_steps(ref, got)
+    del ref, got
+    torch.cuda.empty_cache()
+
+    for tp in (1, 2):  # train mode, bf16, K7 where the layout lets it run
+        layout = make_layout(tp)
+        t = build_trainer(dev, f"{tmp}/train_{tp}_{rank}", layout, tp_size=tp)
+        batch = train_batch(t.cfg, dev)
+        losses = [t.train_one(batch)["loss"]]
+        _reset_counts()
+        losses += [t.train_one(batch)["loss"] for _ in range(PAR_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        launches = _counts()
+        events = _kernel_events(lambda: losses.append(t.train_one(batch)["loss"]), TRAIN_KERNELS, agree=_all_ranks)
+        out[f"train_{'dp2' if tp == 1 else 'tp2'}"] = dict(
+            losses=[float(l) for l in losses], launches=launches, device_kernels_one_step=events,
+            n_sharded=tpar.count_tp_sharded(t.model), replicas_equal=_replicas_equal(t, layout),
+            local_batch=len(layout.rows(t.cfg.batch_size)))
+        t.close()
+        del t
+        torch.cuda.empty_cache()
+
+    # sharded sampling on the bf16 model: R repetitions over the two ranks, one window of 4 s
+    layout = make_layout(1)
+    model = build_trainer(dev, f"{tmp}/sample_{rank}", Layout()).model.eval()
+    cfg = model.cfg
+    audio = seeded_audio(cfg.n_motions / cfg.fps, SEED + 41)
+    style = torch.randn(1, cfg.d_style, generator=torch.Generator().manual_seed(SEED + 42))
+    run = lambda pg, R=PAR_REPS, **kw: infer_coeffs(
+        model, audio, torch.zeros(1, 100), style_feats=style, n_repetitions=R, cfg_scale=1.15,
+        dynamic_threshold=None, device=dev, process_group=pg,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 43), **kw)
+    _reset_counts()
+    t0 = time.perf_counter()
+    sharded = run(layout.dp_group)
+    torch.cuda.synchronize()
+    out["sample"] = dict(wall_s=time.perf_counter() - t0, launches=_counts(), shape=list(sharded.shape),
+                         finite=bool(torch.isfinite(sharded).all()))
+    g = torch.Generator().manual_seed(SEED + 44)  # one global draw of every repetition's noise
+    at_T = torch.randn(PAR_REPS, cfg.n_motions, cfg.motion_feat_dim, generator=g)
+    zs = torch.randn(cfg.n_diff_steps, PAR_REPS, cfg.n_motions, cfg.motion_feat_dim, generator=g)
+    mine = layout.rows(PAR_REPS)
+    pinned = run(layout.dp_group, motion_at_T=at_T, noise_override=zs)
+    alone = run(None, R=PAR_REPS // layout.dp, motion_at_T=at_T[mine], noise_override=zs[:, mine])
+    ref = pinned[mine.to(dev)]
+    out["sample"].update(same_route_rel_err=float((ref - alone).abs().max() / alone.abs().max()),
+                         same_route_bit_equal=bool(torch.equal(ref, alone)), pinned_shape=list(pinned.shape))
+    if rank == 0:
+        _reset_counts()
+        whole = run(None)
+        torch.cuda.synchronize()
+        out["sample"].update(unsharded_launches=_counts(),
+                             cross_route_rel_err=float((sharded - whole).abs().max() / whole.abs().max()),
+                             cross_route_max_abs_err=float((sharded - whole).abs().max()))
+    dist.barrier()
+    out["profiler_sessions_lost"] = profiled.lost
+    return out
+
+
+def _audio_weights(dev, tmp, trainer) -> dict:
+    """A HuBERT-base-width HF directory (config.json + pytorch_model.bin)
+    written from a second seeded encoder through the port's HF naming, and
+    a model.safetensors copy by the port's writer; both loaded into the
+    train path as ``--audio_weights`` does (``Trainer.load_pretrained_audio``).
+    The encoder's tensors must equal what was written, bit for bit: the
+    file's tensors after the loader's conversion (the positional
+    convolution's weight-norm pair folded), and the source encoder's
+    everywhere but that fold (its round trip is within 1 ulp)."""
+    import json as _json
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from msmd_tpu_torch.config import AudioEncoderConfig
+    from msmd_tpu_torch.hf_loader import load_hf_audio_encoder_params, write_safetensors
+    from msmd_tpu_torch.interop import _hf_audio_out, flax_tree
+    from msmd_tpu_torch.measure import SEED
+    from msmd_tpu_torch.models.audio import AudioEncoder
+    from msmd_tpu_torch.models.layers import init_params
+
+    src_tree = flax_tree(init_params(AudioEncoder(AudioEncoderConfig()), SEED + 30))
+    sd = {}
+    _hf_audio_out(sd, "hubert", src_tree)
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    dirs = {"bin": Path(tmp) / "hubert_bin", "safetensors": Path(tmp) / "hubert_st"}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+        (d / "config.json").write_text(_json.dumps({"model_type": "hubert", "hidden_size": 768,
+                                                    "num_hidden_layers": 12, "num_attention_heads": 12}))
+    torch.save(tensors, dirs["bin"] / "pytorch_model.bin")
+    write_safetensors(dirs["safetensors"] / "model.safetensors", tensors)
+    src = _flatten(src_tree)
+    out = {}
+    for name, d in dirs.items():
+        trainer.load_pretrained_audio(str(d))
+        got = _flatten(flax_tree(trainer.model.audio_encoder))
+        written = _flatten(load_hf_audio_encoder_params(str(d)))
+        pos = ("encoder", "pos_conv_embed", "conv", "kernel")
+        out[name] = dict(
+            tensors=len(got), equal_to_file=got.keys() == written.keys()
+            and all(np.array_equal(v, written[k]) for k, v in got.items()),
+            equal_to_source_but_fold=all(np.array_equal(v, src[k]) for k, v in got.items() if k != pos),
+            fold_rel_err=float(np.abs(got[pos] - src[pos]).max() / np.abs(src[pos]).max()),
+            file_mb=sum(f.stat().st_size for f in d.iterdir()) / 2 ** 20)
+    return out
+
+
+def _flatten(tree, pre=()) -> dict:
+    """A nested dict of arrays as {path tuple: f32 NumPy array}."""
+    import numpy as np
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, pre + (k,)))
+        else:
+            out[pre + (k,)] = np.asarray(v, np.float32)
+    return out
+
+
+def phase_parallel(dev, smi):
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from msmd_tpu_torch.config import MSMDConfig
+    from msmd_tpu_torch.measure import LAUNCH_CALL, build_trainer, profiled, train_batch
+    from msmd_tpu_torch.parallel.mesh import spawn
+    from msmd_tpu_torch.utils.profiling import device_memory_stats
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1 and 4: pretrained audio weights into the train path, then a traced fit on it
+        trainer = build_trainer(dev, f"{tmp}/exp")
+        weights = _audio_weights(dev, tmp, trainer)
+        batch = train_batch(trainer.cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        for session in range(3):  # a trace with fewer kernel records than launch calls is taken again
+            if session:
+                trainer = build_trainer(dev, f"{tmp}/exp{session}")
+            trainer.fit(iter([batch, batch]), max_iter=1, profile_dir=f"{tmp}/prof{session}", profile_steps=(0, 1))
+            trainer.close()
+            traces = sorted(Path(f"{tmp}/prof{session}").glob("*.pt.trace.json"))
+            data = traces[0].read_bytes() if traces else b""
+            events = json.loads(data)["traceEvents"] if data else []
+            kernels = sum(e.get("cat") == "kernel" for e in events)
+            launches = sum(e.get("cat") == "cuda_runtime" and bool(LAUNCH_CALL.match(e.get("name", "")))
+                           for e in events)
+            if kernels >= launches:
+                break
+        trace = dict(files=len(traces), mb=len(data) / 2 ** 20, sessions=session + 1, kernels=kernels,
+                     launch_calls=launches, names={k: sub.encode() in data for k, sub in TRAIN_KERNELS.items()})
+        memory = device_memory_stats()
+        del trainer, batch, data, events
+        torch.cuda.empty_cache()
+        # 2: NCCL at world size 1, in a process of its own (deterministic mode, cuBLAS's workspace setting)
+        nccl = spawn(_nccl_world1, 1, "nccl", f"{tmp}/store_nccl", (tmp,), timeout=PAR_TIMEOUT)[0]
+        # 3: two ranks on the one card over gloo
+        ranks = spawn(_gloo_rank, 2, "gloo", f"{tmp}/store_gloo", (tmp,), timeout=PAR_TIMEOUT)
+    per_rank = {f"rank{r['rank']}": r for r in ranks}
+    # a vertex-space step with two_clip_batch: K5 4 and K5 bwd 2 calls (two clips, gt and pred; pred's
+    # backward), K7 once a decoder layer forward and once backward
+    L, T = MSMDConfig().n_layers, PAR_TRAIN_STEPS
+    checks = {
+        "audio_weights_bit_equal": all(w["equal_to_file"] and w["equal_to_source_but_fold"]
+                                       and w["fold_rel_err"] <= 2.4e-7 for w in weights.values()),
+        "trace_written": trace["files"] == 1 and trace["kernels"] >= trace["launch_calls"] > 0
+        and all(trace["names"].values()),
+        "peak_memory_reported": memory.get("cuda:0", {}).get("peak_mb_in_use", 0) > 0,
+        "nccl_world1_bit_equal": nccl["losses_bit_equal"] and nccl["params_bit_equal"] and nccl["nccl"]["distributed"],
+        "dp2_matches_one_process": all(r["deterministic_dp2"]["ok"] for r in ranks),
+        "tp2_matches_one_process": all(r["deterministic_tp2"]["ok"] for r in ranks),
+        "truncated_dp2_matches_one_process": all(r["truncated_dp2"]["ok"] for r in ranks),
+        "dp2_ran_k5_k5bwd_k7": all(r["train_dp2"]["launches"]["lbs"] == 4 * T
+                                   and r["train_dp2"]["launches"]["lbs_bwd"] == 2 * T
+                                   and r["train_dp2"]["launches"]["ffn_train_fwd"] == L * T
+                                   and r["train_dp2"]["launches"]["ffn_train_bwd"] == L * T
+                                   and all(v > 0 for v in r["train_dp2"]["device_kernels_one_step"].values())
+                                   for r in ranks),
+        "tp2_ran_k5_k5bwd_not_k7": all(r["train_tp2"]["launches"]["lbs"] == 4 * T
+                                       and r["train_tp2"]["launches"]["lbs_bwd"] == 2 * T
+                                       and r["train_tp2"]["launches"]["ffn_train_fwd"] == 0
+                                       and r["train_tp2"]["launches"]["ffn_train_bwd"] == 0
+                                       and r["train_tp2"]["device_kernels_one_step"]["ffn_train"] == 0
+                                       and r["train_tp2"]["n_sharded"] > 20 for r in ranks),
+        "replicas_equal": all(r[f"train_{k}"]["replicas_equal"] for r in ranks for k in ("dp2", "tp2")),
+        "finite_losses": all(math.isfinite(l) for r in ranks for k in ("dp2", "tp2")
+                             for l in r[f"train_{k}"]["losses"]),
+        "sharded_sample_matches": all(r["sample"]["same_route_rel_err"] <= PAR_SAMPLE_GATE and r["sample"]["finite"]
+                                      and r["sample"]["shape"][0] == r["sample"]["pinned_shape"][0] == PAR_REPS
+                                      for r in ranks),
+        "sharded_sample_ran_k1_or_k3": all(r["sample"]["launches"]["decoder"] + r["sample"]["launches"]["decoder_flat"]
+                                           + r["sample"]["launches"]["scan"] > 0 for r in ranks),
+    }
+    emit({"phase": "parallel", "audio_weights": weights, "trace": trace, "device_memory": memory, "nccl_world1": nccl,
+          "gloo_ranks": per_rank, "wall_s": time.perf_counter() - t_phase,
+          "profiler_sessions_lost": {"main": profiled.lost,
+                                     **{k: r["profiler_sessions_lost"] for k, r in per_rank.items()}},
+          "tolerance": f"deterministic f32 step vs one process: loss rtol {PAR_LOSS_RTOL}, gradients "
+                       f"{PAR_GRAD_REL} max|g| + {PAR_GRAD_ATOL}, updated parameters rtol {PAR_PARAM_RTOL} atol "
+                       f"{PAR_PARAM_ATOL} where |g| >= {PAR_PARAM_FLOOR} max|g|; sharded sampling, a rank's rows "
+                       f"against the same route unsharded on the same pinned noise, max|err|/max|ref| <= "
+                       f"{PAR_SAMPLE_GATE}", "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: parallel checks failed: {checks}")
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -1537,6 +2006,8 @@ def main() -> int:
     train_launches = phase_train(dev, smi)
     torch.cuda.empty_cache()
     vertex_launches = phase_train_vertex(dev, smi)
+    torch.cuda.empty_cache()
+    phase_parallel(dev, smi)
     kernels["decoder"]["launches"] = main_launches["decoder"]
     kernels["lbs"]["launches"] = main_launches["lbs"]
     kernels["scan"]["launches"] = b1_launches["scan"]

@@ -7,7 +7,8 @@ Audio features of the whole clip are extracted once; fixed
 conditioned on the previous window's last ``n_prev_motions`` frames of
 motion and audio features. The first window's initial noise is reused
 by every later window, the padded tail is masked through the indicator
-and trimmed, and the ``n_repetitions`` seeds run as one batch.
+and trimmed, and the ``n_repetitions`` seeds run as one batch, or, over a
+process group, split over its ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.diffusion import MSMD, get_diffusion_model, sample
+from msmd_tpu_torch.models.layers import SampleRows
 
 
 @torch.no_grad()
@@ -42,13 +44,25 @@ def infer_coeffs(
     generator: Optional[torch.Generator] = None,
     device="cuda",
     resident: bool = False,
+    process_group=None,
 ) -> torch.Tensor:
     """Returns motion coefficients (n_repetitions, clip_frames, 67).
 
     ``motion_at_T`` / ``noise_override`` optionally pin the initial noise
     and the (T, R, n_motions, D) per-step z, reused across windows as the
     reference reuses its noise. ``resident`` is ``sample``'s (K2 where its
-    gate holds)."""
+    gate holds).
+
+    ``process_group`` (a ``torch.distributed`` group, e.g. the layout's
+    data group; the port of ``mesh=``, ``msmd_tpu/inference_lib.py``:47,
+    :76-93): each of its ranks samples ``n_repetitions / world`` of the
+    repetitions (``n_repetitions`` must be a multiple of the group's size,
+    as JAX asserts) and every rank returns all of them. Every rank draws
+    the noise of all repetitions from ``generator`` (in the same state on
+    every rank) and keeps its rows, so the draws are the unsharded call's.
+    Each rank runs its own kernels: the route its batch picks may differ
+    from the unsharded call's (K1's per-entry or flat mode, K3 at one
+    repetition a rank), which then agree to bf16 rounding."""
     dev = resolve_device(device)
     cfg = model.cfg
     audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
@@ -64,10 +78,25 @@ def infer_coeffs(
     audio_feat = model.extract_audio_feature(audio[None], cfg.n_motions * n_subdivision)
 
     R = n_repetitions
+    rows = None
+    if process_group is not None:
+        import torch.distributed as dist
+
+        world, rank = dist.get_world_size(process_group), dist.get_rank(process_group)
+        if generator is None:
+            raise ValueError("sharded sampling draws every rank's noise from one generator: pass generator")
+        if R % world:
+            raise ValueError(f"n_repetitions={R} is not a multiple of the {world} ranks of the process group")
+        rows = SampleRows(generator, torch.arange(rank * (R // world), (rank + 1) * (R // world)), R)
+        if motion_at_T is not None:
+            motion_at_T = torch.as_tensor(motion_at_T)[rows.index]
+        if noise_override is not None:
+            noise_override = torch.as_tensor(noise_override)[:, rows.index]
 
     def expand(x):
         x = torch.as_tensor(x, device=dev)
-        return x.expand(R, *x.shape[1:]) if x.shape[0] == 1 and R > 1 else x
+        x = x.expand(R, *x.shape[1:]) if x.shape[0] == 1 and R > 1 else x
+        return x if rows is None else x[rows.index.to(dev)]
 
     shape_in = expand(torch.as_tensor(shape_coef, dtype=torch.float32))
     coef_list = []
@@ -77,7 +106,7 @@ def infer_coeffs(
         audio_in = expand(audio_feat[:, start: start + cfg.n_motions])
         indicator = None
         if cfg.use_indicator:
-            indicator = torch.ones(R, cfg.n_motions, device=dev)
+            indicator = torch.ones(R if rows is None else len(rows.index), cfg.n_motions, device=dev)
             if i == n_subdivision - 1 and n_padding_frames > 0:
                 indicator[:, -n_padding_frames:] = 0
         style = style_feats[i] if isinstance(style_feats, (list, tuple)) else style_feats
@@ -87,14 +116,19 @@ def infer_coeffs(
             model, audio_in, shape_in, style, prev_motion_feat=prev_motion, prev_audio_feat=prev_audio,
             motion_at_T=motion_at_T if i == 0 else noise, indicator=indicator,
             cfg_mode=cfg_mode, cfg_cond=cfg_cond, cfg_scale=cfg_scale, dynamic_threshold=dynamic_threshold,
-            noise_override=noise_override, generator=generator, device=dev, resident=resident,
+            noise_override=noise_override, generator=generator, device=dev, resident=resident, rows=rows,
         )
         prev_motion = motion[:, -cfg.n_prev_motions:]
         prev_audio = prev_audio_full[:, -cfg.n_prev_motions:]
         if i == n_subdivision - 1 and n_padding_frames > 0:
             motion = motion[:, :-n_padding_frames]
         coef_list.append(motion)
-    return torch.cat(coef_list, dim=1)
+    coefs = torch.cat(coef_list, dim=1)
+    if rows is None:
+        return coefs
+    from msmd_tpu_torch.parallel.mesh import gather_rows
+
+    return gather_rows(coefs, R, process_group)
 
 
 def load_model(model_root, model_name: str, iter_num: str, audio_config: Optional[AudioEncoderConfig] = None,

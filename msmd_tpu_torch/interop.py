@@ -271,6 +271,31 @@ def reference_style_enc_to_flax(sd: StateDict) -> dict:
 # export: the port's modules -> the Flax tree -> reference .pt names
 # ---------------------------------------------------------------------------
 
+def flax_path(module: nn.Module, name: str) -> Tuple[str, ...]:
+    """The Flax tree path of ``module``'s parameter ``name``
+    (``layers.3.q_proj.weight`` -> ``("layers_3", "q_proj", "kernel")``)."""
+    parts = name.split(".")
+    owner = module.get_submodule(".".join(parts[:-1])) if len(parts) > 1 else module
+    path, parent = [], module
+    i = 0
+    while i < len(parts) - 1:
+        child = getattr(parent, parts[i])
+        if isinstance(child, nn.ModuleList):
+            path.append(f"{parts[i]}_{parts[i + 1]}")
+            parent = child[int(parts[i + 1])]
+            i += 2
+        else:
+            path.append(parts[i])
+            parent = child
+            i += 1
+    leaf = parts[-1]
+    if leaf == "weight" and isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+        leaf = "scale"
+    elif leaf == "weight" and isinstance(owner, (nn.Linear, nn.Conv1d)):
+        leaf = "kernel"
+    return tuple(path) + (leaf,)
+
+
 def flax_tree(module: nn.Module, grads: bool = False) -> dict:
     """The inverse of ``load_flax_params``: ``module``'s parameters (or,
     with ``grads``, their ``.grad``; a parameter without one is left out)
@@ -280,28 +305,10 @@ def flax_tree(module: nn.Module, grads: bool = False) -> dict:
         value = p.grad if grads else p
         if value is None:
             continue
-        parts = full.split(".")
-        owner = module.get_submodule(".".join(parts[:-1])) if len(parts) > 1 else module
-        path, parent = [], module
-        i = 0
-        while i < len(parts) - 1:
-            child = getattr(parent, parts[i])
-            if isinstance(child, nn.ModuleList):
-                path.append(f"{parts[i]}_{parts[i + 1]}")
-                parent = child[int(parts[i + 1])]
-                i += 2
-            else:
-                path.append(parts[i])
-                parent = child
-                i += 1
+        *path, leaf = flax_path(module, full)
         arr = value.detach().float().cpu().numpy()
-        leaf = parts[-1]
-        if leaf == "weight" and isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
-            leaf = "scale"
-        elif leaf == "weight" and isinstance(owner, nn.Linear):
-            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
-        elif leaf == "weight" and isinstance(owner, nn.Conv1d):
-            leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 1, 0))
+        if leaf == "kernel":
+            arr = np.ascontiguousarray(arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0))
         node = tree
         for key in path:
             node = node.setdefault(key, {})

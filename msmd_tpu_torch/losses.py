@@ -36,17 +36,35 @@ def _criterion(name: str):
     raise NotImplementedError(f"Criterion {name} not implemented.")
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+class ShareMask:
+    """A rank's row mask (``local``) beside the same mask over the global
+    batch (``whole``) of which the rank holds an equal share of the rows
+    (data parallelism). Slicing slices both."""
+
+    def __init__(self, local: torch.Tensor, whole: torch.Tensor):
+        self.local, self.whole = local, whole
+
+    def __getitem__(self, idx) -> "ShareMask":
+        return ShareMask(self.local[idx], self.whole[idx])
+
+
+def _masked_mean(x: torch.Tensor, mask) -> torch.Tensor:
     """Mean of x over the rows that ``mask`` selects (torch's
     ``x[mask].mean()``, broadcast over x's trailing dims); 0 for an empty
-    mask."""
+    mask. For a ``ShareMask`` the sum over the rank's rows is divided by
+    the rank's share of the global batch's count (the global count times
+    local rows / global rows), so the mean over the ranks of their values
+    is the global batch's masked mean."""
+    whole = None
+    if isinstance(mask, ShareMask):
+        mask, whole = mask.local, mask.whole
     extra = x.ndim - mask.ndim
     m = mask.reshape(mask.shape + (1,) * extra).to(x.dtype)
     per_row = 1
     for n in x.shape[mask.ndim:]:
         per_row *= n
-    denom = torch.clamp(mask.to(x.dtype).sum() * per_row, min=1.0)
-    return (x * m).sum() / denom
+    count = mask.to(x.dtype).sum() if whole is None else whole.to(x.dtype).sum() * (mask.shape[0] / whole.shape[0])
+    return (x * m).sum() / torch.clamp(count * per_row, min=1.0)
 
 
 def compute_kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
@@ -54,7 +72,15 @@ def compute_kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar))
 
 
-def _base_mask(cfg, batch_size: int, end_idx: Optional[torch.Tensor], is_starting_sample: bool, device):
+def _base_mask(cfg, batch_size: int, end_idx: Optional[torch.Tensor], is_starting_sample: bool, device,
+               end_idx_all: Optional[torch.Tensor] = None):
+    """The loss mask of the window's frames (of the previous window's too
+    for a later clip's ``sample`` target); with ``end_idx_all`` (the global
+    batch's ends, of which ``end_idx`` is a rank's equal share) a
+    ``ShareMask``."""
+    if end_idx_all is not None:
+        return ShareMask(_base_mask(cfg, batch_size, end_idx, is_starting_sample, device),
+                         _base_mask(cfg, len(end_idx_all), end_idx_all, is_starting_sample, device))
     if end_idx is None:
         mask = torch.ones(batch_size, cfg.n_motions, dtype=torch.bool, device=device)
     else:
@@ -65,8 +91,7 @@ def _base_mask(cfg, batch_size: int, end_idx: Optional[torch.Tensor], is_startin
     return mask
 
 
-def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int, mask=None) -> torch.Tensor:
     """Window-boundary continuity of the head pose: velocities of
     [gt[-3:], pred[:3]] at frames [2:4] vs [1:3], accelerations
     consecutive-matched. Without ``mask`` the param-space reference's
@@ -86,17 +111,20 @@ def _head_trans_loss(crit, head_pose_gt, head_pose_pred, n_prev: int,
 
 def compute_loss_no_vert(cfg, is_starting_sample: bool, shape_coef, motion_coef_gt: torch.Tensor,
                          noise: torch.Tensor, target: torch.Tensor, prev_motion_coef: Optional[torch.Tensor],
-                         end_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                         end_idx: Optional[torch.Tensor] = None,
+                         end_idx_all: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Parameter-space losses (``msmd_tpu/losses.py``:112-181; reference:
     utils/common.py:198-441). Returns a dict over LOSS_KEYS; absent terms
-    are 0."""
+    are 0. ``end_idx_all``: the global batch's ends when the rows are a
+    rank's share of it (the masked means then take the global count;
+    ``_masked_mean``)."""
     crit = _criterion(cfg.criterion)
     B, dev = motion_coef_gt.shape[0], target.device
     zero = torch.zeros((), dtype=target.dtype, device=dev)
     out = {k: zero for k in LOSS_KEYS}
 
     if cfg.target == "noise":
-        mask = _base_mask(cfg, B, end_idx, True, dev)
+        mask = _base_mask(cfg, B, end_idx, True, dev, end_idx_all)
         out["noise"] = _masked_mean(crit(noise, target[:, cfg.n_prev_motions:]), mask) / 2
         return out
     if cfg.target != "sample":
@@ -109,7 +137,7 @@ def compute_loss_no_vert(cfg, is_starting_sample: bool, shape_coef, motion_coef_
         if cfg.no_constrain_prev:
             target = torch.cat([prev_motion_coef, target[:, cfg.n_prev_motions:]], dim=1)
 
-    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev)
+    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev, end_idx_all)
     out["noise"] = _masked_mean(crit(motion_coef_gt, target), mask) / 2
 
     exp_gt, pose_gt = motion_coef_gt[..., :-3], motion_coef_gt[..., -3:]
@@ -222,18 +250,20 @@ def coef_dict_to_vertices(coef_dict, flame, rot_repr: str = "aa", ignore_global_
 
 def compute_loss(cfg, is_starting_sample: bool, shape_coef: torch.Tensor, motion_coef_gt: torch.Tensor,
                  noise: torch.Tensor, target: torch.Tensor, prev_motion_coef: Optional[torch.Tensor], coef_stats,
-                 flame, end_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                 flame, end_idx: Optional[torch.Tensor] = None,
+                 end_idx_all: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Vertex-space losses (``msmd_tpu/losses.py``:254-327; reference:
     utils/common.py:456-620): the noise term in coefficient space; vert,
     vel and smooth on FLAME vertices decoded from the ``coef_stats``
-    denormalised coefficients; head pose at channels 50:53."""
+    denormalised coefficients; head pose at channels 50:53. ``end_idx_all``
+    as in ``compute_loss_no_vert``."""
     crit = _criterion(cfg.criterion)
     B, dev = motion_coef_gt.shape[0], target.device
     zero = torch.zeros((), dtype=target.dtype, device=dev)
     out = {k: zero for k in LOSS_KEYS}
 
     if cfg.target == "noise":
-        mask = _base_mask(cfg, B, end_idx, True, dev)
+        mask = _base_mask(cfg, B, end_idx, True, dev, end_idx_all)
         out["noise"] = _masked_mean(crit(noise, target[:, cfg.n_prev_motions:]), mask) / 2
         return out
     if cfg.target != "sample":
@@ -246,7 +276,7 @@ def compute_loss(cfg, is_starting_sample: bool, shape_coef: torch.Tensor, motion
         if cfg.no_constrain_prev:
             target = torch.cat([prev_motion_coef, target[:, cfg.n_prev_motions:]], dim=1)
 
-    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev)
+    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev, end_idx_all)
     out["noise"] = _masked_mean(crit(motion_coef_gt, target), mask) / 2
     diff = lambda t: t[:, 1:] - t[:, :-1]
 

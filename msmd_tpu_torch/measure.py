@@ -25,6 +25,8 @@ and the operations over the peak rate of their type (NVIDIA's data sheet).
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -51,6 +53,52 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+LAUNCH_CALL = re.compile(r"^cudaLaunch(Cooperative)?Kernel")  # the runtime's launch calls, as the profiler names them
+
+
+def kernel_events(prof) -> list:
+    """The card's kernel events of a torch.profiler session (no memcpy
+    or memset), in start order."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    return sorted(events, key=lambda e: e.time_range.start)
+
+
+def profiled(fn, tries: int = 3, agree=lambda whole: whole):
+    """A torch.profiler session (CPU and CUDA activity) around one call of
+    ``fn``, ended after a synchronize, whose device records are whole.
+
+    On the H100 (torch 2.11) the profiler now and then keeps a session's
+    host-side launch calls (``cudaLaunchKernelExC``) but none of their
+    kernels' device records, and the next session of the same call whole.
+    A session with fewer kernel events than runtime launch calls is taken
+    again (``fn`` runs again), up to ``tries`` sessions; then this raises.
+    A kernel that fails to launch raises in its wrapper, so a retake never
+    stands in for one that did not run. ``agree`` maps this process's
+    verdict to the one all ranks act on (all retake together when ``fn``
+    runs collectives). ``profiled.lost`` holds (kernel events, launch
+    calls) of each session taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = sum(e.device_type == DeviceType.CPU and bool(LAUNCH_CALL.match(e.name)) for e in prof.events())
+        kernels = len(kernel_events(prof))
+        if agree(kernels >= launches):
+            return prof
+        profiled.lost.append((kernels, launches))
+    raise RuntimeError(f"torch.profiler kept fewer kernel records than launch calls in {tries} sessions")
+
+
+profiled.lost = []
 
 
 L2_FLUSH_BYTES = 256 << 20  # written between calls: five times the H100's 50 MB L2
@@ -446,6 +494,26 @@ def build_train_path(dev, fused_ffn_train: bool = True, cfg_kw=None, audio_kw=No
     return dict(cfg=cfg, model=model, style_enc=style_enc, opt=opt,
                 generator=torch.Generator(device=dev).manual_seed(seed + 1),
                 host_generator=torch.Generator().manual_seed(seed + 2), flame=flame, coef_stats=coef_stats)
+
+
+def build_trainer(dev, exp_dir, layout=None, batch_size: int = TRAIN_BATCH, seed=SEED, **cfg_kw):
+    """A ``Trainer`` of ``build_train_path(..., vertex=True)``'s configuration
+    (the default MSMD at bf16 over f32 parameters, HuBERT-base, the HDTF
+    vertex-space loss over a ``FusedFlame`` of ``synthetic_flame(5023)``,
+    ``two_clip_batch`` and ``fused_ffn_train``, constant rate) on
+    ``layout`` (``parallel.mesh``; default one process). ``cfg_kw``
+    overrides the configuration (``tp_size``, ``compute_dtype``)."""
+    from msmd_tpu_torch.config import MSMDConfig
+    from msmd_tpu_torch.models.flame import synthetic_flame
+    from msmd_tpu_torch.ops.kernels.lbs import FusedFlame
+    from msmd_tpu_torch.train.trainer import Trainer
+
+    kw = dict(batch_size=batch_size, fused_ffn_train=True, warm_iter=0, use_indicator=True, use_cross_style=True,
+              seed=seed, **VERTEX_TRAIN)
+    kw.update(cfg_kw)
+    flame = FusedFlame(synthetic_flame(n_verts=5023, seed=seed, device=dev))
+    return Trainer(MSMDConfig(**kw), exp_dir, device=dev, flame=flame, coef_stats=flame_coef_stats(seed),
+                   layout=layout)
 
 
 def train_batch(cfg, dev, batch_size: int = TRAIN_BATCH, seed: int = SEED + 20):

@@ -110,19 +110,23 @@ class AudioEncoderLayer(nn.Module):
         self.output_dense = Dense(c.intermediate_size, H, dtype=dtype)
         self.final_layer_norm = LayerNorm(H, c.layer_norm_eps, dtype)
 
+    @property
+    def n_heads(self) -> int:
+        return self.c.num_heads
+
     def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         c, p = self.c, self.dropout
         B, L, _ = x.shape
         hd = c.hidden_size // c.num_heads
-        split = lambda t: t.reshape(B, L, c.num_heads, hd)
+        split = lambda t: t.reshape(B, L, -1, hd)  # a tensor-parallel shard holds num_heads / tp heads
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         scale = in_dtype(hd ** -0.5, self.dtype)
         logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
         sm_dt = torch.promote_types(logits.dtype, torch.float32)
         weights = torch.softmax(logits.to(sm_dt), dim=-1).to(self.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, L, c.hidden_size)
+        attn = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, L, -1)
         x = self.layer_norm(x + dropout(self.out_proj(attn), p, rng))
-        h = self.output_dense(dropout(gelu(self.intermediate_dense(x)), p, rng))
+        h = self.output_dense(dropout(gelu(self.intermediate_dense(x)), p, rng, self.intermediate_dense.tp))
         return self.final_layer_norm(x + dropout(h, p, rng))
 
 

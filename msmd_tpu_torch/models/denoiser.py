@@ -22,7 +22,9 @@ the decoder takes ``fused_ffn`` (K6), ``attn_kernel`` (K8) and
 as ``msmd_tpu/models/denoiser.py``:221-226 gates it); see
 ``models/transformer.py``. ``keep_separate`` returns the dynamic part, the
 per-basis static offsets and the alphas apart (the style-basis
-introspection sampler's view).
+introspection sampler's view). A tensor-parallel model
+(``parallel/tp.py``) runs the decoder modules without the kernels: they
+take whole weights.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from msmd_tpu_torch.config import MSMDConfig
 from msmd_tpu_torch.models.layers import Dense, dropout, gelu
 from msmd_tpu_torch.models.transformer import KVCache, TransformerDecoder
 from msmd_tpu_torch.ops.seq import alignment_mask, apply_pe_single_row, sinusoidal_table
+from msmd_tpu_torch.parallel.tp import is_sharded
 
 
 class DiffusionStepEmbedding(nn.Module):
@@ -144,6 +147,9 @@ class DenoisingNetwork(nn.Module):
         if cfg.align_mask_width > 0 and not identity_band:
             memory_mask = alignment_mask(n_prev, n_cur, cfg.align_mask_width)
 
+        whole = not is_sharded(self)  # under tensor parallelism the whole-weight kernels stay closed
+        if fused_decoder is not None and not whole:
+            raise ValueError("the decoder kernels take whole weights: a tensor-parallel model runs the modules")
         if fused_decoder is not None:
             # the decoder-kernel path (``msmd_tpu/models/denoiser.py``:186-217):
             # K2 with ``layer_outer``, else K1 per-entry, or K1 flat-mask
@@ -164,9 +170,9 @@ class DenoisingNetwork(nn.Module):
             if memory_kv is None:
                 memory = torch.cat([prev_audio_feat, audio_feat], dim=1).to(dt)
             feat_out = self.transformer(feats_in, memory, memory_mask, memory_kv, identity_band, rng,
-                                        cfg.fused_ffn_train, fused_ffn and rng is None,
-                                        fused_tail and identity_band and memory_kv is not None, attn_kernel,
-                                        remat=cfg.remat_denoiser)
+                                        cfg.fused_ffn_train and whole, fused_ffn and rng is None and whole,
+                                        fused_tail and identity_band and memory_kv is not None and whole,
+                                        attn_kernel and whole, remat=cfg.remat_denoiser)
 
         decoded = self.motion_dec_2(gelu(self.motion_dec_1(feat_out[:, 1:])))  # (N, L_p + L, D + K)
         K = cfg.num_of_basis

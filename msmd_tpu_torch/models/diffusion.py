@@ -6,7 +6,10 @@ The training forward (``MSMD.forward``, ``msmd_tpu/models/diffusion.py``
 :130-243) extracts the audio features, drops the CFG conditions at the
 reference's rates, draws a timestep and the noise, q-samples, and runs the
 denoiser once. Every draw comes from one ``torch.Generator``; dropout
-draws from it too when ``train``.
+draws from it too when ``train``. A data-parallel rank passes ``rows``
+(``layers.SampleRows``): the per-sample draws are then the global batch's,
+from the ranks' shared generator, and ``sample`` takes the same for
+sharded ``infer_coeffs``.
 
 The sampler stacks the classifier-free-guidance entries on the batch
 axis ([null, +audio, +style], dropping the entries whose mixing
@@ -82,12 +85,13 @@ from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.audio import AudioEncoder
 from msmd_tpu_torch.models.denoiser import DenoisingNetwork
-from msmd_tpu_torch.models.layers import Dense, init_params, uniform
+from msmd_tpu_torch.models.layers import Dense, SampleRows, init_params, per_sample, uniform
 from msmd_tpu_torch.ops.kernels import sampler as kernel_sampler
 from msmd_tpu_torch.ops.kernels.decoder import (build_masks, build_person_mask, build_vmw, pack_decoder_weights,
                                                 pack_memory_kv, person_rows)
 from msmd_tpu_torch.ops.schedule import DiffusionSchedule
 from msmd_tpu_torch.ops.seq import alignment_mask, linear_interpolate, pad_audio
+from msmd_tpu_torch.parallel.tp import is_sharded
 
 
 class MSMD(nn.Module):
@@ -138,6 +142,7 @@ class MSMD(nn.Module):
         train: bool = True,
         noise: Optional[torch.Tensor] = None,
         keep_separate: bool = False,
+        rows: Optional[SampleRows] = None,
     ):
         """The training forward (reference: model.py:146-248). Returns (eps,
         target, motion_feat detached, the audio features before the CFG
@@ -146,9 +151,13 @@ class MSMD(nn.Module):
         their recombination with alpha on all channels, head pose too
         (reference: model.py:239-241). ``time_step`` and ``noise`` fix the
         draws (test hooks, as in the JAX package); the rest come from
-        ``generator``, which also drives dropout when ``train``."""
+        ``generator``, which also drives dropout when ``train``. With
+        ``rows`` (this rank's rows of a data-parallel batch) the CFG drops,
+        the timestep and the noise are drawn for the whole batch from its
+        shared generator, and ``generator`` drives dropout only."""
         cfg = self.cfg
         B = motion_feat.shape[0]
+        dev = motion_feat.device
         rng = generator if train else None
         if audio_or_feat.ndim == 2:
             if audio_or_feat.shape[1] != cfg.n_audio_samples:
@@ -174,7 +183,7 @@ class MSMD(nn.Module):
         if conds and train_with_cfg:
             if len(conds) > 2:
                 raise ValueError("Only support 1 or 2 CFG conditions!")
-            u = lambda: uniform((B,), generator, motion_feat.device)[:, None, None]
+            u = lambda: per_sample(B, generator, rows, lambda n, g: uniform((n,), g, dev))[:, None, None]
             if len(conds) == 1 or cfg.cfg_mode == "independent":
                 null_prob = 0.5 if len(conds) >= 2 else 0.1
                 drop_style, drop_audio = u() < null_prob, u() < null_prob
@@ -189,13 +198,14 @@ class MSMD(nn.Module):
         person_feat = shape_feat if style_feat is None else torch.cat([shape_feat, style_feat.to(shape_feat.dtype)],
                                                                       dim=-1)
         if time_step is None:
-            time_step = _schedule(cfg.n_diff_steps, cfg.diff_schedule).uniform_sample_t(generator, B)
+            sched = _schedule(cfg.n_diff_steps, cfg.diff_schedule)
+            time_step = per_sample(B, generator, rows, lambda n, g: sched.uniform_sample_t(g, n))
         time_step = time_step.to(motion_feat.device)
         # q-sample: x_t = sqrt(ab) x_0 + sqrt(1 - ab) eps (model.py:231-236)
         alpha_bar = _alpha_bars(cfg.n_diff_steps, cfg.diff_schedule, motion_feat.device)[time_step]
         c0, c1 = torch.sqrt(alpha_bar)[:, None, None], torch.sqrt(1.0 - alpha_bar)[:, None, None]
         if noise is None:
-            noise = _randn(tuple(motion_feat.shape), generator, motion_feat.device)
+            noise = per_sample(B, generator, rows, lambda n, g: _randn((n,) + tuple(motion_feat.shape[1:]), g, dev))
         eps = noise.to(device=motion_feat.device, dtype=motion_feat.dtype)
         out = self.denoising_net(c0 * motion_feat + c1 * eps, audio_feat, person_feat, style_feat,
                                  prev_motion_feat, prev_audio_feat, time_step, indicator, rng=rng,
@@ -327,7 +337,8 @@ def _dynamic_threshold(results: torch.Tensor, n_motions: int, dynamic_threshold)
 
 
 def _prepare_sample_inputs(model: MSMD, audio_or_feat, shape_feat, style_feat, prev_motion_feat,
-                           prev_audio_feat, motion_at_T, indicator, cfg_mode, cfg_cond, cfg_scale, generator):
+                           prev_audio_feat, motion_at_T, indicator, cfg_mode, cfg_cond, cfg_scale, generator,
+                           rows: Optional[SampleRows] = None):
     cfg = model.cfg
     B = audio_or_feat.shape[0]
     cfg_mode, cfg_cond, cfg_scale = _normalize_cfg(cfg, cfg_mode, cfg_cond, cfg_scale)
@@ -347,7 +358,8 @@ def _prepare_sample_inputs(model: MSMD, audio_or_feat, shape_feat, style_feat, p
     if prev_audio_feat is None:
         prev_audio_feat = model.start_audio_feat.expand(B, *model.start_audio_feat.shape[1:])
     if motion_at_T is None:
-        motion_at_T = _randn((B, n_motions, cfg.motion_feat_dim), generator, audio_feat.device)
+        motion_at_T = per_sample(B, generator, rows,
+                                 lambda n, g: _randn((n, n_motions, cfg.motion_feat_dim), g, audio_feat.device))
 
     audio_in, person_in, n_entries, coefficients = _build_cfg_stacks(
         model, audio_feat, shape_feat, style_feat, cfg_mode, cfg_cond, cfg_scale)
@@ -525,6 +537,7 @@ def sample(
     attn_kernel: bool = False,
     fused_tail: bool = False,
     resident: bool = False,
+    rows: Optional[SampleRows] = None,
 ):
     """DDPM sampling over t = T..1 (reference: model.py:282-440), and with
     ``guidance_indice``/``guidance_values`` the naive inpainting of
@@ -537,7 +550,11 @@ def sample(
     of the generator's draws (index 0 is the first step, t = T), so tests
     can hand both packages the same noise. ``fused_decoder``,
     ``attn_kernel``, ``fused_tail``, ``resident`` and the routes they open
-    are in the module docstring.
+    are in the module docstring. ``rows``: the batch is this rank's rows of
+    a larger one (sharded ``infer_coeffs``): x_T and every z are drawn for
+    all rows from the shared generator, as the unsharded call draws them,
+    and the rank's rows kept. A tensor-parallel model (``parallel/tp.py``)
+    takes the plain modules: the kernels take whole weights.
 
     Returns (motion (B, n_motions, D) f32, motion_at_T, audio_feat), with
     the full trajectory (T+1, B, n_motions, D; index t holds x_t) in place
@@ -550,7 +567,7 @@ def sample(
     audio_feat, motion_at_T, stacks = _prepare_sample_inputs(
         model, _on(audio_or_feat, dev), _on(shape_feat, dev, torch.float32), _on(style_feat, dev),
         _on(prev_motion_feat, dev), _on(prev_audio_feat, dev), _on(motion_at_T, dev, torch.float32),
-        _on(indicator, dev), cfg_mode, cfg_cond, cfg_scale, generator,
+        _on(indicator, dev), cfg_mode, cfg_cond, cfg_scale, generator, rows,
     )
     noise_override = _on(noise_override, dev, torch.float32)
     B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
@@ -559,11 +576,16 @@ def sample(
     guided = guidance_indice is not None
     n_prev = stacks["prev_motion_in"].shape[1]
     Be, lq = B * E, 1 + n_prev + n_motions
+    if is_sharded(model):  # tensor parallel: a gate on the layout, not on a failure
+        if fused_decoder:
+            raise ValueError("the decoder kernels take whole weights: a tensor-parallel model runs the modules")
+        fused_decoder = False
     if fused_decoder is None:
         fused_decoder = (model.dtype == torch.bfloat16 and not guided
                          and (Be <= 4 or decoder_route(cfg.align_mask_width, Be, lq)[0]))
-    if noise_override is None and B <= 4:
-        noise_override = _randn((T,) + tuple(motion_at_T.shape), generator, dev)
+    z_shape = tuple(motion_at_T.shape[1:])
+    if noise_override is None and (B if rows is None else rows.total) <= 4:
+        noise_override = per_sample(B, generator, rows, lambda n, g: _randn((T, n) + z_shape, g, dev), dim=1)
 
     # At bf16, cast the denoiser's weights once for the whole loop (the
     # modules would cast them at every use; same numbers).
@@ -593,7 +615,8 @@ def sample(
     motion = motion_at_T
     traj = []
     for i, t in enumerate(range(T, 0, -1)):
-        z = noise_override[i] if noise_override is not None else _randn(motion.shape, generator, dev)
+        z = noise_override[i] if noise_override is not None else \
+            per_sample(B, generator, rows, lambda n, g: _randn((n,) + z_shape, g, dev))
         if t <= 1:
             z = torch.zeros_like(z)
 

@@ -72,6 +72,7 @@ from msmd_tpu_torch.ops.kernels.attn import attention_middle
 from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln, prepare_ffn_weights
 from msmd_tpu_torch.ops.kernels.ffn_train import fused_ffn_ln_train
 from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail, prepare_tail_weights
+from msmd_tpu_torch.parallel.tp import copy_to_group
 
 Rng = Optional[torch.Generator]
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (k, v): (B, L, H, Dh)
@@ -99,7 +100,8 @@ class MultiHeadAttention(nn.Module):
         return self.dim // self.n_heads
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        return t.reshape(t.shape[0], t.shape[1], self.n_heads, self.head_dim)
+        # a tensor-parallel shard holds n_heads / tp of the heads
+        return t.reshape(t.shape[0], t.shape[1], -1, self.head_dim)
 
     def project_kv(self, kv_input: torch.Tensor) -> KVCache:
         """K/V projections of a fixed memory."""
@@ -114,10 +116,12 @@ class MultiHeadAttention(nn.Module):
         """q, k and v of a self-attention as one (F, 3F) product with the
         same parameters (``msmd_tpu/models/transformer.py``:71-83): three
         column slices of one (B, L, 3F) tensor."""
-        dt = self.dtype
+        dt, tp = self.dtype, self.q_proj.tp
         w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight]).to(dt)
         b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]).to(dt)
-        return (torch.nn.functional.linear(x.to(dt), w) + b).split(self.dim, dim=-1)
+        if tp is not None:  # three column shards of one input
+            x = copy_to_group(x, tp)
+        return (torch.nn.functional.linear(x.to(dt), w) + b).split(self.q_proj.out_features, dim=-1)
 
     def _attend(self, qh, kh, vh, mask=None, rng: Rng = None) -> torch.Tensor:
         """Scaled-dot-product attention of (B, L, H, Dh) heads, merged to
@@ -125,9 +129,9 @@ class MultiHeadAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", qh * self._scale(), kh.to(self.dtype))
         if mask is not None:
             logits = logits.masked_fill(mask.to(logits.device), torch.finfo(torch.float32).min)
-        weights = dropout(_softmax_f32(logits, self.dtype), self.dropout, rng)
+        weights = dropout(_softmax_f32(logits, self.dtype), self.dropout, rng, self.q_proj.tp, dim=1)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, vh.to(self.dtype))
-        return out.reshape(qh.shape[0], qh.shape[1], self.dim)
+        return out.reshape(qh.shape[0], qh.shape[1], -1)
 
     def self_attn_preproj(self, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode, unmasked self-attention without its out-projection
@@ -143,13 +147,14 @@ class MultiHeadAttention(nn.Module):
 
     def _identity_band(self, q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, rng: Rng) -> torch.Tensor:
         B, Lq, _ = q.shape
-        person = self.person_attend(q[:, :1], kh, vh, rng).reshape(B, 1, self.n_heads, self.head_dim)
+        person = self.person_attend(q[:, :1], kh, vh, rng).reshape(B, 1, -1, self.head_dim)
         motion = vh.to(self.dtype)
         if rng is not None and self.dropout > 0.0:
-            keep = uniform((B, kh.shape[1], self.n_heads, 1), rng, q.device) < 1.0 - self.dropout
+            keep = uniform((B, kh.shape[1], vh.shape[2], 1), rng, q.device, self.q_proj.tp, dim=2) \
+                < 1.0 - self.dropout
             motion = motion * keep.to(self.dtype) / in_dtype(1.0 - self.dropout, self.dtype)
         out = torch.cat([person, motion], dim=1)
-        return self.out_proj(out.reshape(B, Lq, self.dim))
+        return self.out_proj(out.reshape(B, Lq, -1))
 
     def forward(
         self,
@@ -192,7 +197,7 @@ class FeedForward(nn.Module):
         self.linear2 = Dense(hidden_dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, rng: Rng = None) -> torch.Tensor:
-        return self.linear2(dropout(gelu(self.linear1(x)), self.dropout, rng))
+        return self.linear2(dropout(gelu(self.linear1(x)), self.dropout, rng, self.linear1.tp))
 
 
 class TransformerDecoderLayer(nn.Module):

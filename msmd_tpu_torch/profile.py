@@ -179,13 +179,11 @@ def _phase_split(stamps, names, launches: int) -> dict:
 
 
 def profile_device_ms(fn) -> dict:
-    """Device milliseconds by kernel of one run of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device milliseconds by kernel of one run of ``fn``, from a session
+    with every kernel's device record (``measure.profiled``)."""
+    from msmd_tpu_torch.measure import profiled
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _device_ms_by_kernel(prof)
+    return _device_ms_by_kernel(profiled(fn))
 
 
 def _train_host_split(path: dict, batch) -> dict:
@@ -375,19 +373,11 @@ def compare(dev) -> None:
 def _device_events(fn, calls: int) -> list:
     """(kernel, us) of each device kernel of ``calls`` back-to-back calls of
     ``fn``, in launch order (no memcpy or memset)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from msmd_tpu_torch.measure import kernel_events, profiled
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-    events.sort(key=lambda e: e.time_range.start)
-    return [(_short(e.name), e.time_range.elapsed_us()) for e in events]
+    prof = profiled(lambda: [fn() for _ in range(calls)])
+    return [(_short(e.name), e.time_range.elapsed_us()) for e in kernel_events(prof)]
 
 
 def ffn_train_split(dev, calls: int = 5) -> None:

@@ -17,7 +17,9 @@ card in slot-indexed tensors and only the generated motion fetched. At a
 bf16 model the round's shape picks the decoder kernel: 48 slots (Be = 96
 with two CFG entries) run K1 per-entry (K2 with ``resident=True``), 2
 slots (Be = 4) K1's flat-mask mode, 1 slot the batch-1 kernel K3.
-Multi-device serving is not ported.
+``MotionGenerator.generate(process_group=...)`` splits a request's
+repetitions over the ranks of a process group (one process per device);
+the batcher serves one device.
 
 Example:
     gen = MotionGenerator.from_experiment(root, name, "0470000", coef_stats)
@@ -77,17 +79,19 @@ class MotionGenerator:
         return self.style_enc.sample(clip, generator=self._generator(seed))
 
     def generate(self, audio_16k: np.ndarray, style_motion: Optional[np.ndarray] = None, n_repetitions: int = 1,
-                 cfg_scale: float = 1.4, seed: int = 0,
-                 style_normalized: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+                 cfg_scale: float = 1.4, seed: int = 0, style_normalized: bool = False,
+                 process_group=None) -> Tuple[np.ndarray, np.ndarray]:
         """16 kHz audio (L,) -> (denormalised expression codes (R, T, 64),
-        head rotations (R, T, 3))."""
+        head rotations (R, T, 3)). ``process_group``: the repetitions split
+        over its ranks, each rank returning all of them
+        (``infer_coeffs``; ``msmd_tpu/serving.py``:84-98's ``mesh``)."""
         audio = np.asarray(audio_16k, np.float32)
         audio = (audio - audio.mean()) / (audio.std() + 1e-5)
         style = self.encode_style(style_motion, seed, style_normalized) if style_motion is not None else None
         coefs = infer_coeffs(
             self.model, audio, torch.zeros(1, 100), audio_unit=self.cfg.audio_unit, style_feats=style,
             n_repetitions=n_repetitions, cfg_scale=cfg_scale, dynamic_threshold=None,
-            generator=self._generator(seed), device=self.device,
+            generator=self._generator(seed), device=self.device, process_group=process_group,
         ).float().cpu().numpy()
         s = self.coef_stats
         exp_code = coefs[..., :-3] * s["exp_std"] + s["exp_mean"]

@@ -2,9 +2,13 @@
 (reference: training_script.py:446-515):
 
     python -m msmd_tpu_torch.training_script --exp_name ... --data_root ... [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N -m msmd_tpu_torch.training_script ... [--tp_size T]
 
 The same flags plus ``--device`` (default ``cuda``; it raises without a
-card). It writes ``<exp_root>/<exp_name>-<stamp>/args.json``, the
+card). Under ``torchrun`` every rank runs this script: data parallel over
+N / T ranks (``--batch_size`` is the global batch) and, with ``--tp_size
+T``, tensor parallel over groups of T ranks (``train/trainer.py``); NCCL
+on the card, gloo on the CPU. It writes ``<exp_root>/<exp_name>-<stamp>/args.json``, the
 reference checkpoints ``checkpoints/iter_%07d.pt`` (which
 ``python -m msmd_tpu_torch.inference`` and the root ``inference.py`` both
 load) and the port's native checkpoints under ``checkpoints/native``.
@@ -16,9 +20,11 @@ shape_/exp_/pose_ mean and std in the FLAME layout: 100, 50 and 6 wide)
 denormalises the coefficients before the decode; the JAX script hands the
 train set's normalisation statistics there instead (64 + 3 wide, no
 shape), which its denormalisation cannot read, so the port does not, and
-decodes the coefficients as they are when no file is given. Flags of paths
-that are not ported (pretrained audio weights, profiler traces, tensor
-parallelism) raise when set.
+decodes the coefficients as they are when no file is given.
+``--audio_weights`` (a local HF directory, or a model name under
+``--audio_weights_cache``) loads a pretrained audio encoder
+(``hf_loader.py``) before any resume; ``--profile_dir`` writes a profiler
+trace of iterations 10-15 there (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,9 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--flame_model_path", type=str, default=None)
     p.add_argument("--tiny_audio_encoder", action="store_true", help="debug-size audio encoder (tests)")
-    p.add_argument("--audio_weights", type=str, default=None, help="not ported")
-    p.add_argument("--audio_weights_cache", type=str, default=None, help="not ported")
-    p.add_argument("--profile_dir", type=str, default=None, help="not ported")
+    p.add_argument("--audio_weights", type=str, default=None,
+                   help="local HF dir (or cache root) with pretrained wav2vec2/hubert weights")
+    p.add_argument("--audio_weights_cache", type=str, default=None, help="HF cache root for --audio_weights")
+    p.add_argument("--profile_dir", type=str, default=None, help="write a torch.profiler trace of steps 10-15 here")
     p.add_argument("--use_fused_lbs", action="store_true",
                    help="vertex-space loss: decode FLAME vertices through the fused kernel (K5, K5 bwd)")
     p.add_argument("--coef_stats_path", type=str, default=None,
@@ -112,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat_denoiser", action="store_true",
                    help="checkpoint every decoder layer: recompute its activations in the backward")
     p.add_argument("--two_clip_batch", action="store_true", help="both clips as one 2B-row forward")
-    p.add_argument("--tp_size", type=int, default=1, help="not ported beyond 1")
+    p.add_argument("--tp_size", type=int, default=1,
+                   help="tensor-parallel group size (ranks under torchrun; the rest is data parallel)")
     p.add_argument("--batch_overfit_size", type=int, default=-1, help="overfit smoke mode: dataset of k items")
     p.add_argument("--device", type=str, default="cuda", help="device to run on (cuda or cpu)")
     return p
@@ -132,25 +141,26 @@ def _load_stats(path) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    unported = [f"--{n}" for n in ("audio_weights", "profile_dir") if getattr(args, n)]
-    if args.tp_size > 1:
-        unported.append("--tp_size > 1")
-    if unported:
-        raise NotImplementedError("not ported: " + ", ".join(unported))
 
     from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, is_hdtf
     from msmd_tpu_torch.data.pickle_dataset import get_dataset
     from msmd_tpu_torch.device import resolve_device
+    from msmd_tpu_torch.parallel.mesh import make_layout
     from msmd_tpu_torch.train.trainer import Trainer
 
     dev = resolve_device(args.device)
+    layout = make_layout(args.tp_size, backend="nccl" if dev.type == "cuda" else "gloo")
+    if layout.distributed and dev.type == "cuda":
+        dev = torch.device("cuda", layout.local_rank)
     cfg = MSMDConfig.from_dict(vars(args))
     audio_config = AudioEncoderConfig(**TINY_AUDIO) if args.tiny_audio_encoder else None
     if args.continue_from:
         exp_dir = Path(args.continue_from)
-    else:
-        exp_dir = Path(args.exp_root) / f"{args.exp_name}-{datetime.now().strftime('%y%m%d_%H%M%S')}"
-        exp_dir.mkdir(parents=True, exist_ok=True)
+    else:  # rank 0 names the experiment
+        stamp = layout.broadcast_object(datetime.now().strftime('%y%m%d_%H%M%S'))
+        exp_dir = Path(args.exp_root) / f"{args.exp_name}-{stamp}"
+        if layout.is_main:
+            exp_dir.mkdir(parents=True, exist_ok=True)
 
     flame = coef_stats = None
     if cfg.use_vertex_space and is_hdtf(cfg.dataset_type) and (cfg.l_vert > 0 or cfg.l_vel > 0):
@@ -164,24 +174,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if cfg.coef_stats_path:
             coef_stats = _load_stats(cfg.coef_stats_path)
 
-    print(f"Loading dataset {cfg.dataset_type} from {cfg.data_root}", flush=True)
+    say = print if layout.is_main else (lambda *a, **k: None)
+    say(f"Loading dataset {cfg.dataset_type} from {cfg.data_root}", flush=True)
     _, _, train_loader, val_loader = get_dataset(cfg, batch_overfit_size=args.batch_overfit_size, seed=cfg.seed)
-    trainer = Trainer(cfg, exp_dir, audio_config=audio_config, device=dev, flame=flame, coef_stats=coef_stats)
+    trainer = Trainer(cfg, exp_dir, audio_config=audio_config, device=dev, flame=flame, coef_stats=coef_stats,
+                      layout=layout)
+    if args.audio_weights:
+        trainer.load_pretrained_audio(args.audio_weights, args.audio_weights_cache)
+        say(f"Loaded pretrained audio-encoder weights from {args.audio_weights}", flush=True)
     if args.continue_from:
         start = trainer.maybe_resume(args.continue_from)
-        print(f"Resumed from {args.continue_from} at iteration {start}", flush=True)
+        say(f"Resumed from {args.continue_from} at iteration {start}", flush=True)
     n_params = sum(p.numel() for m in (trainer.model, trainer.style_enc) for p in m.parameters())
-    print(f"Experiment dir: {exp_dir} | params: {n_params:,} | device: {dev}", flush=True)
+    say(f"Experiment dir: {exp_dir} | params: {n_params:,} on this rank | device: {dev} | ranks: "
+        f"{layout.world} (dp {layout.dp} x tp {layout.tp})", flush=True)
     try:
         if args.mode == "train":
-            trainer.cfg.save_args_json(exp_dir)
-            trainer.fit(train_loader, val_loader)
+            if layout.is_main:
+                trainer.cfg.save_args_json(exp_dir)
+            trainer.fit(train_loader, val_loader, profile_dir=args.profile_dir)
         else:
             metrics = trainer.evaluate(val_loader, trainer.start_iter, n_rounds=5, mode="test", do_save=True)
-            print("Test results:")
+            say("Test results:")
             for k, v in metrics.items():
-                print(f"{k}: {v:.4f}")
+                say(f"{k}: {v:.4f}")
     finally:
+        trainer.close()
         train_loader.close()
         val_loader.close()
 

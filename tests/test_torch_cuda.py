@@ -257,10 +257,7 @@ def test_lbs_kernel_matches_plain(N, V):
     tile to more tiles than SMs (a block then takes several): within 1e-5 of the f32 plain version (one TF32
     product would miss it), finite, two calls bit-equal, the plan's two
     device kernels a call; the public entry point counts its launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from msmd_tpu_torch.measure import lbs_case
+    from msmd_tpu_torch.measure import kernel_events, lbs_case, profiled
     from msmd_tpu_torch.ops.kernels import lbs as kl
 
     fused, (betas_ext, rt) = lbs_case(_card(), N=N, V=V, seed=3)
@@ -271,10 +268,7 @@ def test_lbs_kernel_matches_plain(N, V):
     assert got.shape == (N, V, 3) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.equal(got, kl.skin_cuda(fused, betas_ext, rt))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        kl.skin_cuda(fused, betas_ext, rt)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "lbs" in e.name]
+    kernels = [e.name for e in kernel_events(profiled(lambda: kl.skin_cuda(fused, betas_ext, rt))) if "lbs" in e.name]
     assert len(kernels) == kl.lbs_plan(N, V)["launches"], kernels
     before = kl.flame_vertices.launches
     z = torch.zeros(4, 100, device=betas_ext.device)
@@ -290,10 +284,7 @@ def test_lbs_backward_kernel_matches_plain(N, V):
     """K5 bwd against the skinning terms of the plain VJP: dv and d_rt
     within 1e-4 of max |plain| (f32, other summation orders), dv zero past
     V, two calls bit-equal (no atomics), two device kernels a call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from msmd_tpu_torch.measure import lbs_bwd_case
+    from msmd_tpu_torch.measure import kernel_events, lbs_bwd_case, profiled
     from msmd_tpu_torch.ops.kernels import lbs as kl
 
     fused, betas_ext, rt, planes, g = lbs_bwd_case(_card(), N=N, V=V, seed=6)
@@ -307,10 +298,8 @@ def test_lbs_backward_kernel_matches_plain(N, V):
         assert a.shape == w.shape and bool(torch.isfinite(a).all()) and rel <= 1e-4, name
         assert torch.equal(a, c), name
     assert not got[0][:, :, V:].any()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        kl.skin_vjp_cuda(fused, planes, rt, g)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "lbs_bwd" in e.name]
+    kernels = [e.name for e in kernel_events(profiled(lambda: kl.skin_vjp_cuda(fused, planes, rt, g)))
+               if "lbs_bwd" in e.name]
     assert len(kernels) == 2, kernels
 
 
@@ -628,10 +617,7 @@ def test_ffn_train_launches_per_call(rows, F, FF, route):
     """One forward and one backward call run the plan's launches on the
     card (device kernels in torch.profiler): 2 and 6 on the wgmma route,
     3 and 15 on the wmma chain that the small shapes keep."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from msmd_tpu_torch.measure import ffn_train_case
+    from msmd_tpu_torch.measure import ffn_train_case, kernel_events, profiled
     from msmd_tpu_torch.ops.kernels import ffn_train as k7
 
     args, gbar = ffn_train_case(_card(), rows=rows, F=F, FF=FF, seed=8)
@@ -640,12 +626,7 @@ def test_ffn_train_launches_per_call(rows, F, FF, route):
         plan = k7.ffn_train_plan(rows, F, FF, backward)
         assert plan["route"] == route
         call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        kernels = [e.name for e in kernel_events(profiled(call))]
         assert len(kernels) == plan["launches"], kernels
         if route == "wgmma":
             assert all("gemm_train_kernel" in n or "ffn_reduce_kernel" in n for n in kernels), kernels
@@ -918,3 +899,58 @@ def test_guided_layer_call_launches_no_weight_cast(route):
             layer(x, **kw)
     name = "k6" if route == "fused_ffn" else "k9"
     assert layer._kernel_weights[name][1] is not prepared[name][1] and casts.seen
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_step_is_bit_equal(tmp_path):
+    """Three train steps of the trainer on a data-parallel layout under
+    NCCL at world size 1 (its gradient all-reduce over a group of one)
+    equal the one-process trainer's, losses and parameters bit for bit
+    (in a process of its own, in PyTorch's deterministic mode)."""
+    from msmd_tpu_torch.parallel.mesh import spawn
+
+    import torch_parallel_workers as W
+
+    _card()
+    out = spawn(W.nccl_world1, 1, "nccl", str(tmp_path / "store"), (str(tmp_path), 3), timeout=600)[0]
+    assert out["distributed"] and out["losses"][0] == out["losses"][1]
+    assert out["params_bit_equal"] and all(torch.isfinite(torch.tensor(out["losses"][0])))
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_on_the_card(tmp_path):
+    from msmd_tpu_torch.hf_loader import read_safetensors, write_safetensors
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    tensors = {"w": torch.randn(768, 3072, generator=g), "b": torch.randn(3072, generator=g).to(torch.bfloat16),
+               "i": torch.arange(10, dtype=torch.int64)}
+    write_safetensors(tmp_path / "m.safetensors", tensors)
+    got = read_safetensors(tmp_path / "m.safetensors", device=dev)
+    assert set(got) == set(tensors)
+    for k, v in tensors.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 100, 67, 512, 1), (32, 200, 768, 768, 16)])
+def test_conv_backward_is_bit_equal_across_calls(shape):
+    """The port's Conv1d takes cuDNN's deterministic backward: the style
+    encoder's first convolution (67 -> 512, batch 2B = 32 of a train step)
+    and HuBERT's grouped positional one give the same gradients twice."""
+    from msmd_tpu_torch.models.layers import Conv1d
+
+    dev = _card()
+    B, L, cin, cout, groups = shape
+    conv = Conv1d(cin, cout, 3, padding=1, groups=groups).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(B, L, cin, device=dev, generator=g)
+    gy = torch.randn(B, L, cout, device=dev, generator=g)
+    grads = []
+    for _ in range(3):
+        xr = x.clone().requires_grad_(True)
+        conv.zero_grad(set_to_none=True)
+        conv(xr).backward(gy)
+        grads.append((xr.grad.clone(), conv.weight.grad.clone()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[0], grads[0][0]) and torch.equal(a[1], grads[0][1]) for a in grads[1:])

@@ -98,3 +98,23 @@ def test_loss_weights_match_jax(kw):
 def test_masked_mean_of_an_empty_mask_is_zero():
     x = torch.ones(2, 3, 4)
     assert float(tl._masked_mean(x, torch.zeros(2, 3, dtype=torch.bool))) == 0.0
+
+
+@pytest.mark.parametrize("target", ["sample", "noise"])
+@pytest.mark.parametrize("starting", [True, False])
+def test_rank_shares_of_a_truncated_batch_average_to_jax(target, starting):
+    """Two data-parallel ranks' losses on their halves of a truncated batch
+    (``end_idx_all``: the global ends), averaged, equal JAX's loss on the
+    whole batch, though the halves hold different frame counts."""
+    jc, tc = _cfgs(target=target)
+    rs = np.random.RandomState(11)
+    B, n, P = 4, jc.n_motions, jc.n_prev_motions
+    gt, noise = rs.randn(B, n, 67).astype(np.float32), rs.randn(B, n, 67).astype(np.float32)
+    pred, prev = rs.randn(B, P + n, 67).astype(np.float32), rs.randn(B, P, 67).astype(np.float32)
+    end = np.array([2, 3, n, 9], np.int32)
+    want = jl.compute_loss_no_vert(jc, starting, None, gt, noise, pred, prev, None, None, jnp.asarray(end))
+    t = torch.from_numpy
+    halves = [tl.compute_loss_no_vert(tc, starting, None, t(gt[r]), t(noise[r]), t(pred[r]), t(prev[r]),
+                                      t(end[r]).long(), t(end).long()) for r in (slice(0, 2), slice(2, 4))]
+    for k in want:
+        _close((halves[0][k] + halves[1][k]) / 2, want[k])

@@ -11,7 +11,8 @@ tiny geometry, on the port's synthetic dataset:
   identical parameters from it;
 - ``python -m msmd_tpu_torch.inference --device cpu`` runs on it;
 - a native resume continues the step and update counts where they were;
-- the CLI twin trains with ``--device cpu`` and refuses what it does not port.
+- the CLI twin trains with ``--device cpu``, and takes pretrained audio
+  weights, a profiler trace and tensor parallelism over two gloo ranks.
 """
 
 import pickle
@@ -168,8 +169,52 @@ def test_training_cli_twin_runs_on_the_cpu(trained, tmp_path):
     assert cfg.fused_ffn_train and cfg.audio_encoder_config["hidden_size"] == 32
 
 
-def test_training_cli_twin_refuses_unported_paths(tmp_path):
+def test_training_cli_twin_refuses_unported_paths(trained, tmp_path):
+    """The flags this test once saw refused now run (the name is kept):
+    ``--audio_weights`` with ``--audio_weights_cache`` (an HF cache layout
+    of a seeded encoder, written through the port's HF naming and its
+    safetensors writer) and ``--profile_dir`` in one run, whose checkpoint
+    holds the written encoder in its frozen parameters and whose trace
+    file is on disk; and ``--tp_size 2`` under two gloo ranks, which writes
+    one checkpoint that the port's ``load_model`` reads."""
+    from msmd_tpu_torch.hf_loader import write_safetensors
+    from msmd_tpu_torch.inference_lib import load_model
+    from msmd_tpu_torch.interop import _hf_audio_out
+    from msmd_tpu_torch.models.audio import AudioEncoder, audio_param_trainable
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.parallel.mesh import spawn
     from msmd_tpu_torch.training_script import main
 
-    with pytest.raises(NotImplementedError, match="audio_weights"):
-        main(["--exp_name", "x", "--data_root", str(tmp_path), "--audio_weights", "w", "--device", "cpu"])
+    import torch_parallel_workers as W
+
+    root, _, _ = trained
+    enc = init_params(AudioEncoder(AudioEncoderConfig(**TINY_AUDIO)), 7)
+    sd = {}
+    _hf_audio_out(sd, "hubert", flax_tree(enc))
+    snap = tmp_path / "hf" / "models--org--tiny" / "snapshots" / "rev0"
+    snap.mkdir(parents=True)
+    write_safetensors(snap / "model.safetensors", {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()})
+    (snap / "config.json").write_text('{"model_type": "hubert"}')
+    flags = ["--data_root", str(root / "data"), "--dataset_type", "tinyset", "--batch_size", "2", "--val_iter", "0",
+             "--feature_dim", "16", "--n_heads", "2", "--n_layers", "1", "--mlp_ratio", "2", "--d_style", "16",
+             "--n_motions", "8", "--n_prev_motions", "4", "--n_diff_steps", "2", "--num_of_basis", "2",
+             "--use_indicator", "--use_cross_style", "--tiny_audio_encoder", "--compute_dtype", "float32",
+             "--fused_ffn_train", "--device", "cpu"]
+    main(flags + ["--exp_name", "hf", "--exp_root", str(tmp_path / "exps"), "--max_iter", "10", "--save_iter", "100",
+                  "--log_iter", "5", "--audio_weights", "org/tiny", "--audio_weights_cache", str(tmp_path / "hf"),
+                  "--profile_dir", str(tmp_path / "prof")])
+    (run,) = list((tmp_path / "exps").iterdir())
+    assert list((tmp_path / "prof").glob("*.pt.trace.json"))
+    model, _, cfg = load_model(tmp_path / "exps", run.name, "0000010", device="cpu")
+    frozen = [n for n, _ in enc.named_parameters() if not audio_param_trainable(cfg.audio_model, n)]
+    assert frozen
+    for name in frozen:
+        assert torch.equal(model.audio_encoder.get_parameter(name), enc.get_parameter(name)), name
+
+    spawn(W.cli, 2, "gloo", str(tmp_path / "store"),
+          (flags + ["--exp_name", "tp", "--exp_root", str(tmp_path / "tp"), "--max_iter", "1", "--save_iter", "1",
+                    "--log_iter", "1", "--tp_size", "2"],), timeout=240)
+    (run,) = list((tmp_path / "tp").iterdir())
+    assert sorted(p.name for p in (run / "checkpoints").glob("iter_*.pt")) == ["iter_0000001.pt"]
+    model, _, cfg = load_model(tmp_path / "tp", run.name, "0000001", device="cpu")
+    assert cfg.tp_size == 2 and model.denoising_net.transformer.layers[0].ffn.linear1.weight.shape == (32, 16)
