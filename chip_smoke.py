@@ -4,10 +4,13 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Device kernels are read from torch.profiler sessions that
-``measure.profiled`` takes again when the profiler kept fewer kernel
-records than launch calls (it now and then keeps none); the kernels and
-parallel phases report the sessions taken again
-(``profiler_sessions_lost``: kernel records and launch calls of each).
+``measure.profiled`` pads with idle host time at both ends and takes
+again, up to ``measure.PROFILE_TRIES`` times, when the profiler kept fewer
+kernel records than launch calls (in some stretches of a process it
+keeps none for most sessions); the kernels and parallel phases report the
+sessions taken again (``profiler_sessions_lost``: kernel records and
+launch calls of each), and phase parallel takes its traced fit up to
+``TRACE_SESSIONS`` times.
 
 Phases, each printing one JSON line:
 
@@ -118,6 +121,30 @@ Phases, each printing one JSON line:
      these rows) and on the wmma tile of earlier PRs, each gated at max
      |err| / max |plain| <= 2e-2 against the plain product, with ms and
      TFLOP/s beside ``torch.nn.functional.linear`` at the same shape.
+   - K8's f32 mode (``attention_middle_f32``; the style encoders'
+     self-attention at inference) at the style clip's shapes, 100 rows an
+     entry, F 512, 8 heads of 64, at B = 1 (``attn_f32``, one clip) and B =
+     16 (``attn_f32_b16``, a train batch's eval-mode encode): max |err| /
+     max |plain| <= 1e-5 against the plain version at f32 with TF32 off,
+     two calls bit-equal, one device kernel a call in torch.profiler;
+     timed warm, with the L2 flushed and by device time alone, beside its
+     f32 bound (67 TFLOP/s) and ``scaled_dot_product_attention`` at f32 on
+     the same tensors (``library_ms``; a yardstick the port never calls).
+12. library (``phase_library``, after phase 11; listed here beside the
+   kernels it checks): the model library off the main paths,
+   f32 unless named. The flagship-width VAE and VAE2 style encoders (512
+   features, d_style 256) on a seeded 100-frame clip at batch 16 against
+   the same modules on the CPU (z, mu, logvar within 1e-5 of max |CPU|;
+   the VAE's z 2 x d_style wide; no kernel launched); VAE2 with
+   ``attn_kernel`` at f32 at batch 1 and 16 (K8's f32 mode once a call and
+   no other kernel, within 1e-5 of the plain route) and at bf16 (K8's bf16
+   mode once a call, within 2e-2); ``flame_forward`` with ``return_lm2d``
+   and ``return_lm3d`` on ``synthetic_flame(5023)`` at B = 100 (head yaws
+   across -60..60 degrees): the dynamic contour's indices equal to the
+   CPU's, the landmarks within 1e-5, no kernel launched;
+   ``flame_tex_forward`` at size 256 on a basis drawn from a
+   ``torch.Generator`` against the CPU, within 1e-5 of max |CPU|. Its
+   K8 f32 launch counts are the ``launches`` of the two K8 f32 entries.
 4. main_path: the flagship bf16 MSMD (8 x 512 denoiser, HuBERT-base
    12 x 768 encoder, 500 DDPM steps) and the VAE2 style encoder with
    seeded random weights; ``infer_coeffs`` on 8 s of seeded audio
@@ -248,6 +275,8 @@ import math
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 AUDIO_SECONDS = 8.0
 GATE = 2e-2  # max |err| / max |plain| at bf16
@@ -470,6 +499,56 @@ def _guided_entries(dev):
     return entries
 
 
+K8_F32_GATE = 1e-5  # max |err| / max |plain| of K8's f32 mode (f32 sums in other orders)
+STYLE_CLIP = 100  # frames of the style clip the encoders read (inference.py's 4 s at 25 fps)
+K8_F32_BATCHES = {"attn_f32": 1, "attn_f32_b16": 16}  # inference's one clip; a train batch's eval-mode encode
+
+
+def _k8_f32_entries(dev):
+    """K8's f32 mode (the style encoders' attention: 100 rows an entry, F
+    512, 8 heads of 64, q, k, v the column slices of one f32 projection) at
+    B = 1 and B = 16 against the plain version at f32 with TF32 off: max
+    |err| / max |plain| <= 1e-5, two calls bit-equal, one device kernel a
+    call in torch.profiler; timed warm, with the L2 flushed and by device
+    time alone, beside its f32 bound and ``scaled_dot_product_attention`` at
+    f32 on the same tensors (a yardstick the port never calls)."""
+    import torch
+
+    from msmd_tpu_torch.measure import F32_PEAK, attn_case, bound, cuda_ms, cuda_ms_flushed, sdpa_call
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    out = {}
+    with torch.no_grad():
+        for key, B in K8_F32_BATCHES.items():
+            q, k, v, H = attn_case(dev, B=B, lq=STYLE_CLIP, seed=B + 50, dtype=torch.float32)
+            call = lambda: k8.attention_middle(q, k, v, H)
+            got, again, want = call(), call(), k8.attention_middle_plain(q, k, v, H)
+            torch.cuda.synchronize()
+            rel = _rel(got, want)
+            launched = _device_launches(call, "attn_f32_kernel")
+            flops, nbytes = k8.attn_work(B, STYLE_CLIP, q.shape[2], torch.float32)
+            bound_ms, bound_by = bound(flops, nbytes, F32_PEAK)
+            ms = cuda_ms(call, GUIDED_ITERS, GUIDED_WARMUP)
+            sdpa, heads = sdpa_call(q, k, v, H)
+            checks = {"finite": bool(torch.isfinite(got).all()), "dtype": got.dtype == torch.float32,
+                      "gate": rel <= K8_F32_GATE, "bit_equal_across_calls": bool(torch.equal(got, again)),
+                      "one_launch_a_call": launched["kernel"] == 1}
+            out[key] = dict(
+                name=k8.attention_middle_f32.__name__, route="cuda", source="msmd_tpu_torch/csrc/attn.cu",
+                replaces="msmd_tpu/ops/pallas/attn_kernel.py:88", entries=B, lq=STYLE_CLIP, heads=H,
+                max_abs_err=float((got - want).abs().max()), rel_err=rel,
+                tolerance=f"max|err|/max|plain| <= {K8_F32_GATE}", ms=ms,
+                ms_l2_flushed=cuda_ms_flushed(call, 50), device_ms=_device_ms_per_call(call),
+                plain_ms=cuda_ms(lambda: k8.attention_middle_plain(q, k, v, H), 20, warmup=2),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(sdpa, GUIDED_ITERS, GUIDED_WARMUP),
+                library="scaled_dot_product_attention (f32)", library_ms_l2_flushed=cuda_ms_flushed(sdpa, 50),
+                library_device_ms=_device_ms_per_call(sdpa), flops=flops, bytes=nbytes,
+                device_kernels_per_call=launched, plan=k8.attn_f32_plan(B, STYLE_CLIP, H), checks=checks,
+                ok=all(checks.values()))
+            del q, k, v, got, again, want, heads
+    return out
+
+
 def _product_entries(dev, Be, lq, F, L, FF):
     """K1's four large products alone at its shapes, on the route K1 takes
     (the Hopper GEMM at these rows) and on the wmma tile, each against the
@@ -639,6 +718,7 @@ def phase_kernels(dev, logs):
         out.update(_flat_and_resident_entries(dev, logs))
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
+        out.update(_k8_f32_entries(dev))
     from msmd_tpu_torch.measure import profiled
 
     emit({"phase": "kernels", **out, "profiler_sessions_lost": profiled.lost})
@@ -945,7 +1025,7 @@ def _counted():
             "step": ks.fused_sampler_step, "lbs": kl.flame_vertices, "lbs_bwd": kl.skin_backward,
             "ffn_train_fwd": k7.ffn_train_forward,
             "ffn_train_bwd": k7.ffn_train_backward, "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle,
-            "tail": k9.fused_layer_tail}
+            "attn_f32": k8.attention_middle_f32, "tail": k9.fused_layer_tail}
 
 
 def _reset_counts():
@@ -981,6 +1061,142 @@ def _finite(*ts) -> bool:
     import torch
 
     return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+LIBRARY_GATE = 1e-5  # max |err| / max |reference| of the f32 library checks
+LIBRARY_BATCH = 16
+LANDMARK_FRAMES = 100
+TEX_SIZE = 256
+
+
+def _library_encoders(dev):
+    """Checks 1-3 of ``phase_library``: the flagship-width VAE and VAE2 on
+    the card against the same modules on the CPU; VAE2 with
+    ``attn_kernel`` at f32 (K8's f32 mode, at B = 1 and 16) and at bf16
+    (K8's bf16 mode) against the plain route on the card."""
+    import copy
+
+    import torch
+
+    from msmd_tpu_torch.config import MSMDConfig
+    from msmd_tpu_torch.measure import SEED
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.models.style_encoder import get_style_encoder
+
+    cfg = MSMDConfig()
+    rs = np.random.RandomState(SEED + 60)
+    clip = torch.as_tensor(rs.randn(LIBRARY_BATCH, STYLE_CLIP, cfg.motion_feat_dim).astype(np.float32))
+    out, counts, cards = {}, {}, {}
+    with torch.no_grad():
+        for style in ("vae", "vae2"):
+            cpu = init_params(get_style_encoder(cfg, style, input_dim=cfg.motion_feat_dim), SEED + 61).eval()
+            card = cards[style] = copy.deepcopy(cpu).to(dev)
+            eps = torch.as_tensor(rs.randn(LIBRARY_BATCH, cpu.z_dim).astype(np.float32))
+            want = cpu(clip, eps=eps)
+            _reset_counts()
+            got = card(clip.to(dev), eps=eps.to(dev))
+            torch.cuda.synchronize()
+            counts[f"{style}_cpu_vs_card"] = _counts()
+            out[f"{style}_cpu_vs_card_rel_err"] = max(_rel(g.cpu(), w) for g, w in zip(got, want))
+            out[f"{style}_z_width"] = got[0].shape[1]
+        vae2 = cards["vae2"]
+        for B in sorted(K8_F32_BATCHES.values()):
+            x = clip[:B].to(dev)
+            want = vae2.encode_mean(x)
+            _reset_counts()
+            got = vae2.encode_mean(x, attn_kernel=True)
+            torch.cuda.synchronize()
+            counts[f"f32_attn_kernel_b{B}"] = _counts()
+            out[f"f32_attn_kernel_b{B}_rel_err"] = _rel(got, want)
+        bf16 = init_params(get_style_encoder(cfg, "vae2", torch.bfloat16, input_dim=cfg.motion_feat_dim),
+                           SEED + 61).to(dev).eval()
+        x = clip.to(dev)
+        want = bf16.encode_mean(x).float()
+        _reset_counts()
+        got = bf16.encode_mean(x, attn_kernel=True).float()
+        torch.cuda.synchronize()
+        counts["bf16_attn_kernel"] = _counts()
+        out["bf16_attn_kernel_rel_err"] = _rel(got, want)
+        out["finite"] = _finite(got)
+    only = lambda c, key: c[key] == 1 and all(v == 0 for k, v in c.items() if k != key)
+    checks = {
+        **{f"{s}_card_vs_cpu": out[f"{s}_cpu_vs_card_rel_err"] <= LIBRARY_GATE for s in ("vae", "vae2")},
+        "vae_z_is_2_d_style": out["vae_z_width"] == 2 * cfg.d_style,
+        "vae2_z_is_d_style": out["vae2_z_width"] == cfg.d_style,
+        "encoders_launch_no_kernel": all(not any(counts[f"{s}_cpu_vs_card"].values()) for s in ("vae", "vae2")),
+        **{f"f32_attn_kernel_b{B}": out[f"f32_attn_kernel_b{B}_rel_err"] <= LIBRARY_GATE
+           and only(counts[f"f32_attn_kernel_b{B}"], "attn_f32") for B in K8_F32_BATCHES.values()},
+        "bf16_attn_kernel": out["bf16_attn_kernel_rel_err"] <= GATE and only(counts["bf16_attn_kernel"], "attn")
+        and out["finite"],
+    }
+    return out, counts, checks
+
+
+def _library_flame(dev):
+    """Checks 4-5 of ``phase_library``: ``flame_forward``'s landmarks on
+    ``synthetic_flame(5023)`` at B = 100 (head yaws across -60..60 degrees)
+    and ``flame_tex_forward`` at 256 on a basis drawn from a
+    ``torch.Generator``, each on the card against the CPU."""
+    import torch
+
+    from msmd_tpu_torch.measure import SEED
+    from msmd_tpu_torch.models import flame as fl
+
+    out = {}
+    rs = np.random.RandomState(SEED + 62)
+    B = LANDMARK_FRAMES
+    coefs = [rs.randn(B, n).astype(np.float32) * s for n, s in ((100, 0.3), (50, 0.3), (6, 0.2))]
+    coefs[2][:, 1] = np.deg2rad(np.linspace(-60, 60, B)).astype(np.float32)
+    res = {}
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            model = fl.synthetic_flame(n_verts=fl.FLAME_N_VERTS, seed=SEED, device=d)
+            args = [torch.as_tensor(c, device=d) for c in coefs]
+            _reset_counts()
+            verts, lm2d, lm3d = fl.flame_forward(model, *args, return_lm2d=True, return_lm3d=True)
+            idx, _ = fl._find_dynamic_lmk_idx_and_bcoords(model, fl.full_pose(args[2]))
+            res[str(d)] = [t.cpu() for t in (verts, lm2d, lm3d, idx)] + [_counts()]
+        (cv, c2, c3, ci, _), (gv, g2, g3, gi, launches) = res["cpu"], res[str(dev)]
+        out.update(landmark_frames=B, lm2d_shape=list(g2.shape), lm3d_shape=list(g3.shape),
+                   contour_rows_distinct=len({tuple(r) for r in gi.tolist()}),
+                   contour_indices_equal=bool(torch.equal(gi, ci)),
+                   lm2d_max_abs_err=float((g2 - c2).abs().max()), lm3d_max_abs_err=float((g3 - c3).abs().max()),
+                   verts_max_abs_err=float((gv - cv).abs().max()))
+        gen = torch.Generator().manual_seed(SEED + 63)
+        n = 512 * 512 * 3
+        mean = torch.rand((1, n), generator=gen) * 255.0
+        basis = torch.randn((n, 50), generator=gen)
+        code = torch.randn((2, 50), generator=gen) * 0.5
+        want = fl.flame_tex_forward(mean, basis, code, size=TEX_SIZE)
+        got = fl.flame_tex_forward(mean.to(dev), basis.to(dev), code.to(dev), size=TEX_SIZE).cpu()
+        out.update(tex_shape=list(got.shape), tex_max_abs_err=float((got - want).abs().max()),
+                   tex_max=float(want.abs().max()))
+        del basis
+    checks = {
+        "landmark_shapes": out["lm2d_shape"] == [B, 68, 3] and out["lm3d_shape"] == [B, 68, 3],
+        "contour_indices_equal": out["contour_indices_equal"],
+        "landmarks": max(out["lm2d_max_abs_err"], out["lm3d_max_abs_err"]) <= LIBRARY_GATE,
+        "flame_forward_launches_no_kernel": not any(launches.values()),
+        "texture_shape": out["tex_shape"] == [2, 3, TEX_SIZE, TEX_SIZE],
+        "texture": out["tex_max_abs_err"] <= LIBRARY_GATE * out["tex_max"] and _finite(got),
+    }
+    return out, checks
+
+
+def phase_library(dev, smi):
+    """Phase ``library``: the model library's modules outside the main
+    paths (the VAE encoder, K8 inside the encoders, the FLAME landmarks and
+    texture) on the card. Returns the launch counts of K8's f32 mode at
+    each batch."""
+    t0 = time.perf_counter()
+    enc, counts, enc_checks = _library_encoders(dev)
+    flame, flame_checks = _library_flame(dev)
+    checks = {**enc_checks, **flame_checks}
+    emit({"phase": "library", "encoders": enc, "flame": flame, "launches": counts, "checks": checks,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: library checks failed: { {k: v for k, v in checks.items() if not v} }")
+    return {B: counts[f"f32_attn_kernel_b{B}"]["attn_f32"] for B in K8_F32_BATCHES.values()}
 
 
 def phase_main(dev, smi, built):
@@ -1898,6 +2114,9 @@ def _flatten(tree, pre=()) -> dict:
     return out
 
 
+TRACE_SESSIONS = 8  # traced fits taken before phase parallel gives up (see measure.profiled)
+
+
 def phase_parallel(dev, smi):
     import tempfile
     from pathlib import Path
@@ -1916,7 +2135,7 @@ def phase_parallel(dev, smi):
         weights = _audio_weights(dev, tmp, trainer)
         batch = train_batch(trainer.cfg, dev)
         torch.cuda.reset_peak_memory_stats()
-        for session in range(3):  # a trace with fewer kernel records than launch calls is taken again
+        for session in range(TRACE_SESSIONS):  # a trace with fewer kernel records than launch calls is taken again
             if session:
                 trainer = build_trainer(dev, f"{tmp}/exp{session}")
             trainer.fit(iter([batch, batch]), max_iter=1, profile_dir=f"{tmp}/prof{session}", profile_steps=(0, 1))
@@ -2008,6 +2227,7 @@ def main() -> int:
     vertex_launches = phase_train_vertex(dev, smi)
     torch.cuda.empty_cache()
     phase_parallel(dev, smi)
+    library_launches = phase_library(dev, smi)
     kernels["decoder"]["launches"] = main_launches["decoder"]
     kernels["lbs"]["launches"] = main_launches["lbs"]
     kernels["scan"]["launches"] = b1_launches["scan"]
@@ -2017,13 +2237,15 @@ def main() -> int:
     kernels["lbs_bwd"]["launches"] = vertex_launches["lbs_bwd"]
     kernels["ffn"]["launches"] = guided_launches["default"]["ffn"]
     kernels["attn"]["launches"] = guided_launches["attn_kernel"]["attn"]
+    for k, B in K8_F32_BATCHES.items():
+        kernels[k]["launches"] = library_launches[B]
     kernels["tail"]["launches"] = guided_launches["fused_tail"]["tail"]
     for k in ("decoder_flat", "resident"):
         kernels[k]["launches"] = serving_launches[k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     order = ("decoder", "decoder_flat", "resident", "scan", "step", "lbs", "lbs_bwd", "ffn_train_fwd",
-             "ffn_train_bwd", "ffn", "attn", "tail")
+             "ffn_train_bwd", "ffn", "attn", *K8_F32_BATCHES, "tail")
     emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,38 @@
 //   cast to bf16 over the warp's own Q rows in shared memory and leaves in
 //   16-byte stores, eight lanes to a 128-byte row.
 // The block takes lq <= 256 (16 warps); the wrapper refuses longer rows.
+//
+// The f32 mode (attn_f32_kernel, msmd_attn_f32_forward) is
+// _attn_mid_kernel with cdt = f32, the style encoders' self-attention at
+// inference (their JAX encoder is f32): q scaled by 1/sqrt(dh) in f32, f32
+// scores, the exact max-subtracting softmax normalised before PV, f32 PV
+// sums, f32 out. It runs f32 FMAs on the CUDA cores: TF32 keeps about three
+// digits, and JAX's kernel is f32-exact. Bound on an H100 SXM at the style
+// encoder's shapes (lq 100, F 512, 8 heads): 4 B lq^2 F operations against
+// 16 B lq F bytes, 25 operations a byte, under the 20 of 67 TFLOP/s over
+// 3.35 TB/s only by a little, so the bound is operations (0.31 us at B = 1,
+// 4.9 us at B = 16). The design is the simple one, and it runs far above
+// that bound by device time: at B = 1 it has 32 blocks for 132 SMs, each
+// query tile stages K and V of its head again, and PV runs serially over
+// the keys:
+//
+// - One 256-thread block per (entry, head, tile of 32 query rows). K and V
+//   of the head (lq x 64 f32, 25.6 KB each at lq 100) and the tile's Q
+//   (scaled on the way in) come into shared memory by 16-byte loads; K's
+//   rows are padded to 65 floats, so the lanes of a warp reading 32
+//   different keys at one dim hit 32 different banks.
+// - Warp w takes query rows 4w .. 4w + 3, lane l the keys l + 32c
+//   (c < NC): 4 x NC scores in registers, each a sum over the 64 dims in
+//   order by fmaf, Q read as a broadcast float4 of 4 dims.
+// - The softmax of a row reduces over the warp by shuffles (max, expf of
+//   the score less the max, sum) and writes P = e / sum to the tile's P
+//   rows in shared memory.
+// - O = P V: lane l takes dims l and l + 32 of the warp's 4 rows, a sum
+//   over the keys in order by fmaf (V rows read as consecutive floats, P as
+//   a broadcast), and stores them straight to out, 128 coalesced bytes a
+//   warp and row.
+// Every output is one thread's sum in a fixed order: two calls give the
+// same bits.
 
 #include "decoder_common.cuh"
 
@@ -221,6 +253,140 @@ cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* v, long ld, bf
   return cudaGetLastError();
 }
 
+constexpr int F32_QT = 32;  // query rows of one f32 block: 8 warps of 4 rows
+
+// The f32 mode's shared memory at NC key groups and lq rows: K [32 NC][65],
+// V [lq][64], the tile's Q [32][64] and P [32][32 NC].
+__host__ __device__ constexpr size_t attn_f32_smem(int nc, int lq) {
+  return sizeof(float) * ((size_t)32 * nc * 65 + (size_t)lq * DH + F32_QT * DH + (size_t)F32_QT * 32 * nc);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(256) attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                                       const float* __restrict__ v, long ld, float* __restrict__ out,
+                                                       int lq, int F, int H, int tiles, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int KP = 32 * NC;  // key rows, those past lq zero
+  float* Ks = fsm;             // [KP][65]
+  float* Vs = Ks + KP * 65;    // [lq][64]
+  float* Qs = Vs + lq * DH;    // [F32_QT][64], scaled
+  float* Ps = Qs + F32_QT * DH;  // [F32_QT][KP]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile = blockIdx.x % tiles, eh = blockIdx.x / tiles, h = eh % H, e = eh / H;
+  const int q0 = tile * F32_QT, nq = min(F32_QT, lq - q0);
+  const long base = (long)e * lq * ld + (long)h * DH;
+
+  for (int i = tid; i < KP * (DH / 4); i += 256) {
+    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
+    float4 kv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < lq) {
+      kv = *reinterpret_cast<const float4*>(k + base + (long)r * ld + c);
+      *reinterpret_cast<float4*>(Vs + r * DH + c) = *reinterpret_cast<const float4*>(v + base + (long)r * ld + c);
+    }
+    float* kr = Ks + r * 65 + c;
+    kr[0] = kv.x;
+    kr[1] = kv.y;
+    kr[2] = kv.z;
+    kr[3] = kv.w;
+  }
+  for (int i = tid; i < F32_QT * (DH / 4); i += 256) {
+    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
+    float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < nq) qv = *reinterpret_cast<const float4*>(q + base + (long)(q0 + r) * ld + c);
+    qv.x *= scale;
+    qv.y *= scale;
+    qv.z *= scale;
+    qv.w *= scale;
+    *reinterpret_cast<float4*>(Qs + r * DH + c) = qv;
+  }
+  __syncthreads();
+
+  const int r0 = warp * 4;
+  if (r0 >= nq) return;  // no barrier follows: a warp past the tile's rows is done
+  float s[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[i][c] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    float4 qd[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qd[i] = *reinterpret_cast<const float4*>(Qs + (r0 + i) * DH + d);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* kr = Ks + (lane + 32 * c) * 65 + d;
+      const float k0 = kr[0], k1 = kr[1], k2 = kr[2], k3 = kr[3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = fmaf(qd[i].x, k0, s[i][c]);
+        a = fmaf(qd[i].y, k1, a);
+        a = fmaf(qd[i].z, k2, a);
+        s[i][c] = fmaf(qd[i].w, k3, a);
+      }
+    }
+  }
+
+  // exact softmax of each row over its lq real keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < lq) m = fmaxf(m, s[i][c]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      s[i][c] = lane + 32 * c < lq ? expf(s[i][c] - m) : 0.0f;
+      l += s[i][c];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) Ps[(r0 + i) * KP + lane + 32 * c] = s[i][c] / l;
+  }
+  __syncwarp();  // a warp reads only its own P rows
+
+  float o[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i][0] = o[i][1] = 0.0f;
+  for (int j = 0; j < lq; ++j) {
+    const float v0 = Vs[j * DH + lane], v1 = Vs[j * DH + lane + 32];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = Ps[(r0 + i) * KP + j];
+      o[i][0] = fmaf(p, v0, o[i][0]);
+      o[i][1] = fmaf(p, v1, o[i][1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (r0 + i < nq) {
+      float* orow = out + ((long)e * lq + q0 + r0 + i) * F + (long)h * DH;
+      orow[lane] = o[i][0];
+      orow[lane + 32] = o[i][1];
+    }
+}
+
+template <int NC>
+cudaError_t launch_attn_f32(const float* q, const float* k, const float* v, long ld, float* out, int B, int lq, int F,
+                            int H, cudaStream_t st) {
+  static bool ready = false;  // the limit above 48 KB, raised once for the longest rows of NC
+  if (!ready) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(attn_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(attn_f32_smem(NC, 32 * NC))));
+    ready = true;
+  }
+  const int tiles = (lq + F32_QT - 1) / F32_QT;
+  const long blocks = (long)B * H * tiles;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  attn_f32_kernel<NC><<<(unsigned)blocks, 256, attn_f32_smem(NC, lq), st>>>(q, k, v, ld, out, lq, F, H, tiles,
+                                                                           1.0f / sqrtf((float)DH));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The shared memory one block takes at lq (0 past the kernel's longest
@@ -244,6 +410,30 @@ extern "C" int msmd_attn_forward(const bf16* q, const bf16* k, const bf16* v, lo
     MSMD_ATTN_CASE(7) MSMD_ATTN_CASE(8) MSMD_ATTN_CASE(9) MSMD_ATTN_CASE(10) MSMD_ATTN_CASE(11) MSMD_ATTN_CASE(12)
     MSMD_ATTN_CASE(13) MSMD_ATTN_CASE(14) MSMD_ATTN_CASE(15) MSMD_ATTN_CASE(16)
 #undef MSMD_ATTN_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared memory one block of the f32 mode takes at lq (0 past the
+// kernel's longest rows).
+extern "C" size_t msmd_attn_f32_smem_bytes(int lq) {
+  return lq >= 1 && lq <= ATTN_MAX_LQ ? attn_f32_smem((lq + 31) / 32, lq) : 0;
+}
+
+// out (B*lq, F) f32 = per entry and head softmax(q k^T / sqrt(64)) v in f32,
+// with q, k, v f32 rows of stride ld (elements, a multiple of 4) and head
+// dim 64, lq <= 256. Launches on `stream`; returns the first CUDA error or 0.
+extern "C" int msmd_attn_f32_forward(const float* q, const float* k, const float* v, long ld, float* out, int B,
+                                     int lq, int F, int H, cudaStream_t st) {
+  if (B <= 0 || lq <= 0 || lq > ATTN_MAX_LQ || F != H * DH || ld < F || ld % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((lq + 31) / 32) {
+#define MSMD_ATTN_F32_CASE(n) \
+  case n:                     \
+    return static_cast<int>(launch_attn_f32<n>(q, k, v, ld, out, B, lq, F, H, st));
+    MSMD_ATTN_F32_CASE(1) MSMD_ATTN_F32_CASE(2) MSMD_ATTN_F32_CASE(3) MSMD_ATTN_F32_CASE(4)
+    MSMD_ATTN_F32_CASE(5) MSMD_ATTN_F32_CASE(6) MSMD_ATTN_F32_CASE(7) MSMD_ATTN_F32_CASE(8)
+#undef MSMD_ATTN_F32_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

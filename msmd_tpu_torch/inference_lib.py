@@ -136,13 +136,15 @@ def load_model(model_root, model_name: str, iter_num: str, audio_config: Optiona
     """Load ``args.json`` and a reference checkpoint from the experiment
     layout ``<root>/DPT/<name>/{args.json, checkpoints/iter_<it>.pt}``
     (or ``<root>/<name>/...``). The model is built in f32, as the JAX
-    package builds it, and the style encoder is VAE2.
+    package builds it, and the style encoder is the one
+    ``cfg.style_enc_model_style`` names (``check_style_width`` refuses the
+    VAE, whose z is wider than the denoiser's style input).
 
     Returns (model, style_enc, cfg), both modules on ``device`` in eval
     mode."""
     from msmd_tpu_torch.interop import (load_flax_params, load_reference_pt, reference_msmd_to_flax,
                                         reference_style_enc_to_flax)
-    from msmd_tpu_torch.models.style_encoder import get_style_encoder
+    from msmd_tpu_torch.models.style_encoder import check_style_width, get_style_encoder
 
     dev = resolve_device(device)
     exp_dir = Path(model_root) / "DPT" / model_name
@@ -158,14 +160,13 @@ def load_model(model_root, model_name: str, iter_num: str, audio_config: Optiona
         raise FileNotFoundError(
             f"Checkpoint not found: {ckpt_path}"
             + (f" — available: {available}" if available else " — no iter_*.pt checkpoints in this experiment"))
-    if cfg.style_enc_model_style != "vae2":
-        raise NotImplementedError(f"style encoder {cfg.style_enc_model_style!r}: only 'vae2' is ported")
     _, model_sd, style_sd, _ = load_reference_pt(ckpt_path)
     model = get_diffusion_model(cfg, audio_config=audio_config, device=dev)
     load_flax_params(model, reference_msmd_to_flax(model_sd, cfg))
     style_tree = reference_style_enc_to_flax(style_sd)
     in_dim = style_tree["input_layers"]["conv_0"]["kernel"].shape[1]  # 54 or 67, as the checkpoint was trained
-    style_enc = get_style_encoder(cfg, input_dim=in_dim).to(dev).eval()
+    style_enc = get_style_encoder(cfg, cfg.style_enc_model_style, input_dim=in_dim).to(dev).eval()
+    check_style_width(cfg, style_enc)
     load_flax_params(style_enc, style_tree)
     return model, style_enc, cfg
 

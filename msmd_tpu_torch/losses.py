@@ -13,8 +13,11 @@ elements; the velocity and smoothness masks are the base mask shifted by
 channels and an unmasked head-transition term, the vertex-space variant
 head pose at channels 50:53 (the 50-exp HDTF / FLAME layout) and a
 head-transition term masked by the current window's first frames. The
-espnet variant and the auxiliary style-adherence and NT-Xent losses are
-not ported yet.
+espnet variant ``compute_loss_espnet`` takes precomputed vertices and
+unmasked vertex means, head pose at the last 3 channels. The auxiliary
+``style_adherence_loss`` and ``nt_xent_loss`` are library features that
+the reference defines but does not wire into its training loop, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -311,6 +314,94 @@ def compute_loss(cfg, is_starting_sample: bool, shape_coef: torch.Tensor, motion
     return out
 
 
+def compute_loss_espnet(cfg, is_starting_sample: bool, shape_coef, motion_coef_gt: torch.Tensor,
+                        noise: torch.Tensor, target: torch.Tensor, prev_motion_coef: Optional[torch.Tensor],
+                        coef_stats, gt_vertices: torch.Tensor, seq_vertices: torch.Tensor,
+                        end_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The precomputed-vertices variant (``msmd_tpu/losses.py``:330-394;
+    reference: utils/common.py:622-766): like ``compute_loss``, but the
+    vertex terms compare ``gt_vertices`` with ``seq_vertices`` as unmasked
+    means, and head pose is the last 3 channels. A target other than
+    ``sample`` gives the noise term alone, over the starting window's
+    mask."""
+    crit = _criterion(cfg.criterion)
+    B, dev = motion_coef_gt.shape[0], target.device
+    zero = torch.zeros((), dtype=target.dtype, device=dev)
+    out = {k: zero for k in LOSS_KEYS}
+
+    if cfg.target != "sample":
+        mask = _base_mask(cfg, B, end_idx, True, dev)
+        out["noise"] = _masked_mean(crit(noise, target[:, cfg.n_prev_motions:]), mask) / 2
+        return out
+
+    if is_starting_sample:
+        target = target[:, cfg.n_prev_motions:]
+    else:
+        motion_coef_gt = torch.cat([prev_motion_coef, motion_coef_gt], dim=1)
+        if cfg.no_constrain_prev:
+            target = torch.cat([prev_motion_coef, target[:, cfg.n_prev_motions:]], dim=1)
+    mask = _base_mask(cfg, B, end_idx, is_starting_sample, dev)
+    out["noise"] = _masked_mean(crit(motion_coef_gt, target), mask) / 2
+    diff = lambda t: t[:, 1:] - t[:, :-1]
+
+    if cfg.l_vert > 0 or cfg.l_vel > 0:
+        if cfg.l_vert > 0:
+            out["vert"] = crit(gt_vertices, seq_vertices).mean() / 2
+        if cfg.l_vel > 0:
+            out["vel"] = crit(diff(gt_vertices), diff(seq_vertices)).mean() / 2
+        if cfg.l_smooth > 0:
+            vp = diff(seq_vertices)
+            out["smooth"] = crit(vp[:, 1:], vp[:, :-1]).mean() / 2
+
+    if not cfg.no_head_pose:
+        head_gt, head_pred = motion_coef_gt[..., -3:], target[..., -3:]
+        if cfg.l_head_angle > 0:
+            out["head_angle"] = _masked_mean(crit(head_gt, head_pred), mask) / 2
+        if cfg.l_head_vel > 0:
+            out["head_vel"] = _masked_mean(crit(diff(head_gt), diff(head_pred)), mask[:, 1:]) / 2
+        if cfg.l_head_smooth > 0:
+            hvp = diff(head_pred)
+            out["head_smooth"] = _masked_mean(crit(hvp[:, 1:], hvp[:, :-1]), mask[:, 2:]) / 2
+        if not is_starting_sample and cfg.l_head_trans > 0:
+            out["head_trans"] = _head_trans_loss(crit, head_gt, head_pred, cfg.n_prev_motions, mask)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# auxiliary losses (the reference defines them but does not train with them)
+# ---------------------------------------------------------------------------
+
+def style_adherence_loss(x_pred: torch.Tensor, style_frames: torch.Tensor, use_soft_min: bool = True,
+                         lambda_softmin: float = 10.0, reduce: bool = True) -> torch.Tensor:
+    """Soft-min MSE of predicted frames (B, T, D) against style-clip frames
+    (B, K, D) (reference: utils/common.py:29-91): each frame's mean squared
+    distance to every style frame, weighted by softmax(-lambda d); with
+    ``use_soft_min`` False the hard minimum (always reduced)."""
+    d = ((x_pred[:, :, None] - style_frames[:, None]) ** 2).mean(-1)  # (B, T, K)
+    if use_soft_min:
+        per_frame = (torch.softmax(-lambda_softmin * d, dim=-1) * d).sum(-1)  # (B, T)
+        return per_frame.mean() if reduce else per_frame
+    return d.min(dim=-1).values.mean()
+
+
+def nt_xent_loss(feature_a: torch.Tensor, feature_b: torch.Tensor, temperature: float) -> torch.Tensor:
+    """SimCLR's normalised-temperature cross-entropy of two views (B, D)
+    (reference: utils/common.py:835-875): row i's positive is the other
+    view of sample i, its negatives the other 2B - 2 rows."""
+    B = feature_a.shape[0]
+    features = torch.cat([feature_a, feature_b], dim=0)
+    features = features / torch.linalg.norm(features, dim=1, keepdim=True)
+    sim = features @ features.T  # (2B, 2B)
+    n = 2 * B
+    labels = torch.arange(B, device=sim.device).repeat(2)
+    pos_mask = labels[None, :] == labels[:, None]
+    off = ~torch.eye(n, dtype=torch.bool, device=sim.device)
+    sim_off = sim[off].reshape(n, n - 1)
+    pos_off = pos_mask[off].reshape(n, n - 1)
+    logits = torch.cat([sim_off[pos_off].reshape(n, -1), sim_off[~pos_off].reshape(n, -1)], dim=1) / temperature
+    return -torch.log_softmax(logits, dim=1)[:, 0].mean()  # the positive sits at column 0
+
+
 def _truncate_seq(x: torch.Tensor, end_idx: torch.Tensor, pad_mode: str) -> torch.Tensor:
     """Zero (or replicate the last kept frame) at and after ``end_idx``
     along axis 1, per batch row."""
@@ -331,6 +422,17 @@ def truncate_motion_coef_and_audio(audio: torch.Tensor, motion_coef: torch.Tenso
     ``end_idx`` in [1, n_motions). Returns (audio, motion)."""
     audio_end = (end_idx.to(torch.float32) * audio_unit).to(torch.int64)
     return _truncate_seq(audio, audio_end, pad_mode), _truncate_seq(motion_coef, end_idx, pad_mode)
+
+
+def truncate_coef_dict_and_audio(audio: torch.Tensor, coef_dict: Dict[str, torch.Tensor], end_idx: torch.Tensor,
+                                 audio_unit: float = 640.0, pad_mode: str = "zero"):
+    """The dict variant (reference: utils/common.py:804-814): every
+    coefficient track of ``coef_dict`` truncated at ``end_idx`` beside the
+    audio. The caller draws ``end_idx`` in [1, n_motions). Returns (audio,
+    coef_dict)."""
+    audio_end = (end_idx.to(torch.float32) * audio_unit).to(torch.int64)
+    return _truncate_seq(audio, audio_end, pad_mode), {k: _truncate_seq(v, end_idx, pad_mode)
+                                                       for k, v in coef_dict.items()}
 
 
 def load_loss_weights(cfg) -> Dict[str, float]:

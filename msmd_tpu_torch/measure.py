@@ -68,33 +68,56 @@ def kernel_events(prof) -> list:
     return sorted(events, key=lambda e: e.time_range.start)
 
 
-def profiled(fn, tries: int = 3, agree=lambda whole: whole):
+def profiler_session(fn, pad_s: float = 0.0):
+    """One torch.profiler session (CPU and CUDA activity) around one call
+    of ``fn`` with ``pad_s`` of idle host time inside each end, ended after
+    a synchronize: (the session, its kernel events, its runtime launch
+    calls)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    launches = [e for e in prof.events() if e.device_type == DeviceType.CPU and LAUNCH_CALL.match(e.name)]
+    return prof, kernel_events(prof), sorted(launches, key=lambda e: e.time_range.start)
+
+
+PROFILE_PAD_S = 0.005  # idle host time inside each profiler session, before and after the call
+PROFILE_TRIES = 40  # sessions ``profiled`` takes before it gives up
+
+
+def profiled(fn, tries: int = PROFILE_TRIES, agree=lambda whole: whole, pad_s: float = PROFILE_PAD_S):
     """A torch.profiler session (CPU and CUDA activity) around one call of
     ``fn``, ended after a synchronize, whose device records are whole.
 
-    On the H100 (torch 2.11) the profiler now and then keeps a session's
-    host-side launch calls (``cudaLaunchKernelExC``) but none of their
-    kernels' device records, and the next session of the same call whole.
-    A session with fewer kernel events than runtime launch calls is taken
+    On the H100 machines (torch 2.11, Kineto with CUPTI) a session now and
+    then keeps its host-side launch calls (``cudaLaunchKernelExC``) and
+    none of their kernels' device records, in stretches of a process that
+    lose most sessions. The sessions kept in such a stretch show why: their
+    kernels' converted start times scatter far before and after their own
+    launch calls, and Kineto drops every device record that falls outside
+    the session's window ("TraceActivity outside of profiling window").
+    ``python -m msmd_tpu_torch.profile --profiler-sessions`` measures both.
+    So the call sits ``pad_s`` of idle host time inside each end of the
+    session, which keeps a record that is off by less than that, and a
+    session with fewer kernel events than runtime launch calls is taken
     again (``fn`` runs again), up to ``tries`` sessions; then this raises.
     A kernel that fails to launch raises in its wrapper, so a retake never
     stands in for one that did not run. ``agree`` maps this process's
     verdict to the one all ranks act on (all retake together when ``fn``
     runs collectives). ``profiled.lost`` holds (kernel events, launch
     calls) of each session taken again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        launches = sum(e.device_type == DeviceType.CPU and bool(LAUNCH_CALL.match(e.name)) for e in prof.events())
-        kernels = len(kernel_events(prof))
-        if agree(kernels >= launches):
+        prof, kernels, launches = profiler_session(fn, pad_s)
+        if agree(len(kernels) >= len(launches)):
             return prof
-        profiled.lost.append((kernels, launches))
+        profiled.lost.append((len(kernels), len(launches)))
     raise RuntimeError(f"torch.profiler kept fewer kernel records than launch calls in {tries} sessions")
 
 
@@ -484,7 +507,8 @@ def build_train_path(dev, fused_ffn_train: bool = True, cfg_kw=None, audio_kw=No
     cfg = MSMDConfig(**kw)
     model = get_diffusion_model(cfg, audio_config=AudioEncoderConfig(**(audio_kw or {})), dtype=torch.bfloat16,
                                 device=dev, seed=seed)
-    style_enc = init_params(get_style_encoder(cfg, torch.bfloat16, input_dim=cfg.motion_feat_dim), seed + 1).to(dev)
+    style_enc = init_params(get_style_encoder(cfg, dtype=torch.bfloat16, input_dim=cfg.motion_feat_dim),
+                            seed + 1).to(dev)
     freeze(cfg, model)
     opt = TrainOptimizer(cfg, list(model.parameters()) + list(style_enc.parameters()))
     flame = coef_stats = None
@@ -568,11 +592,12 @@ def ffn_chain(x, w1, b1, w2, b2, g, b):
     return F.layer_norm(x + y, (x.shape[-1],), g.to(x.dtype), b.to(x.dtype))
 
 
-def attn_case(dev, B=96, lq=111, F=512, H=8, seed=SEED):
+def attn_case(dev, B=96, lq=111, F=512, H=8, seed=SEED, dtype=torch.bfloat16):
     """Seeded K8 inputs (q, k, v, H): the three column slices of one
-    (B, lq, 3F) bf16 projection, as the fused q/k/v product gives them."""
+    (B, lq, 3F) projection in ``dtype``, as the fused q/k/v product gives
+    them."""
     rn = _seeded(seed + 31)
-    qkv = (rn(B, lq, 3 * F) * torch.tensor([1.5, 1.5, 1.0]).repeat_interleave(F)).to(dev, torch.bfloat16)
+    qkv = (rn(B, lq, 3 * F) * torch.tensor([1.5, 1.5, 1.0]).repeat_interleave(F)).to(dev, dtype)
     q, k, v = qkv.split(F, dim=-1)
     return q, k, v, H
 

@@ -56,7 +56,17 @@ has 288, so JAX takes K6 at the guided batch-48 shapes; 37 x 111 = 4107
 has none, so JAX keeps XLA there and the port runs K6); for K8 where no
 tile of up to 8 entries divides B with an 8-aligned row count: at the
 odd lq = 111, every B that is not a multiple of 8 (batch 1 with two CFG
-entries, B = 2: JAX keeps XLA, the port runs K8).
+entries, B = 2: JAX keeps XLA, the port runs K8), and in the style
+encoders (``attn_kernel`` of ``models/style_encoder.py``) at a clip length
+that is not a multiple of 8 over a batch with no such tile (the 100-frame
+clip of ``inference.py`` at batch 1: JAX keeps XLA, the port runs K8).
+
+The port has one gate of its own, ``attn_kernel_takes``
+(``ops/kernels/attn.py``): K8 takes at most ``MAX_LQ`` = 256 rows an entry,
+so a longer self-attention (a style clip over 10 s) takes the plain
+attention with ``attn_kernel`` on. The route is chosen from the shape
+before any launch, as JAX's ``attn_middle_viable`` chooses XLA, and the
+launch counter shows it (no K8 launch).
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ import torch
 from torch import nn
 
 from msmd_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu, in_dtype, uniform
-from msmd_tpu_torch.ops.kernels.attn import attention_middle
+from msmd_tpu_torch.ops.kernels.attn import attention_middle, attn_kernel_takes
 from msmd_tpu_torch.ops.kernels.ffn import fused_ffn_ln, prepare_ffn_weights
 from msmd_tpu_torch.ops.kernels.ffn_train import fused_ffn_ln_train
 from msmd_tpu_torch.ops.kernels.layer_tail import fused_layer_tail, prepare_tail_weights
@@ -169,12 +179,14 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         """Attention of q over k, v (self-attention when both are None).
         ``attn_kernel``: an unmasked eval-mode self-attention runs its
-        middle through K8."""
+        middle through K8 where ``attn_kernel_takes`` its shape."""
         Lq = q.shape[1]
         if kv_cache is None and k is None and v is None and not identity_band:
             qp, kp, vp = self._fused_qkv(q)
-            if attn_kernel and mask is None and rng is None:
-                return self.out_proj(attention_middle(qp, kp, vp, self.n_heads))
+            heads = qp.shape[-1] // self.head_dim  # a tensor-parallel shard's heads
+            if attn_kernel and mask is None and rng is None and attn_kernel_takes(q.shape[0], Lq, qp.shape[-1],
+                                                                                 heads):
+                return self.out_proj(attention_middle(qp, kp, vp, heads))
             return self.out_proj(self._attend(self._heads(qp), self._heads(kp), self._heads(vp), mask, rng))
         if kv_cache is not None:
             kh, vh = kv_cache
@@ -354,6 +366,10 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, rng: Rng = None) -> torch.Tensor:
-        x = self.norm1(x + dropout(self.self_attn(x, mask=mask, rng=rng), self.dropout, rng))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, rng: Rng = None,
+                attn_kernel: bool = False) -> torch.Tensor:
+        """``attn_kernel``: the eval-mode, unmasked self-attention's middle
+        through K8 (``MultiHeadAttention.forward``)."""
+        sa = self.self_attn(x, mask=mask, rng=rng, attn_kernel=attn_kernel)
+        x = self.norm1(x + dropout(sa, self.dropout, rng))
         return self.norm2(x + dropout(self.ffn(x, rng), self.dropout, rng))

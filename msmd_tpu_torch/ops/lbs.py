@@ -1,6 +1,8 @@
-"""Linear blend skinning (the port of ``msmd_tpu/ops/lbs.py``;
-reference: utils/lbs.py:141-371). betas = concat(shape, expression);
-pose is per-joint axis-angle; returns (verts, posed_joints).
+"""Linear blend skinning and barycentric landmarks (the port of
+``msmd_tpu/ops/lbs.py``; reference: utils/lbs.py:100-371). betas =
+concat(shape, expression); pose is per-joint axis-angle
+(``pose2rot=True``) or flattened 3x3 matrices; ``lbs`` returns (verts,
+posed_joints).
 """
 
 from __future__ import annotations
@@ -47,15 +49,19 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor, parents:
     return posed_joints, transforms - correction
 
 
-def lbs(betas, pose, v_template, shapedirs, posedirs, J_regressor, parents, lbs_weights):
-    """Full linear blend skinning with axis-angle pose (reference:
-    utils/lbs.py:141-223). Returns verts (B, V, 3), posed_joints (B, J, 3)."""
+def lbs(betas, pose, v_template, shapedirs, posedirs, J_regressor, parents, lbs_weights, pose2rot: bool = True):
+    """Full linear blend skinning (reference: utils/lbs.py:141-223). pose
+    is (B, J * 3) axis-angle, or (B, J * 9) rotation matrices with
+    ``pose2rot=False``. Returns verts (B, V, 3), posed_joints (B, J, 3)."""
     batch_size = max(betas.shape[0], pose.shape[0])
     if v_template.ndim == 2:
         v_template = v_template[None]
     v_shaped = v_template + blend_shapes(betas, shapedirs)
     J = vertices2joints(J_regressor, v_shaped)
-    rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(batch_size, -1, 3, 3)
+    if pose2rot:
+        rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(batch_size, -1, 3, 3)
+    else:
+        rot_mats = pose.reshape(batch_size, -1, 3, 3)
     ident = torch.eye(3, dtype=betas.dtype, device=betas.device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(batch_size, -1)
     v_posed = (pose_feature @ posedirs).reshape(batch_size, -1, 3) + v_shaped
@@ -64,3 +70,19 @@ def lbs(betas, pose, v_template, shapedirs, posedirs, J_regressor, parents, lbs_
     v_posed_homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
     verts = torch.einsum("bvmn,bvn->bvm", T[..., :3, :], v_posed_homo)
     return verts, J_transformed
+
+
+def vertices2landmarks(vertices: torch.Tensor, faces, lmk_faces_idx: torch.Tensor,
+                       lmk_bary_coords: torch.Tensor) -> torch.Tensor:
+    """Barycentric landmark interpolation (reference: utils/lbs.py:100-137):
+    vertices (B, V, 3), faces (F, 3) int, lmk_faces_idx (B, L) or (L,),
+    lmk_bary_coords (B, L, 3) or (L, 3) -> (B, L, 3)."""
+    B = vertices.shape[0]
+    faces = torch.as_tensor(faces, device=vertices.device)
+    if lmk_faces_idx.ndim == 1:
+        lmk_faces_idx = lmk_faces_idx[None].expand(B, -1)
+    if lmk_bary_coords.ndim == 2:
+        lmk_bary_coords = lmk_bary_coords[None].expand(B, -1, -1)
+    flat_idx = faces[lmk_faces_idx.to(vertices.device)].reshape(B, -1)  # (B, L * 3) vertex ids
+    lmk_vertices = torch.gather(vertices, 1, flat_idx[..., None].expand(-1, -1, 3)).reshape(B, -1, 3, 3)
+    return torch.einsum("blfi,blf->bli", lmk_vertices, lmk_bary_coords.to(vertices.dtype))

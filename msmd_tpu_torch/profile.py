@@ -9,6 +9,7 @@ one guided batch-48 window and one train step.
     python -m msmd_tpu_torch.profile --compare   # compare only (also from an older checkout)
     python -m msmd_tpu_torch.profile --ffn-train # ffn_train only (also from an older checkout)
     python -m msmd_tpu_torch.profile --lbs       # lbs only (also from an older checkout)
+    python -m msmd_tpu_torch.profile --profiler-sessions [SECONDS]  # profiler_sessions only
 
 Prints JSON lines:
 
@@ -63,6 +64,15 @@ Prints JSON lines:
   of one call, TFLOP/s, registers and spills, f32 ``torch.matmul`` of the
   blend product alone, and the call split into main loop and the rest,
   by depth and (where the library records them) from the card's clock.
+- ``profiler_sessions`` (``--profiler-sessions``, alone): how often a
+  torch.profiler session around one call keeps fewer kernel records than
+  launch calls (``measure.profiler_session``), for K5 at N = 4800 and K8
+  f32 at B = 1, lq = 100, repeated for SECONDS (default 60) with no idle
+  time and with ``measure.PROFILE_PAD_S`` of it inside each end of the
+  session: sessions, sessions lost, and the quantiles (0, 0.1, 0.5, 0.9,
+  1) of each kept session's first kernel start minus its first launch
+  call's start in us; then ``measure.profiled`` on the same calls, with
+  the sessions it took each time.
 - ``main_path``: one 4 s window at batch 48 (HuBERT, 500 guided DDPM
   steps, FLAME decode). Its wall time is taken without the profiler
   (host clock, ending in a synchronise); a second, profiled run gives the
@@ -380,6 +390,44 @@ def _device_events(fn, calls: int) -> list:
     return [(_short(e.name), e.time_range.elapsed_us()) for e in kernel_events(prof)]
 
 
+def profiler_sessions(dev, seconds: float = 60.0) -> None:
+    """Lost device records of single profiler sessions around K5 and K8
+    f32 calls, without and with idle time inside each end, and the
+    sessions ``measure.profiled`` takes for the same calls."""
+    import numpy as np
+
+    from msmd_tpu_torch.measure import PROFILE_PAD_S, attn_case, lbs_case, profiled, profiler_session
+    from msmd_tpu_torch.ops.kernels import attn as k8
+    from msmd_tpu_torch.ops.kernels import lbs as kl
+
+    fused, (betas_ext, rt) = lbs_case(dev, N=4800)
+    q, k, v, H = attn_case(dev, B=1, lq=100, dtype=torch.float32)
+    calls = {"lbs": lambda: kl.skin_cuda(fused, betas_ext, rt), "attn_f32": lambda: k8.attention_middle(q, k, v, H)}
+    for fn in calls.values():
+        fn()
+    sessions = {(name, pad): [] for name in calls for pad in (0.0, PROFILE_PAD_S)}
+    took = {name: [] for name in calls}
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for (name, pad), rows in sessions.items():
+            _, kernels, launches = profiler_session(calls[name], pad)
+            skew = kernels[0].time_range.start - launches[0].time_range.start if kernels and launches else None
+            rows.append((len(kernels) < len(launches), skew))
+        for name, fn in calls.items():
+            lost = len(profiled.lost)
+            profiled(fn)
+            took[name].append(len(profiled.lost) - lost + 1)
+    out = {}
+    for (name, pad), rows in sessions.items():
+        skews = [s for lost, s in rows if not lost and s is not None]
+        out[f"{name}_pad_{pad}"] = dict(sessions=len(rows), lost=sum(lost for lost, _ in rows),
+                                        skew_us_quantiles=np.quantile(skews, [0, 0.1, 0.5, 0.9, 1]).tolist()
+                                        if skews else None)
+    for name, n in took.items():
+        out[f"{name}_profiled"] = dict(calls=len(n), sessions=sum(n), most_sessions_one_call=max(n))
+    print(json.dumps({"phase": "profiler_sessions", "seconds": seconds, "pad_s": PROFILE_PAD_S, **out}), flush=True)
+
+
 def ffn_train_split(dev, calls: int = 5) -> None:
     """K7 forward and backward at the train step's shapes, at dropout 0.1
     and 0 (no mask is drawn): each launch of one call with its device time,
@@ -519,6 +567,10 @@ def main(argv=None) -> int:
         return 0
     if "--lbs" in argv:
         lbs_split(torch.device("cuda", 0))
+        return 0
+    if "--profiler-sessions" in argv:
+        rest = argv[argv.index("--profiler-sessions") + 1:]
+        profiler_sessions(torch.device("cuda", 0), float(rest[0]) if rest else 60.0)
         return 0
     from msmd_tpu_torch.measure import (BATCH, CFG_SCALE, SEED, build_main_path, decoder_case, decoder_flat_case,
                                         generate, sampler_case, seeded_audio)

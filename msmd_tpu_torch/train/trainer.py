@@ -31,7 +31,7 @@ from msmd_tpu_torch.interop import load_flax_params, load_reference_pt, referenc
     reference_style_enc_to_flax
 from msmd_tpu_torch.models.diffusion import get_diffusion_model
 from msmd_tpu_torch.models.layers import SampleRows, init_params
-from msmd_tpu_torch.models.style_encoder import get_style_encoder
+from msmd_tpu_torch.models.style_encoder import check_style_width, get_style_encoder
 from msmd_tpu_torch.parallel import tp as tpar
 from msmd_tpu_torch.parallel.mesh import Layout, gather_rows, shard_batch
 from msmd_tpu_torch.train import checkpoint as ckpt
@@ -75,8 +75,9 @@ class Trainer:
         self.model = get_diffusion_model(cfg, audio_config=audio_config, dtype=dtype, device=self.device,
                                          seed=cfg.seed)
         # the encoder reads the motion of the batch, 67 wide on every layout (as JAX's init infers it)
-        self.style_enc = init_params(get_style_encoder(cfg, dtype, input_dim=cfg.motion_feat_dim),
-                                     cfg.seed + 1).to(self.device)
+        self.style_enc = init_params(get_style_encoder(cfg, cfg.style_enc_model_style, dtype,
+                                                       input_dim=cfg.motion_feat_dim), cfg.seed + 1).to(self.device)
+        check_style_width(cfg, self.style_enc)
         self.flame = flame
         self.coef_stats = None if coef_stats is None else {
             k: torch.as_tensor(np.asarray(v, np.float32), device=self.device) for k, v in coef_stats.items()}

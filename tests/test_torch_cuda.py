@@ -783,6 +783,57 @@ def test_gemm_ws_plan_matches_the_library(M, N, K, epilogue):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("lq", [1, 100, 256])
+def test_attn_f32_kernel_matches_plain(lq, B):
+    """K8's f32 mode (the style encoders' attention at inference) at one
+    row, the 100-frame clip and ``MAX_LQ``: f32 ``attention_middle`` launches
+    it (counted apart from the bf16 mode), max |err| <= 1e-5 of max |plain|
+    (the plain version at f32 with TF32 off; other f32 summation orders),
+    two calls bit-equal, its shared memory as ``attn_f32_plan`` gives it."""
+    from msmd_tpu_torch.measure import attn_case
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    q, k, v, H = attn_case(_card(), B=B, lq=lq, seed=17, dtype=torch.float32)
+    before, before_bf16 = k8.attention_middle_f32.launches, k8.attention_middle.launches
+    got, again = k8.attention_middle(q, k, v, H), k8.attention_middle(q, k, v, H)
+    want = k8.attention_middle_plain(q, k, v, H)
+    torch.cuda.synchronize()
+    assert k8.attention_middle_f32.launches == before + 2 and k8.attention_middle.launches == before_bf16
+    assert k8._lib().msmd_attn_f32_smem_bytes(lq) == k8.attn_f32_plan(B, lq, H)["smem"]
+    assert got.shape == want.shape == q.shape and got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    print(f"K8 f32 B={B} lq={lq} rel_err={_rel(got, want):.3e}")
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)
+    assert torch.equal(k8.attention_middle(q.contiguous(), k.contiguous(), v.contiguous(), H), got)
+
+
+@pytest.mark.cuda
+def test_attn_kernel_gate_routes_rows_past_max_lq():
+    """An encoder layer with ``attn_kernel`` at f32: K8's f32 mode at
+    ``MAX_LQ`` rows (once, within 1e-5 of the plain route), and past it the
+    plain attention by ``attn_kernel_takes`` (no launch); the wrapper
+    itself refuses such rows."""
+    from msmd_tpu_torch.models.layers import init_params
+    from msmd_tpu_torch.models.transformer import TransformerEncoderLayer
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    dev = _card()
+    layer = init_params(TransformerEncoderLayer(512, 8, 512), 3).to(dev).eval()
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for lq, launched in ((k8.MAX_LQ, 1), (k8.MAX_LQ + 1, 0)):
+            x = torch.randn(2, lq, 512, generator=g).to(dev)
+            before = k8.attention_middle_f32.launches
+            got, want = layer(x, attn_kernel=True), layer(x)
+            torch.cuda.synchronize()
+            assert k8.attention_middle_f32.launches == before + launched
+            assert _rel(got, want) <= 1e-5
+        with pytest.raises(ValueError, match="lq=257"):
+            k8.attention_middle_f32(x, x, x, 8)
+
+
+@pytest.mark.cuda
 def test_guided_wrappers_refuse_what_the_kernels_do_not_take():
     from msmd_tpu_torch.measure import attn_case, ffn_case, tail_case
     from msmd_tpu_torch.ops.kernels import attn as k8

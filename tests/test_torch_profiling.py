@@ -5,7 +5,8 @@ the CPU: ``trace`` writes a Chrome trace of what ran inside it;
 traces the iterations of its window, and closes a window the run ends
 inside, at the tiny geometry. ``measure.profiled`` (on faked profiler
 sessions) takes again a session that kept fewer kernel records than
-launch calls, and raises when none is whole."""
+launch calls, and raises when none is whole; the call sits between two
+idle pauses inside each session."""
 
 import json
 
@@ -133,14 +134,34 @@ def test_profiled_raises_after_its_sessions_and_follows_the_ranks_verdict(monkey
     another rank's verdict overrules (``agree``) is taken again too."""
     from msmd_tpu_torch import measure
 
-    _fake_sessions(monkeypatch, [LOST] * 3)
+    tries = measure.PROFILE_TRIES
+    _fake_sessions(monkeypatch, [LOST] * tries)
     monkeypatch.setattr(measure.profiled, "lost", [])
-    with pytest.raises(RuntimeError, match="fewer kernel records than launch calls in 3 sessions"):
+    with pytest.raises(RuntimeError, match=f"fewer kernel records than launch calls in {tries} sessions"):
         measure.profiled(lambda: None)
-    assert measure.profiled.lost == [(0, 2)] * 3
+    assert measure.profiled.lost == [(0, 2)] * tries
     _fake_sessions(monkeypatch, [WHOLE, WHOLE])
     monkeypatch.setattr(measure.profiled, "lost", [])
     verdicts = iter([False, True])
     seen = []
     measure.profiled(lambda: None, agree=lambda whole: seen.append(whole) or next(verdicts))
     assert seen == [True, True] and measure.profiled.lost == [(2, 2)]
+
+
+def test_profiled_keeps_idle_time_inside_each_end_of_the_session(monkeypatch):
+    """The call sits between two idle pauses of ``PROFILE_PAD_S`` inside
+    the profiler session, and the session ends after a synchronize."""
+    import time
+
+    from msmd_tpu_torch import measure
+
+    _fake_sessions(monkeypatch, [WHOLE])
+    seen = []
+    Session = torch.profiler.profile
+    monkeypatch.setattr(Session, "__enter__", lambda self: seen.append("enter") or self)
+    monkeypatch.setattr(Session, "__exit__", lambda self, *exc: seen.append("exit") or False)
+    monkeypatch.setattr(time, "sleep", lambda s: seen.append(("sleep", s)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: seen.append("sync"))
+    measure.profiled(lambda: seen.append("call"))
+    pad = ("sleep", measure.PROFILE_PAD_S)
+    assert measure.PROFILE_PAD_S > 0 and seen == ["sync", "enter", pad, "call", "sync", pad, "exit"]
