@@ -40,33 +40,50 @@
 // _attn_mid_kernel with cdt = f32, the style encoders' self-attention at
 // inference (their JAX encoder is f32): q scaled by 1/sqrt(dh) in f32, f32
 // scores, the exact max-subtracting softmax normalised before PV, f32 PV
-// sums, f32 out. It runs f32 FMAs on the CUDA cores: TF32 keeps about three
-// digits, and JAX's kernel is f32-exact. Bound on an H100 SXM at the style
-// encoder's shapes (lq 100, F 512, 8 heads): 4 B lq^2 F operations against
-// 16 B lq F bytes, 25 operations a byte, under the 20 of 67 TFLOP/s over
-// 3.35 TB/s only by a little, so the bound is operations (0.31 us at B = 1,
-// 4.9 us at B = 16). The design is the simple one, and it runs far above
-// that bound by device time: at B = 1 it has 32 blocks for 132 SMs, each
-// query tile stages K and V of its head again, and PV runs serially over
-// the keys:
+// sums, f32 out. Bound on an H100 SXM at the style encoder's shapes (lq
+// 100, F 512, 8 heads): 4 B lq^2 F operations against 16 B lq F bytes;
+// on the CUDA cores (67 TFLOP/s) that is operations, 0.31 us at B = 1 and
+// 4.9 us at B = 16. f32 FMAs on the CUDA cores (one thread's sum an
+// output, then register tiles of 4 rows x 7 keys a lane) stayed bound by
+// the shared-memory loads that feed the FMAs. This kernel runs both products on
+// the tensor cores at f32 accuracy, as K5 does (csrc/lbs.cu): each operand
+// x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a
+// product is lo.hi + hi.lo + hi.hi, three TF32 mma.sync, summed in f32
+// (ops/kernels/attn.py::attention_middle_f32_model is its arithmetic; TF32
+// alone keeps about three digits). Its bound is then the bytes, 16 B lq F
+// at 3.35 TB/s: 3.9 us at B = 16.
 //
-// - One 256-thread block per (entry, head, tile of 32 query rows). K and V
-//   of the head (lq x 64 f32, 25.6 KB each at lq 100) and the tile's Q
-//   (scaled on the way in) come into shared memory by 16-byte loads; K's
-//   rows are padded to 65 floats, so the lanes of a warp reading 32
-//   different keys at one dim hit 32 different banks.
-// - Warp w takes query rows 4w .. 4w + 3, lane l the keys l + 32c
-//   (c < NC): 4 x NC scores in registers, each a sum over the 64 dims in
-//   order by fmaf, Q read as a broadcast float4 of 4 dims.
-// - The softmax of a row reduces over the warp by shuffles (max, expf of
-//   the score less the max, sum) and writes P = e / sum to the tile's P
-//   rows in shared memory.
-// - O = P V: lane l takes dims l and l + 32 of the warp's 4 rows, a sum
-//   over the keys in order by fmaf (V rows read as consecutive floats, P as
-//   a broadcast), and stores them straight to out, 128 coalesced bytes a
-//   warp and row.
-// Every output is one thread's sum in a fixed order: two calls give the
-// same bits.
+// - One CTA per (entry, head, 64 query rows), 4 warps of 16 rows (one
+//   wave of 256 CTAs at B = 16, two an SM; CTAs of 2 warps ran 1.6x
+//   slower at B = 16 and 1.1x at B = 1). Its
+//   threads copy the head's K and V (lq x 64 f32, 25.6 KB each at lq 100)
+//   and their Q rows into shared memory by 16-byte cp.async, Q and K in one
+//   group and V in a second that lands while the scores run; rows past lq
+//   are zero-filled. Rows are padded to 68 floats, so ldmatrix and the V
+//   loads below are free of bank conflicts. (A cluster per (entry, head)
+//   with K and V multicast by TMA bulk copies, one 256-byte row a copy,
+//   spent 5.5-6 us a CTA in those copies on the card's clock: the L2
+//   traffic it saves costs far less.)
+// - Warp w owns query rows 16w .. 16w + 15 of its CTA in every phase (one
+//   block barrier after each copy group). S = Q K^T runs as m16n8k8 TF32
+//   mma.sync, 8 dims a step, its Q and K fragments read by ldmatrix (an
+//   8 x 8 b16 matrix is 8 rows of 4 floats). Q is split in registers; K
+//   and V are split once for the CTA's warps, each into its hi plane in
+//   place and its lo plane in a third buffer (K's, then V's after the
+//   scores). The warp's 16 x lp scores stay in registers (lp / 2 floats a
+//   lane).
+// - The softmax reduces each row over its quad of lanes by shuffles: max,
+//   expf of the score less the max, sum; P = e (1 / sum) stays in
+//   registers.
+// - O = P V as m16n8k8 TF32 mma.sync, 8 keys a step: P's accumulator tile
+//   is the A fragment with its keys in the order 0, 2, 4, 6, 1, 3, 5, 7, so
+//   V's fragment is read for keys 2t and 2t + 1 straight from shared
+//   memory. O leaves in 8-byte stores, whole 32-byte sectors.
+// Every output is the same products and sums in the same order on every
+// call: two calls give the same bits. With `stamps`, thread 0 of each CTA
+// records the card's clock after each phase (Q and K landed and K split,
+// scores, softmax, V split with PV and the store) and the whole run in
+// cycles and in ns.
 
 #include "decoder_common.cuh"
 
@@ -253,137 +270,248 @@ cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* v, long ld, bf
   return cudaGetLastError();
 }
 
-constexpr int F32_QT = 32;  // query rows of one f32 block: 8 warps of 4 rows
+constexpr int F32_ROWS = 16;  // query rows of one warp of the f32 mode: one m16 tile
+constexpr int F32_WARPS = 4;  // warps of one CTA of the f32 mode
+constexpr int F32_LD = DH + 4;  // floats a row of Q, K and V in shared memory
+constexpr int F32_STAMPS = 6;   // per CTA: cycles of 4 phases and the whole run; ns of the whole run
 
-// The f32 mode's shared memory at NC key groups and lq rows: K [32 NC][65],
-// V [lq][64], the tile's Q [32][64] and P [32][32 NC].
-__host__ __device__ constexpr size_t attn_f32_smem(int nc, int lq) {
-  return sizeof(float) * ((size_t)32 * nc * 65 + (size_t)lq * DH + F32_QT * DH + (size_t)F32_QT * 32 * nc);
+// The f32 mode's keys (lq to a multiple of 16: pairs of 8-key tiles),
+// CTAs a head and shared memory a CTA at lq: K, V and the lo plane
+// [kp][68], Q [64][68].
+__host__ __device__ constexpr int f32_kp(int lq) { return (lq + 15) / 16 * 16; }
+__host__ __device__ constexpr int f32_ctas(int lq) {
+  return (lq + F32_ROWS * F32_WARPS - 1) / (F32_ROWS * F32_WARPS);
+}
+__host__ __device__ constexpr size_t attn_f32_smem(int lq) {
+  return sizeof(float) * (size_t)(3 * f32_kp(lq) + F32_ROWS * F32_WARPS) * F32_LD;
+}
+
+__device__ __forceinline__ long long attn_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = x rounded to TF32, lo = the rest rounded
+// to TF32 (as K5's split, ops/kernels/lbs.py::tf32_split_plain)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a b over 8 of k in TF32, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at f32 accuracy: lo.hi + hi.lo + hi.hi, each a TF32 product
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2], const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);
 }
 
 template <int NC>
-__global__ void __launch_bounds__(256) attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                                       const float* __restrict__ v, long ld, float* __restrict__ out,
-                                                       int lq, int F, int H, int tiles, float scale) {
+__global__ void __launch_bounds__(F32_WARPS * 32)
+    attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, long ld,
+                    float* __restrict__ out, int lq, int F, int H, float scale, long long* stamps) {
+  constexpr int KP = 16 * NC, NT = 2 * NC, ROWS = F32_ROWS * F32_WARPS, THREADS = F32_WARPS * 32;  // NT: 8-key tiles
   extern __shared__ __align__(16) float fsm[];
-  constexpr int KP = 32 * NC;  // key rows, those past lq zero
-  float* Ks = fsm;             // [KP][65]
-  float* Vs = Ks + KP * 65;    // [lq][64]
-  float* Qs = Vs + lq * DH;    // [F32_QT][64], scaled
-  float* Ps = Qs + F32_QT * DH;  // [F32_QT][KP]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tile = blockIdx.x % tiles, eh = blockIdx.x / tiles, h = eh % H, e = eh / H;
-  const int q0 = tile * F32_QT, nq = min(F32_QT, lq - q0);
+  float* Ks = fsm;               // [KP][F32_LD] K, then its hi plane; rows past lq zero
+  float* Vs = Ks + KP * F32_LD;  // [KP][F32_LD] V, then its hi plane; rows past lq zero
+  float* Xs = Vs + KP * F32_LD;  // [KP][F32_LD] K's lo plane, then V's
+  float* Qs = Xs + KP * F32_LD;  // [ROWS][F32_LD]; rows past this CTA's zero
+  const int ctas = f32_ctas(lq), eh = blockIdx.x / ctas, h = eh % H, e = eh / H;
+  const int q0 = (blockIdx.x % ctas) * ROWS, nq = min(ROWS, lq - q0);
   const long base = (long)e * lq * ld + (long)h * DH;
+  long long clk[5] = {0, 0, 0, 0, 0}, ns0 = 0, ns1 = 0;
+  if (stamps && tid == 0) {
+    clk[0] = clock64();
+    ns0 = attn_ns();
+  }
 
-  for (int i = tid; i < KP * (DH / 4); i += 256) {
-    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
-    float4 kv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < lq) {
-      kv = *reinterpret_cast<const float4*>(k + base + (long)r * ld + c);
-      *reinterpret_cast<float4*>(Vs + r * DH + c) = *reinterpret_cast<const float4*>(v + base + (long)r * ld + c);
+  // 16-byte copies, 16 a row: Q and K in one group, V in a second that
+  // lands while the scores run; rows past the real ones zero-filled
+  for (int i = tid; i < ROWS * 16; i += THREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    cp_async16(Qs + r * F32_LD + c, q + base + (long)(q0 + (r < nq ? r : 0)) * ld + c, r < nq);
+  }
+  for (int i = tid; i < KP * 16; i += THREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    cp_async16(Ks + r * F32_LD + c, k + base + (long)(r < lq ? r : 0) * ld + c, r < lq);
+  }
+  cp_async_commit();
+  for (int i = tid; i < KP * 16; i += THREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    cp_async16(Vs + r * F32_LD + c, v + base + (long)(r < lq ? r : 0) * ld + c, r < lq);
+  }
+  cp_async_commit();
+  // x (K, then V) into its TF32 planes, once for the CTA's warps: hi in
+  // place, lo in Xs
+  auto split_rows = [&](float* x) {
+    for (int i = tid; i < KP * 16; i += THREADS) {
+      const int o = (i >> 4) * F32_LD + (i & 15) * 4;
+      const float4 f = *reinterpret_cast<const float4*>(x + o);
+      uint32_t h[4], l[4];
+      split_tf32(f.x, h[0], l[0]);
+      split_tf32(f.y, h[1], l[1]);
+      split_tf32(f.z, h[2], l[2]);
+      split_tf32(f.w, h[3], l[3]);
+      *reinterpret_cast<uint4*>(x + o) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(Xs + o) = make_uint4(l[0], l[1], l[2], l[3]);
     }
-    float* kr = Ks + r * 65 + c;
-    kr[0] = kv.x;
-    kr[1] = kv.y;
-    kr[2] = kv.z;
-    kr[3] = kv.w;
-  }
-  for (int i = tid; i < F32_QT * (DH / 4); i += 256) {
-    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
-    float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < nq) qv = *reinterpret_cast<const float4*>(q + base + (long)(q0 + r) * ld + c);
-    qv.x *= scale;
-    qv.y *= scale;
-    qv.z *= scale;
-    qv.w *= scale;
-    *reinterpret_cast<float4*>(Qs + r * DH + c) = qv;
-  }
+  };
+  cp_async_wait<1>();
   __syncthreads();
+  split_rows(Ks);
+  __syncthreads();
+  if (stamps && tid == 0) clk[1] = clock64();
 
-  const int r0 = warp * 4;
-  if (r0 >= nq) return;  // no barrier follows: a warp past the tile's rows is done
-  float s[4][NC];
+  // the m16n8k8 fragments: this lane holds rows g and g + 8 of the warp's
+  // tile at columns 2t, 2t + 1 of each 8-wide accumulator tile
+  const int r0 = warp * F32_ROWS, g = lane >> 2, t = lane & 3;
+  const bool rows_here = r0 < nq;
+  float s[NT][4];  // the scores, then P: tile j holds keys 8j .. 8j + 7
+  if (rows_here) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    // S = (q / sqrt(dh)) k^T, 8 dims a step; ldmatrix of f32 rows gives the
+    // TF32 fragments: an 8 x 8 b16 matrix is 8 rows of 4 floats
+    const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;  // A: matrices 1, 3 are 8 rows down, 2, 3 4 dims on
+    const int kr = (lane & 7) + (lane >> 4) * 8;        // B: matrices 2, 3 are the next 8 keys
 #pragma unroll
-    for (int c = 0; c < NC; ++c) s[i][c] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < DH; d += 4) {
-    float4 qd[4];
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      uint32_t a[4], ahi[4], alo[4];
+      ldsm_x4(smem_u32(Qs + (r0 + lr) * F32_LD + kk * 8 + (lane >> 4) * 4), a[0], a[1], a[2], a[3]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qd[i] = *reinterpret_cast<const float4*>(Qs + (r0 + i) * DH + d);
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]) * scale, ahi[i], alo[i]);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float* kr = Ks + (lane + 32 * c) * 65 + d;
-      const float k0 = kr[0], k1 = kr[1], k2 = kr[2], k3 = kr[3];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a = fmaf(qd[i].x, k0, s[i][c]);
-        a = fmaf(qd[i].y, k1, a);
-        a = fmaf(qd[i].z, k2, a);
-        s[i][c] = fmaf(qd[i].w, k3, a);
+      for (int j = 0; j < NC; ++j) {
+        uint32_t bhi[2][2], blo[2][2];  // keys 16j.. ([0]), 16j + 8.. ([1])
+        const int o = (16 * j + kr) * F32_LD + kk * 8 + ((lane >> 3) & 1) * 4;
+        ldsm_x4(smem_u32(Ks + o), bhi[0][0], bhi[0][1], bhi[1][0], bhi[1][1]);
+        ldsm_x4(smem_u32(Xs + o), blo[0][0], blo[0][1], blo[1][0], blo[1][1]);
+        mma_3xtf32(s[2 * j], ahi, alo, bhi[0], blo[0]);
+        mma_3xtf32(s[2 * j + 1], ahi, alo, bhi[1], blo[1]);
       }
     }
-  }
+    if (stamps && tid == 0) clk[2] = clock64();
 
-  // exact softmax of each row over its lq real keys
+    // exact softmax of rows g and g + 8 over the lq real keys, within the
+    // quad of lanes that holds them; P = e (1 / sum)
+    float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float m = -INFINITY;
+    for (int j = 0; j < NT; ++j) {
+      if (8 * j + 8 > lq)  // the tile past the last key: its padded keys score -inf, so e = 0 there
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lane + 32 * c < lq) m = fmaxf(m, s[i][c]);
+        for (int c = 0; c < 2; ++c)
+          if (8 * j + 2 * t + c >= lq) s[j][c] = s[j][2 + c] = -INFINITY;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      s[i][c] = lane + 32 * c < lq ? expf(s[i][c] - m) : 0.0f;
-      l += s[i][c];
+      for (int c = 0; c < 2; ++c) {
+        m_lo = fmaxf(m_lo, s[j][c]);
+        m_hi = fmaxf(m_hi, s[j][2 + c]);
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    for (int o = 1; o < 4; o <<= 1) {
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
+    }
+    float l_lo = 0.0f, l_hi = 0.0f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) Ps[(r0 + i) * KP + lane + 32 * c] = s[i][c] / l;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[j][c] = expf(s[j][c] - m_lo);
+        s[j][2 + c] = expf(s[j][2 + c] - m_hi);
+        l_lo += s[j][c];
+        l_hi += s[j][2 + c];
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+    }
+    const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] *= i_lo;
+      s[j][1] *= i_lo;
+      s[j][2] *= i_hi;
+      s[j][3] *= i_hi;
+    }
+    if (stamps && tid == 0) clk[3] = clock64();
   }
-  __syncwarp();  // a warp reads only its own P rows
-
-  float o[4][2];
+  cp_async_wait<0>();
+  __syncthreads();  // V landed, and every warp is done with K's lo plane
+  split_rows(Vs);
+  __syncthreads();
+  if (rows_here) {
+    // O = P V, 8 keys a step. P's accumulator tile is the A fragment with
+    // its 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7 (a0 = key 2t, a2 =
+    // key 2t + 1), so V's fragment takes keys 2t and 2t + 1: b0 =
+    // V[8j + 2t][8n + g], b1 = V[8j + 2t + 1][8n + g] (conflict-free at
+    // the 68-float row stride)
+    float o[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) o[i][0] = o[i][1] = 0.0f;
-  for (int j = 0; j < lq; ++j) {
-    const float v0 = Vs[j * DH + lane], v1 = Vs[j * DH + lane + 32];
+    for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = Ps[(r0 + i) * KP + j];
-      o[i][0] = fmaf(p, v0, o[i][0]);
-      o[i][1] = fmaf(p, v1, o[i][1]);
+    for (int j = 0; j < NT; ++j) {
+      uint32_t phi[4], plo[4];
+      split_tf32(s[j][0], phi[0], plo[0]);
+      split_tf32(s[j][2], phi[1], plo[1]);
+      split_tf32(s[j][1], phi[2], plo[2]);
+      split_tf32(s[j][3], phi[3], plo[3]);
+      const int vr = (8 * j + 2 * t) * F32_LD + g;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        const uint32_t vhi[2] = {__float_as_uint(Vs[vr + 8 * n]), __float_as_uint(Vs[vr + F32_LD + 8 * n])};
+        const uint32_t vlo[2] = {__float_as_uint(Xs[vr + 8 * n]), __float_as_uint(Xs[vr + F32_LD + 8 * n])};
+        mma_3xtf32(o[n], phi, plo, vhi, vlo);
+      }
+    }
+    const int r = r0 + g;
+    float* orow = out + ((long)e * lq + q0 + r) * F + (long)h * DH + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      if (r < nq) *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][0], o[n][1]);
+      if (r + 8 < nq) *reinterpret_cast<float2*>(orow + 8 * F + 8 * n) = make_float2(o[n][2], o[n][3]);
+    }
+    if (stamps && tid == 0) {
+      clk[4] = clock64();
+      ns1 = attn_ns();
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (r0 + i < nq) {
-      float* orow = out + ((long)e * lq + q0 + r0 + i) * F + (long)h * DH;
-      orow[lane] = o[i][0];
-      orow[lane + 32] = o[i][1];
-    }
+  if (stamps && tid == 0) {
+    long long* st = stamps + (long)F32_STAMPS * blockIdx.x;
+    st[0] = clk[1] - clk[0];
+    st[1] = clk[2] - clk[1];
+    st[2] = clk[3] - clk[2];
+    st[3] = clk[4] - clk[3];
+    st[4] = clk[4] - clk[0];
+    st[5] = ns1 - ns0;
+  }
 }
 
 template <int NC>
 cudaError_t launch_attn_f32(const float* q, const float* k, const float* v, long ld, float* out, int B, int lq, int F,
-                            int H, cudaStream_t st) {
+                            int H, long long* stamps, cudaStream_t st) {
   static bool ready = false;  // the limit above 48 KB, raised once for the longest rows of NC
   if (!ready) {
     RETURN_IF_ERROR(cudaFuncSetAttribute(attn_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(attn_f32_smem(NC, 32 * NC))));
+                                         static_cast<int>(attn_f32_smem(16 * NC))));
     ready = true;
   }
-  const int tiles = (lq + F32_QT - 1) / F32_QT;
-  const long blocks = (long)B * H * tiles;
-  if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  attn_f32_kernel<NC><<<(unsigned)blocks, 256, attn_f32_smem(NC, lq), st>>>(q, k, v, ld, out, lq, F, H, tiles,
-                                                                           1.0f / sqrtf((float)DH));
+  const long grid = (long)B * H * f32_ctas(lq);
+  if (grid > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  attn_f32_kernel<NC><<<static_cast<unsigned>(grid), F32_WARPS * 32, attn_f32_smem(lq), st>>>(
+      q, k, v, ld, out, lq, F, H, 1.0f / sqrtf(static_cast<float>(DH)), stamps);
   return cudaGetLastError();
 }
 
@@ -414,25 +542,36 @@ extern "C" int msmd_attn_forward(const bf16* q, const bf16* k, const bf16* v, lo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The shared memory one block of the f32 mode takes at lq (0 past the
-// kernel's longest rows).
-extern "C" size_t msmd_attn_f32_smem_bytes(int lq) {
-  return lq >= 1 && lq <= ATTN_MAX_LQ ? attn_f32_smem((lq + 31) / 32, lq) : 0;
+// The f32 mode's launch at (B, lq, H), as ops/kernels/attn.py::
+// attn_f32_plan gives it: plan[0..5] = grid CTAs, CTAs a head, threads a
+// CTA, query rows a CTA, pairs of 8-key tiles, shared memory a CTA.
+// Returns cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int msmd_attn_f32_plan(int B, int lq, int H, long* plan) {
+  if (B <= 0 || H <= 0 || lq <= 0 || lq > ATTN_MAX_LQ) return static_cast<int>(cudaErrorInvalidValue);
+  const long out[6] = {(long)B * H * f32_ctas(lq), f32_ctas(lq), 32 * F32_WARPS, F32_ROWS * F32_WARPS,
+                       f32_kp(lq) / 16, static_cast<long>(attn_f32_smem(lq))};
+  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  return 0;
 }
 
-// out (B*lq, F) f32 = per entry and head softmax(q k^T / sqrt(64)) v in f32,
-// with q, k, v f32 rows of stride ld (elements, a multiple of 4) and head
-// dim 64, lq <= 256. Launches on `stream`; returns the first CUDA error or 0.
+// out (B*lq, F = 64 H) f32 = per entry and head softmax(q k^T / sqrt(64)) v
+// at f32 accuracy, with q, k, v f32 rows of stride ld (elements, a multiple
+// of 4; 16-byte aligned) and head dim 64, lq <= 256. stamps: null, or
+// F32_STAMPS int64 per CTA (the card's clock by phase). Launches on
+// `stream`; returns the first CUDA error or 0.
 extern "C" int msmd_attn_f32_forward(const float* q, const float* k, const float* v, long ld, float* out, int B,
-                                     int lq, int F, int H, cudaStream_t st) {
-  if (B <= 0 || lq <= 0 || lq > ATTN_MAX_LQ || F != H * DH || ld < F || ld % 4)
+                                     int lq, int H, long long* stamps, cudaStream_t st) {
+  const int F = H * DH;
+  if (B <= 0 || lq <= 0 || lq > ATTN_MAX_LQ || H <= 0 || ld < F || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch ((lq + 31) / 32) {
+  switch (f32_kp(lq) / 16) {
 #define MSMD_ATTN_F32_CASE(n) \
   case n:                     \
-    return static_cast<int>(launch_attn_f32<n>(q, k, v, ld, out, B, lq, F, H, st));
+    return static_cast<int>(launch_attn_f32<n>(q, k, v, ld, out, B, lq, F, H, stamps, st));
     MSMD_ATTN_F32_CASE(1) MSMD_ATTN_F32_CASE(2) MSMD_ATTN_F32_CASE(3) MSMD_ATTN_F32_CASE(4)
     MSMD_ATTN_F32_CASE(5) MSMD_ATTN_F32_CASE(6) MSMD_ATTN_F32_CASE(7) MSMD_ATTN_F32_CASE(8)
+    MSMD_ATTN_F32_CASE(9) MSMD_ATTN_F32_CASE(10) MSMD_ATTN_F32_CASE(11) MSMD_ATTN_F32_CASE(12)
+    MSMD_ATTN_F32_CASE(13) MSMD_ATTN_F32_CASE(14) MSMD_ATTN_F32_CASE(15) MSMD_ATTN_F32_CASE(16)
 #undef MSMD_ATTN_F32_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);

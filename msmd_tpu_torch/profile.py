@@ -9,6 +9,7 @@ one guided batch-48 window and one train step.
     python -m msmd_tpu_torch.profile --compare   # compare only (also from an older checkout)
     python -m msmd_tpu_torch.profile --ffn-train # ffn_train only (also from an older checkout)
     python -m msmd_tpu_torch.profile --lbs       # lbs only (also from an older checkout)
+    python -m msmd_tpu_torch.profile --attn-f32  # attn_f32 only (also from an older checkout)
     python -m msmd_tpu_torch.profile --profiler-sessions [SECONDS]  # profiler_sessions only
 
 Prints JSON lines:
@@ -64,6 +65,23 @@ Prints JSON lines:
   of one call, TFLOP/s, registers and spills, f32 ``torch.matmul`` of the
   blend product alone, and the call split into main loop and the rest,
   by depth and (where the library records them) from the card's clock.
+- ``attn_f32`` (``--attn-f32``, alone): K8's f32 mode (the style
+  encoders' attention) at the style clip's shapes, lq 100, F 512, 8 heads,
+  at B = 1 and 16 (``attn_f32_split``): ms from CUDA events, warm (three
+  turns each with SDPA, kernel first, their medians) and with the L2
+  flushed, the device time of one call (torch.profiler), the host's time
+  to issue one call (host clock over back-to-back calls, the card left
+  running), and ``scaled_dot_product_attention`` at f32 on the same
+  tensors timed the same way; the host path by part, each part alone over
+  many calls: the steps of the wrapper with a ``_check`` and a plan a call
+  (``_check``, the plan, ``_lib``, ``torch.empty``, four
+  ``ctypes.c_void_p`` pointers, the ``torch.cuda.Stream`` lookup,
+  ``on_cpu``, the C entry point with its launch) and, where the package
+  has them, the steps that replace them (the one-pass check with the
+  pointers, ``new_empty``, the output's pointer as an int, the raw stream
+  handle); and, where the library records them (``attn_f32_stamps``),
+  each phase of a CTA from the card's clock. The first steps exist in
+  older checkouts of the package too, so the same function times them.
 - ``profiler_sessions`` (``--profiler-sessions``, alone): how often a
   torch.profiler session around one call keeps fewer kernel records than
   launch calls (``measure.profiler_session``), for K5 at N = 4800 and K8
@@ -520,6 +538,95 @@ def lbs_split(dev, calls: int = 20) -> None:
         del fused, betas_ext, rt, bases, deep, deep_betas
 
 
+ATTN_F32_BATCHES = (1, 16)  # inference's one clip; a train batch's eval-mode encode
+ATTN_F32_LQ = 100  # the style clip's frames
+HOST_REPS = 200  # few enough that the launches never fill the card's queue
+
+
+def _host_us(fn, reps: int = HOST_REPS) -> float:
+    """Microseconds of host time a call of ``fn`` over ``reps`` calls in a
+    row (what the card runs meanwhile is not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def attn_f32_split(dev, calls: int = 50) -> None:
+    """K8's f32 mode at the style clip's shapes beside SDPA at f32: ms warm
+    and L2-flushed, device ms, host us a call, the host path by part, and
+    the phases of a CTA from the card's clock (where the library records
+    them)."""
+    import subprocess
+
+    from msmd_tpu_torch import _build
+    from msmd_tpu_torch.measure import attn_case, cuda_ms, cuda_ms_flushed, sdpa_call
+    from msmd_tpu_torch.ops.kernels import attn as k8
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    device_ms = lambda fn: sum(us for _, us in _device_events(fn, calls)) / calls / 1e3
+    new = hasattr(k8, "_launch_f32")
+    lq = ATTN_F32_LQ
+    for B in ATTN_F32_BATCHES:
+        with torch.no_grad():
+            q, k, v, H = attn_case(dev, B=B, lq=lq, seed=B + 50, dtype=torch.float32)
+            F = q.shape[2]
+            call = lambda: k8.attention_middle(q, k, v, H)
+            got, again, want = call(), call(), k8.attention_middle_plain(q, k, v, H)
+            sdpa, heads = sdpa_call(q, k, v, H)
+            out = {"phase": "attn_f32", "card": smi, "entries": B, "lq": lq, "heads": H,
+                   "plan": k8.attn_f32_plan(B, lq, H),
+                   "rel_err": float((got - want).abs().max() / want.abs().max()),
+                   "bit_equal_across_calls": bool(torch.equal(got, again)),
+                   "ms_turns": [], "sdpa_ms_turns": [], "ms_l2_flushed": cuda_ms_flushed(call, 50),
+                   "device_ms": device_ms(call), "host_us_per_call": _host_us(call),
+                   "sdpa_ms_l2_flushed": cuda_ms_flushed(sdpa, 50),
+                   "sdpa_device_ms": device_ms(sdpa), "sdpa_host_us_per_call": _host_us(sdpa)}
+            for turn in range(6):  # warm ms in turns, kernel, SDPA, SDPA, kernel, ...
+                side = ("ms_turns", "sdpa_ms_turns")[(turn + turn // 2) % 2]
+                out[side].append(cuda_ms(call if side == "ms_turns" else sdpa, 200, 50))
+            out["ms"], out["sdpa_ms"] = sorted(out["ms_turns"])[1], sorted(out["sdpa_ms_turns"])[1]
+            o = torch.empty(B, lq, F, dtype=torch.float32, device=dev)
+            lib, ld = k8._lib(), q.stride(1)
+            ptrs = [_build.ptr(t) for t in (q, k, v)]
+            parts = {"check": lambda: k8._check(q, k, v, H, torch.float32),
+                     "plan": lambda: k8.attn_f32_plan(B, lq, H), "lib": k8._lib,
+                     "empty": lambda: torch.empty(B, lq, F, dtype=q.dtype, device=q.device),
+                     "pointers": lambda: [_build.ptr(t) for t in (q, k, v, o)],
+                     "stream": lambda: _build.stream(q.device),
+                     "on_cpu": lambda: _build.on_cpu("attention_middle", q)}
+            if new:
+                raw, ints = _build.raw_stream(q.get_device()), [t.data_ptr() for t in (q, k, v)]
+                parts.update(
+                    new_empty=lambda: q.new_empty((B, lq, F)),
+                    check_one_pass=lambda: k8._check_f32(q, k, v, H),
+                    pointer_int=lambda: o.data_ptr(),
+                    stream_raw=lambda: _build.raw_stream(q.get_device()),
+                    entry_and_launch=lambda: lib.msmd_attn_f32_forward(*ints, ld, o.data_ptr(), B, lq, H, None, raw))
+            else:
+                st = _build.stream(q.device)
+                parts["entry_and_launch"] = lambda: lib.msmd_attn_f32_forward(*ptrs, ld, _build.ptr(o), B, lq, F, H,
+                                                                              st)
+            out["host_us_by_part"] = {name: _host_us(fn) for name, fn in parts.items()}
+            if hasattr(k8, "attn_f32_stamps"):
+                for _ in range(3):
+                    st = k8.attn_f32_stamps(q, k, v, H).double()
+                ns_per_cycle = float((st[:, 5] / st[:, 4]).mean())
+                names = ("q_k_landed_k_split", "scores", "softmax", "v_split_pv_store", "whole")
+                us = st[:, :5] * ns_per_cycle / 1e3
+                out["stamps"] = {"ctas": st.shape[0], "ns_per_cycle": ns_per_cycle,
+                                 "us_mean": dict(zip(names, us.mean(0).tolist())),
+                                 "us_max": dict(zip(names, us.max(0).values.tolist())),
+                                 "whole_ns_max": float(st[:, 5].max())}
+        print(json.dumps(out), flush=True)
+        del q, k, v, got, again, want, heads, o
+
+
 FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
 
 
@@ -567,6 +674,9 @@ def main(argv=None) -> int:
         return 0
     if "--lbs" in argv:
         lbs_split(torch.device("cuda", 0))
+        return 0
+    if "--attn-f32" in argv:
+        attn_f32_split(torch.device("cuda", 0))
         return 0
     if "--profiler-sessions" in argv:
         rest = argv[argv.index("--profiler-sessions") + 1:]

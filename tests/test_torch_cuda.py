@@ -784,13 +784,17 @@ def test_gemm_ws_plan_matches_the_library(M, N, K, epilogue):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 16])
-@pytest.mark.parametrize("lq", [1, 100, 256])
+@pytest.mark.parametrize("lq", [1, 100, 128, 129, 256])
 def test_attn_f32_kernel_matches_plain(lq, B):
     """K8's f32 mode (the style encoders' attention at inference) at one
-    row, the 100-frame clip and ``MAX_LQ``: f32 ``attention_middle`` launches
-    it (counted apart from the bf16 mode), max |err| <= 1e-5 of max |plain|
-    (the plain version at f32 with TF32 off; other f32 summation orders),
-    two calls bit-equal, its shared memory as ``attn_f32_plan`` gives it."""
+    row, the 100-frame clip, the CTA edges 128 / 129 and ``MAX_LQ``: f32
+    ``attention_middle`` launches it (counted apart from the bf16 mode), max
+    |err| <= 1e-5 of max |plain| (the plain version at f32 with TF32 off;
+    other f32 summation orders and 3xTF32 products), two calls bit-equal,
+    the library's plan query (grid, CTAs a head, threads, query rows, key
+    tiles, shared memory) as ``attn_f32_plan`` gives it."""
+    import ctypes
+
     from msmd_tpu_torch.measure import attn_case
     from msmd_tpu_torch.ops.kernels import attn as k8
 
@@ -800,7 +804,9 @@ def test_attn_f32_kernel_matches_plain(lq, B):
     want = k8.attention_middle_plain(q, k, v, H)
     torch.cuda.synchronize()
     assert k8.attention_middle_f32.launches == before + 2 and k8.attention_middle.launches == before_bf16
-    assert k8._lib().msmd_attn_f32_smem_bytes(lq) == k8.attn_f32_plan(B, lq, H)["smem"]
+    plan, lib_plan = k8.attn_f32_plan(B, lq, H), (ctypes.c_long * 6)()
+    assert k8._lib().msmd_attn_f32_plan(B, lq, H, lib_plan) == 0
+    assert list(lib_plan) == [plan[key] for key in ("grid", "ctas_per_head", "threads", "query_rows", "nc", "smem")]
     assert got.shape == want.shape == q.shape and got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     print(f"K8 f32 B={B} lq={lq} rel_err={_rel(got, want):.3e}")
     assert _rel(got, want) <= 1e-5

@@ -15,7 +15,7 @@ prepared weights a decoder layer keeps for them.
 - The per-product plain versions (``gemm_ws_plain``: B in the nn.Linear
   layout, bf16 or f32 residual, LayerNorm with a bf16-only or an f32 + bf16
   output, tanh or erf GELU), composed as the kernels compose them, equal
-  ``ffn_ln_plain`` bit for bit, and ``layer_tail_plain`` to within the
+  ``ffn_ln_plain`` bit for bit (both on one CPU thread), and ``layer_tail_plain`` to within the
   order of one addition (K9's cross step adds the bias to the product
   before the residual, as the kernels do, where ``layer_tail_plain`` adds
   it last): f32 atol 2e-6, bf16 within one bf16 rounding step of the value.
@@ -127,8 +127,20 @@ def _case(rows, F, FF, dtype, seed, n_res=1):
     return acts, ws, ln
 
 
+@pytest.fixture
+def one_cpu_thread():
+    """The CPU's f32 products on one thread while the test runs: how a
+    product is split over threads is the one thing that differs between two
+    calls of the same torch op on the same tensors, so under one thread
+    the two sides' bits can be compared."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_composed_twins_equal_ffn_ln_plain(dtype):
+def test_composed_twins_equal_ffn_ln_plain(dtype, one_cpu_thread):
     (x,), w, (g, b) = _case(37, 64, 256, dtype, seed=1)
     h = kw.gemm_ws_plain(x, w["w1"], w["b1"], "gelu" if dtype == torch.bfloat16 else "gelu_erf")
     out = kw.gemm_ws_plain(h, w["w2"], w["b2"], "resid_ln", x, g[0], b[0])
