@@ -25,6 +25,7 @@ from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.diffusion import MSMD, get_diffusion_model, sample
 from msmd_tpu_torch.models.layers import SampleRows
+from msmd_tpu_torch.utils.profiling import count
 
 
 @torch.no_grad()
@@ -122,6 +123,8 @@ def infer_coeffs(
         prev_audio = prev_audio_full[:, -cfg.n_prev_motions:]
         if i == n_subdivision - 1 and n_padding_frames > 0:
             motion = motion[:, :-n_padding_frames]
+        count("msmd.frames.sampled", motion.shape[0] * cfg.n_motions)
+        count("msmd.frames.kept", motion.shape[0] * motion.shape[1])
         coef_list.append(motion)
     coefs = torch.cat(coef_list, dim=1)
     if rows is None:

@@ -92,6 +92,7 @@ from msmd_tpu_torch.ops.kernels.decoder import (build_masks, build_person_mask, 
 from msmd_tpu_torch.ops.schedule import DiffusionSchedule
 from msmd_tpu_torch.ops.seq import alignment_mask, linear_interpolate, pad_audio
 from msmd_tpu_torch.parallel.tp import is_sharded
+from msmd_tpu_torch.utils.profiling import span
 
 
 class MSMD(nn.Module):
@@ -123,9 +124,10 @@ class MSMD(nn.Module):
         SpecAugment."""
         cfg = self.cfg
         frame_num = frame_num or cfg.n_motions
-        hidden = self.audio_encoder(pad_audio(audio), cfg.fps, frame_num * 2, rng)
-        hidden = linear_interpolate(hidden.transpose(1, 2), frame_num).transpose(1, 2)
-        return self.audio_feature_map(hidden)
+        with span("msmd.audio_encoder"):
+            hidden = self.audio_encoder(pad_audio(audio), cfg.fps, frame_num * 2, rng)
+            hidden = linear_interpolate(hidden.transpose(1, 2), frame_num).transpose(1, 2)
+            return self.audio_feature_map(hidden)
 
     def forward(
         self,
@@ -560,85 +562,89 @@ def sample(
     the full trajectory (T+1, B, n_motions, D; index t holds x_t) in place
     of the motion when ``ret_traj``.
     """
-    dev = resolve_device(device)
-    _check_model_device(model, dev)
-    cfg = model.cfg
-    sched = DiffusionSchedule.create(cfg.n_diff_steps, cfg.diff_schedule)
-    audio_feat, motion_at_T, stacks = _prepare_sample_inputs(
-        model, _on(audio_or_feat, dev), _on(shape_feat, dev, torch.float32), _on(style_feat, dev),
-        _on(prev_motion_feat, dev), _on(prev_audio_feat, dev), _on(motion_at_T, dev, torch.float32),
-        _on(indicator, dev), cfg_mode, cfg_cond, cfg_scale, generator, rows,
-    )
-    noise_override = _on(noise_override, dev, torch.float32)
-    B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
-    E = stacks["n_entries"]
-    T = sched.num_steps
-    guided = guidance_indice is not None
-    n_prev = stacks["prev_motion_in"].shape[1]
-    Be, lq = B * E, 1 + n_prev + n_motions
-    if is_sharded(model):  # tensor parallel: a gate on the layout, not on a failure
-        if fused_decoder:
-            raise ValueError("the decoder kernels take whole weights: a tensor-parallel model runs the modules")
-        fused_decoder = False
-    if fused_decoder is None:
-        fused_decoder = (model.dtype == torch.bfloat16 and not guided
-                         and (Be <= 4 or decoder_route(cfg.align_mask_width, Be, lq)[0]))
-    z_shape = tuple(motion_at_T.shape[1:])
-    if noise_override is None and (B if rows is None else rows.total) <= 4:
-        noise_override = per_sample(B, generator, rows, lambda n, g: _randn((T, n) + z_shape, g, dev), dim=1)
+    with span("msmd.sample.setup"):
+        dev = resolve_device(device)
+        _check_model_device(model, dev)
+        cfg = model.cfg
+        sched = DiffusionSchedule.create(cfg.n_diff_steps, cfg.diff_schedule)
+        audio_feat, motion_at_T, stacks = _prepare_sample_inputs(
+            model, _on(audio_or_feat, dev), _on(shape_feat, dev, torch.float32), _on(style_feat, dev),
+            _on(prev_motion_feat, dev), _on(prev_audio_feat, dev), _on(motion_at_T, dev, torch.float32),
+            _on(indicator, dev), cfg_mode, cfg_cond, cfg_scale, generator, rows,
+        )
+        noise_override = _on(noise_override, dev, torch.float32)
+        B, n_motions = motion_at_T.shape[0], motion_at_T.shape[1]
+        E = stacks["n_entries"]
+        T = sched.num_steps
+        guided = guidance_indice is not None
+        n_prev = stacks["prev_motion_in"].shape[1]
+        Be, lq = B * E, 1 + n_prev + n_motions
+        if is_sharded(model):  # tensor parallel: a gate on the layout, not on a failure
+            if fused_decoder:
+                raise ValueError("the decoder kernels take whole weights: a tensor-parallel model runs the modules")
+            fused_decoder = False
+        if fused_decoder is None:
+            fused_decoder = (model.dtype == torch.bfloat16 and not guided
+                             and (Be <= 4 or decoder_route(cfg.align_mask_width, Be, lq)[0]))
+        z_shape = tuple(motion_at_T.shape[1:])
+        if noise_override is None and (B if rows is None else rows.total) <= 4:
+            noise_override = per_sample(B, generator, rows, lambda n, g: _randn((T, n) + z_shape, g, dev), dim=1)
 
-    # At bf16, cast the denoiser's weights once for the whole loop (the
-    # modules would cast them at every use; same numbers).
-    dn = model.denoising_net
-    if model.dtype == torch.bfloat16:
-        dn = copy.deepcopy(dn).to(torch.bfloat16)
-    memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
+        # At bf16, cast the denoiser's weights once for the whole loop (the
+        # modules would cast them at every use; same numbers).
+        dn = model.denoising_net
+        if model.dtype == torch.bfloat16:
+            dn = copy.deepcopy(dn).to(torch.bfloat16)
+        memory_kv = dn.cache_memory_kv(stacks["prev_audio_in"], stacks["audio_in"])
 
-    if (fused_decoder and B == 1 and cfg.align_mask_width == 1 and dynamic_threshold is None
-            and not cfg.no_use_learnable_pe and not model.use_head_alpha and not guided):
-        return _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise_override, audio_feat,
-                              flexibility, ret_traj)
+        batch1 = (fused_decoder and B == 1 and cfg.align_mask_width == 1 and dynamic_threshold is None
+                  and not cfg.no_use_learnable_pe and not model.use_head_alpha and not guided)
+        if batch1:
+            args = _batch1_args(dn, model, stacks, memory_kv, motion_at_T, noise_override, flexibility, ret_traj)
+        else:
+            fused = None
+            if fused_decoder:
+                fused = fused_decoder_args(dn, cfg, model.dtype, memory_kv, Be, n_prev, n_motions, dev, resident)
+            # the XLA-decoder route's kernels (``msmd_tpu/models/diffusion.py``:627-650)
+            fused_ffn = fused is None and model.dtype == torch.bfloat16
+            fused_tail = fused_ffn and fused_tail and cfg.align_mask_width == 1
+            fused_ffn = fused_ffn and not fused_tail
+            if guided:
+                guidance_indice = torch.as_tensor(guidance_indice, dtype=torch.long, device=dev)
+                guidance_values = _on(guidance_values, dev, torch.float32)
+            step_emb_table = dn.precompute_step_emb()
+            sc_tab = _ddpm_table(sched, cfg.target, flexibility)
 
-    fused = None
-    if fused_decoder:
-        fused = fused_decoder_args(dn, cfg, model.dtype, memory_kv, Be, n_prev, n_motions, dev, resident)
-    # the XLA-decoder route's kernels (``msmd_tpu/models/diffusion.py``:627-650)
-    fused_ffn = fused is None and model.dtype == torch.bfloat16
-    fused_tail = fused_ffn and fused_tail and cfg.align_mask_width == 1
-    fused_ffn = fused_ffn and not fused_tail
-    if guided:
-        guidance_indice = torch.as_tensor(guidance_indice, dtype=torch.long, device=dev)
-        guidance_values = _on(guidance_values, dev, torch.float32)
-    step_emb_table = dn.precompute_step_emb()
-    sc_tab = _ddpm_table(sched, cfg.target, flexibility)
+    with span("msmd.sample.steps"):
+        if batch1:
+            return _sample_batch1(args, motion_at_T, ret_traj), motion_at_T, audio_feat
+        motion = motion_at_T
+        traj = []
+        for i, t in enumerate(range(T, 0, -1)):
+            z = noise_override[i] if noise_override is not None else \
+                per_sample(B, generator, rows, lambda n, g: _randn((n,) + z_shape, g, dev))
+            if t <= 1:
+                z = torch.zeros_like(z)
 
-    motion = motion_at_T
-    traj = []
-    for i, t in enumerate(range(T, 0, -1)):
-        z = noise_override[i] if noise_override is not None else \
-            per_sample(B, generator, rows, lambda n, g: _randn((n,) + z_shape, g, dev))
-        if t <= 1:
-            z = torch.zeros_like(z)
-
-        motion_in = torch.cat([motion] * E, dim=0)
-        if guided:
-            motion_in[:, guidance_indice, :] = guidance_values
-        step_in = torch.full((B * E,), t, dtype=torch.long, device=dev)
-        results = dn(motion_in, stacks["audio_in"], stacks["person_in"], stacks["style_in"],
-                     stacks["prev_motion_in"], stacks["prev_audio_in"], step_in, stacks["indicator_in"],
-                     memory_kv=memory_kv, fused_decoder=fused, step_emb_table=step_emb_table,
-                     fused_ffn=fused_ffn, fused_tail=fused_tail, attn_kernel=attn_kernel)
-        if dynamic_threshold:
-            results = _dynamic_threshold(results, n_motions, dynamic_threshold)
-        results = results.reshape((E, B) + results.shape[1:])
-        target = _cfg_combine(results, stacks["coefficients"], n_motions).float()
-        A, B_t, sigma = (float(v) for v in sc_tab[t, :3])
-        motion = A * motion + B_t * target + sigma * z
+            motion_in = torch.cat([motion] * E, dim=0)
+            if guided:
+                motion_in[:, guidance_indice, :] = guidance_values
+            step_in = torch.full((B * E,), t, dtype=torch.long, device=dev)
+            results = dn(motion_in, stacks["audio_in"], stacks["person_in"], stacks["style_in"],
+                         stacks["prev_motion_in"], stacks["prev_audio_in"], step_in, stacks["indicator_in"],
+                         memory_kv=memory_kv, fused_decoder=fused, step_emb_table=step_emb_table,
+                         fused_ffn=fused_ffn, fused_tail=fused_tail, attn_kernel=attn_kernel)
+            if dynamic_threshold:
+                results = _dynamic_threshold(results, n_motions, dynamic_threshold)
+            results = results.reshape((E, B) + results.shape[1:])
+            target = _cfg_combine(results, stacks["coefficients"], n_motions).float()
+            A, B_t, sigma = (float(v) for v in sc_tab[t, :3])
+            motion = A * motion + B_t * target + sigma * z
+            if ret_traj:
+                traj.append(motion)
         if ret_traj:
-            traj.append(motion)
-    if ret_traj:
-        return _trajectory(traj, motion_at_T), motion_at_T, audio_feat
-    return motion, motion_at_T, audio_feat
+            return _trajectory(traj, motion_at_T), motion_at_T, audio_feat
+        return motion, motion_at_T, audio_feat
 
 
 def sample_with_guide(model: MSMD, audio_or_feat, shape_feat, *, guidance_indice, guidance_values, **kw):
@@ -748,27 +754,34 @@ def _trajectory(steps, motion_at_T):
     return torch.stack(steps[::-1] + [motion_at_T])
 
 
-def _sample_batch1(dn, model, stacks, memory_kv, motion_at_T, noise, audio_feat, flexibility, ret_traj):
-    """The batch-1 window through K3, or through K4 once per step for a
-    trajectory. ``noise`` (T, 1, N, D) is unmasked; the last step's z is 0."""
+def _batch1_args(dn, model, stacks, memory_kv, motion_at_T, noise, flexibility, ret_traj) -> dict:
+    """What the batch-1 window's launches take: ``batch1_sampler_args``
+    and the per-step rows (K3: all T at once, with ``vmw``; K4: one a
+    step). ``noise`` (T, 1, N, D) is unmasked; the last step's z is 0."""
     cfg = model.cfg
-    n_motions = motion_at_T.shape[1]
-    a = batch1_sampler_args(dn, cfg, model.dtype, stacks, memory_kv, n_motions, flexibility)
+    a = batch1_sampler_args(dn, cfg, model.dtype, stacks, memory_kv, motion_at_T.shape[1], flexibility)
     T = cfg.n_diff_steps
     ts = torch.arange(T, 0, -1, device=motion_at_T.device)
-    z = noise[:, 0].float() * (ts > 1).float()[:, None, None]  # (T, N, D), 0 at t = 1
-    m_T = motion_at_T[0].float().contiguous()
+    a.update(ts=ts, z=noise[:, 0].float() * (ts > 1).float()[:, None, None],  # (T, N, D), 0 at t = 1
+             m_T=motion_at_T[0].float().contiguous())
     if not ret_traj:
         lq = a["const"]["pe_flat"].shape[0] // a["kw"]["n_entries"]
-        const = dict(a["const"], vmw=build_vmw(a["vmem"], a["pack"]["wco"], lq, out_dtype=torch.float32))
-        m0 = kernel_sampler.fused_sampler_scan(
-            a["pack"], a["kmem"], a["vmem"], m_T, a["emb_table"][ts][:, None].contiguous(),
-            a["sc_tab"][ts][:, None].contiguous(), z.contiguous(), const, **a["kw"])
-        return m0[None], motion_at_T, audio_feat
-    m, steps = m_T, []
-    for i, t in enumerate(range(T, 0, -1)):
+        a.update(const=dict(a["const"], vmw=build_vmw(a["vmem"], a["pack"]["wco"], lq, out_dtype=torch.float32)),
+                 emb_rows=a["emb_table"][ts][:, None].contiguous(), sc_rows=a["sc_tab"][ts][:, None].contiguous())
+    return a
+
+
+def _sample_batch1(a: dict, motion_at_T, ret_traj):
+    """The batch-1 window through K3, or through K4 once per step for a
+    trajectory, from ``_batch1_args``."""
+    if not ret_traj:
+        m0 = kernel_sampler.fused_sampler_scan(a["pack"], a["kmem"], a["vmem"], a["m_T"], a["emb_rows"],
+                                               a["sc_rows"], a["z"], a["const"], **a["kw"])
+        return m0[None]
+    m, steps = a["m_T"], []
+    for i, t in enumerate(range(len(a["ts"]), 0, -1)):
         m = kernel_sampler.fused_sampler_step(
             a["pack"], a["kmem"], a["vmem"], m, a["emb_table"][t][None].contiguous(),
-            a["sc_tab"][t][None].contiguous(), z[i].contiguous(), a["const"], **a["kw"])
+            a["sc_tab"][t][None].contiguous(), a["z"][i].contiguous(), a["const"], **a["kw"])
         steps.append(m[None])
-    return _trajectory(steps, motion_at_T), motion_at_T, audio_feat
+    return _trajectory(steps, motion_at_T)

@@ -32,6 +32,7 @@ from msmd_tpu_torch import _build
 from msmd_tpu_torch.models.flame import FlameModel, full_pose
 from msmd_tpu_torch.ops.lbs import batch_rigid_transform, vertices2joints
 from msmd_tpu_torch.ops.rotations import batch_rodrigues
+from msmd_tpu_torch.utils.profiling import span
 
 N_JOINTS = 5
 LBS_KSTEP = 16  # basis rows a k-step of the kernel: KB is padded to a multiple
@@ -308,8 +309,9 @@ def flame_vertices(fused: FusedFlame, shape_params: torch.Tensor, expression_par
     signature of ``flame_vertices_fused``, differentiable in all three
     (``FlameSkin``). Tensors on the CPU take the plain versions; tensors on
     the card launch the kernels or raise."""
-    betas_ext, rt = skin_inputs(fused, shape_params, expression_params, pose_params, ignore_global_rot)
-    return FlameSkin.apply(fused, betas_ext, rt)
+    with span("msmd.flame.decode"):
+        betas_ext, rt = skin_inputs(fused, shape_params, expression_params, pose_params, ignore_global_rot)
+        return FlameSkin.apply(fused, betas_ext, rt)
 
 
 flame_vertices.launches = 0

@@ -45,6 +45,7 @@ import torch
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.inference_lib import infer_coeffs, load_model
 from msmd_tpu_torch.models.diffusion import sample
+from msmd_tpu_torch.utils.profiling import count, span
 
 
 class MotionGenerator:
@@ -327,88 +328,93 @@ class StreamingBatcher:
     def step(self) -> int:
         """Run one round; returns the number of stream-windows it served
         (0: nothing was ready)."""
-        cfg, model = self.cfg, self.model
+        cfg, model, dev = self.cfg, self.model, self.device
         n_a, L, P = cfg.n_audio_samples, cfg.n_motions, cfg.n_prev_motions
-        ready = self._ready_ids()
-        if not ready:
-            return 0
-        if len(ready) > self.max_slots:  # round-robin fairness when oversubscribed
-            self._rr %= len(ready)
-            ready = (ready + ready)[self._rr:self._rr + self.max_slots]
-            self._rr += self.max_slots
         S = self.max_slots
-        self._assign_slots(ready)
+        with span("msmd.stream.gather"):
+            ready = self._ready_ids()
+            if not ready:
+                return 0
+            if len(ready) > S:  # round-robin fairness when oversubscribed
+                self._rr %= len(ready)
+                ready = (ready + ready)[self._rr:self._rr + S]
+                self._rr += S
+            self._assign_slots(ready)
 
-        audio = np.zeros((S, n_a), np.float32)
-        shape = np.zeros((S, cfg.shape_feat_dim), np.float32)
-        style = np.zeros((S, cfg.d_style), np.float32)
-        first = np.zeros((S,), bool)
-        served = np.zeros((S,), bool)
-        indicator = np.ones((S, L), np.float32)
-        pad_frames: Dict[str, int] = {}
-        mT_draw = self._mT.clone()
-        for sid in ready:
-            s = self._streams[sid]
-            i = s.slot
-            take = min(len(s.buffer), n_a)
-            audio[i, :take] = s.buffer[:take]
-            s.buffer = s.buffer[take:]
-            if take < n_a:  # final partial window (infer_coeffs' formula, reference inference.py:41-44)
-                pad_frames[sid] = min(L, math.ceil((n_a - take) / cfg.audio_unit))
-                indicator[i, L - pad_frames[sid]:] = 0.0
-            shape[i], style[i] = s.shape, s.style
-            first[i], served[i] = s.window_idx == 0, True
-            mT_draw[i] = self._draw(s, s.window_idx, self._noise[i])
+            audio = np.zeros((S, n_a), np.float32)
+            shape = np.zeros((S, cfg.shape_feat_dim), np.float32)
+            style = np.zeros((S, cfg.d_style), np.float32)
+            first = np.zeros((S,), bool)
+            served = np.zeros((S,), bool)
+            indicator = np.ones((S, L), np.float32)
+            pad_frames: Dict[str, int] = {}
+            mT_draw = self._mT.clone()
+            for sid in ready:
+                s = self._streams[sid]
+                i = s.slot
+                take = min(len(s.buffer), n_a)
+                audio[i, :take] = s.buffer[:take]
+                s.buffer = s.buffer[take:]
+                if take < n_a:  # final partial window (infer_coeffs' formula, reference inference.py:41-44)
+                    pad_frames[sid] = min(L, math.ceil((n_a - take) / cfg.audio_unit))
+                    indicator[i, L - pad_frames[sid]:] = 0.0
+                shape[i], style[i] = s.shape, s.style
+                first[i], served[i] = s.window_idx == 0, True
+                mT_draw[i] = self._draw(s, s.window_idx, self._noise[i])
 
-        dev = self.device
-        first_d, served_d = self._upload(first)[:, None, None], self._upload(served)[:, None, None]
-        start = lambda p, like: p.detach().float().expand(like.shape)
-        prev_m = torch.where(first_d, start(model.start_motion_feat, self._prev_m), self._prev_m)
-        prev_a = torch.where(first_d, start(model.start_audio_feat, self._prev_a), self._prev_a)
-        motion_at_T = torch.where(first_d, mT_draw, self._mT)
-        feat = model.extract_audio_feature(self._upload(audio))
+            first_d, served_d = self._upload(first)[:, None, None], self._upload(served)[:, None, None]
+            start = lambda p, like: p.detach().float().expand(like.shape)
+            prev_m = torch.where(first_d, start(model.start_motion_feat, self._prev_m), self._prev_m)
+            prev_a = torch.where(first_d, start(model.start_audio_feat, self._prev_a), self._prev_a)
+            motion_at_T = torch.where(first_d, mT_draw, self._mT)
+            audio_d, shape_d, style_d = self._upload(audio), self._upload(shape), self._upload(style)
+            indicator_d = self._upload(indicator) if cfg.use_indicator else None
+        feat = model.extract_audio_feature(audio_d)
         motion, mT_out, audio_out = sample(
-            model, feat, self._upload(shape), self._upload(style), prev_motion_feat=prev_m, prev_audio_feat=prev_a,
-            motion_at_T=motion_at_T, indicator=self._upload(indicator) if cfg.use_indicator else None,
-            cfg_mode=self.cfg_mode, cfg_cond=self.cfg_cond, cfg_scale=self.cfg_scale,
-            dynamic_threshold=self.dynamic_threshold, noise_override=self._noise.transpose(0, 1), device=dev,
-            resident=self.resident)
-        self._prev_m = torch.where(served_d, motion[:, -P:].float(), self._prev_m)
-        self._prev_a = torch.where(served_d, audio_out[:, -P:].float(), self._prev_a)
-        self._mT = torch.where(served_d, mT_out.float(), self._mT)
+            model, feat, shape_d, style_d, prev_motion_feat=prev_m, prev_audio_feat=prev_a,
+            motion_at_T=motion_at_T, indicator=indicator_d, cfg_mode=self.cfg_mode, cfg_cond=self.cfg_cond,
+            cfg_scale=self.cfg_scale, dynamic_threshold=self.dynamic_threshold,
+            noise_override=self._noise.transpose(0, 1), device=dev, resident=self.resident)
+        with span("msmd.stream.scatter"):
+            self._prev_m = torch.where(served_d, motion[:, -P:].float(), self._prev_m)
+            self._prev_a = torch.where(served_d, audio_out[:, -P:].float(), self._prev_a)
+            self._mT = torch.where(served_d, mT_out.float(), self._mT)
 
-        # only the motion goes to the host: a pinned copy behind an event,
-        # waited on when this round is resolved
-        if dev.type == "cuda":
-            host = torch.empty(motion.shape, dtype=torch.float32, pin_memory=True)
-            host.copy_(motion, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = motion.float(), None
-        # windows are counted when dispatched; output arrives when resolved
-        items = [(sid, self._streams[sid].slot, pad_frames.get(sid, 0)) for sid in ready]
-        for sid in ready:
-            s = self._streams[sid]
-            s.window_idx += 1
-            if s.final and len(s.buffer) == 0:
-                s.finished = True
-        self._pending.append((host, done, items))
+            # only the motion goes to the host: a pinned copy behind an event,
+            # waited on when this round is resolved
+            if dev.type == "cuda":
+                host = torch.empty(motion.shape, dtype=torch.float32, pin_memory=True)
+                host.copy_(motion, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host, done = motion.float(), None
+            # windows are counted when dispatched; output arrives when resolved
+            items = [(sid, self._streams[sid].slot, pad_frames.get(sid, 0)) for sid in ready]
+            count("msmd.frames.sampled", S * L)
+            count("msmd.frames.kept", sum(L - pf for _, _, pf in items))
+            for sid in ready:
+                s = self._streams[sid]
+                s.window_idx += 1
+                if s.final and len(s.buffer) == 0:
+                    s.finished = True
+            self._pending.append((host, done, items))
         while len(self._pending) >= self.pipeline_depth:
             self._resolve_oldest()
         return len(ready)
 
     def _resolve_oldest(self) -> None:
         """Wait for the oldest round in flight alone and hand out its motion."""
-        host, done, items = self._pending.pop(0)
-        if done is not None:
-            done.synchronize()
-        motion = host.numpy()
-        L = self.cfg.n_motions
-        for sid, slot, pf in items:
-            s = self._streams.get(sid)
-            if s is not None:  # else removed while its round was in flight
-                s.outputs.append(motion[slot, :L - pf].copy() if pf else motion[slot].copy())
+        with span("msmd.stream.resolve"):
+            host, done, items = self._pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            motion = host.numpy()
+            L = self.cfg.n_motions
+            for sid, slot, pf in items:
+                s = self._streams.get(sid)
+                if s is not None:  # else removed while its round was in flight
+                    s.outputs.append(motion[slot, :L - pf].copy() if pf else motion[slot].copy())
 
     def flush(self) -> None:
         """Hand out every round in flight."""

@@ -48,6 +48,7 @@ from msmd_tpu_torch.losses import (compute_kl_loss, compute_loss, compute_loss_n
 from msmd_tpu_torch.models.audio import audio_param_trainable
 from msmd_tpu_torch.models.layers import SampleRows
 from msmd_tpu_torch.train.scheduler import make_schedule
+from msmd_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -328,10 +329,13 @@ def train_step(cfg: MSMDConfig, model: nn.Module, style_enc: nn.Module, opt: Tra
     every ``gradient_accumulation_steps`` calls). Returns the metrics as
     device scalars: nothing here waits on the device. ``rows``: ``batch``
     is this rank's rows of a data-parallel batch (module docstring)."""
-    total, metrics = two_clip_loss(cfg, model, style_enc, batch, generator, host_generator, train=True, flame=flame,
-                                   coef_stats=coef_stats, rows=rows)
-    total.backward()
-    opt.step()
+    with span("msmd.train.loss"):
+        total, metrics = two_clip_loss(cfg, model, style_enc, batch, generator, host_generator, train=True,
+                                       flame=flame, coef_stats=coef_stats, rows=rows)
+    with span("msmd.train.backward"):
+        total.backward()
+    with span("msmd.train.optimizer"):
+        opt.step()
     return metrics
 
 

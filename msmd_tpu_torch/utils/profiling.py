@@ -6,9 +6,38 @@ reference has none but ad-hoc GPU-memory prints, training_script.py:33-40).
   trace file under ``log_dir`` (TensorBoard's profiler plugin and
   ``chrome://tracing`` read it). ``Tracer`` is the same as start / stop,
   for a trace that spans loop iterations (``Trainer.fit(profile_dir=)``).
-- ``StepTimer``: wall-clock per-step timing with percentile summaries.
+- ``span(name)``: the program's spans at its layer boundaries, every name
+  starting ``msmd.``. Inside a profiler session (``trace``, ``Tracer`` or
+  any other ``torch.profiler`` session) a span is a ``record_function``
+  range, in the same timeline and on the same clock as the kernels,
+  copies and fills it launched; outside one it costs one check of whether
+  a session is on.
+- ``count(name, n)``, ``counters()``: integer counters of the program's
+  work, always on, and a snapshot of them.
 - ``device_memory_stats()``: memory in use, its peak and the limit of
   every CUDA device, in MB.
+
+The spans and what each covers:
+
+- ``msmd.audio_encoder``: ``MSMD.extract_audio_feature`` (HuBERT, the
+  resampling, the projection), for every caller;
+- ``msmd.sample.setup``: ``sample`` from its entry to the first denoiser
+  launch (the CFG stacks, the bf16 copy of the denoiser, the memory K/V,
+  the kernels' packed arguments, the tables);
+- ``msmd.sample.steps``: ``sample``'s step loop, or the batch-1 kernels'
+  launches (K3, or K4 a step);
+- ``msmd.flame.decode``: ``ops/kernels/lbs.py::flame_vertices`` (K5);
+- ``msmd.stream.gather``, ``msmd.stream.scatter``, ``msmd.stream.resolve``:
+  ``StreamingBatcher``'s round: the ready streams, slots, host arrays,
+  draws and uploads; the carries, the pinned copy of the motion and its
+  event; a round's wait and hand-out;
+- ``msmd.train.loss``, ``msmd.train.backward``, ``msmd.train.optimizer``:
+  ``train/loop.py::train_step``'s three parts.
+
+The counters: ``msmd.frames.sampled``, the rows times ``n_motions`` of
+every window ``infer_coeffs`` and ``StreamingBatcher.step`` sample (every
+one of a round's ``max_slots`` rows); ``msmd.frames.kept``, the frames
+they hand back, the padding trimmed and the unserved slots left out.
 """
 
 from __future__ import annotations
@@ -18,7 +47,7 @@ import os
 import socket
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -53,6 +82,32 @@ class Tracer:
         return path
 
 
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A context manager: a ``torch.profiler.record_function`` range named
+    ``name`` while a profiler session is on, else nothing. The check costs
+    a fraction of a microsecond; ``record_function`` itself costs several
+    even with no session, so it is entered only inside one."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (a Python int: a tensor would wait for the device) to the
+    counter ``name``."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter; the difference of two is the work done
+    between them."""
+    return dict(_COUNTS)
+
+
 @contextlib.contextmanager
 def trace(log_dir, rank: Optional[int] = None):
     """Trace everything inside; the file is written on exit. ``rank``
@@ -63,34 +118,6 @@ def trace(log_dir, rank: Optional[int] = None):
         yield tracer
     finally:
         tracer.stop()
-
-
-class StepTimer:
-    def __init__(self):
-        self.durations: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.durations.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> Dict[str, float]:
-        import numpy as np
-
-        if not self.durations:
-            return {}
-        d = np.asarray(self.durations)
-        return {
-            "mean_s": float(d.mean()),
-            "p50_s": float(np.percentile(d, 50)),
-            "p90_s": float(np.percentile(d, 90)),
-            "max_s": float(d.max()),
-            "steps_per_sec": float(1.0 / max(d.mean(), 1e-12)),
-            "n": int(len(d)),
-        }
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:

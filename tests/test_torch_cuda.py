@@ -1011,3 +1011,38 @@ def test_conv_backward_is_bit_equal_across_calls(shape):
         grads.append((xr.grad.clone(), conv.weight.grad.clone()))
     torch.cuda.synchronize()
     assert all(torch.equal(a[0], grads[0][0]) and torch.equal(a[1], grads[0][1]) for a in grads[1:])
+
+
+@pytest.mark.cuda
+def test_audio_encoder_span_holds_its_launches_on_the_kernels_clock():
+    """One profiled ``extract_audio_feature`` call at the flagship's
+    widths: every kernel, copy and fill of the session has its runtime
+    call (by correlation id) inside the ``msmd.audio_encoder`` span, and
+    starts on the device no earlier than the span: the span and the
+    device records share one clock. (A device record may lead its own
+    launch call by a few microseconds, the clocks' conversion: not
+    asserted.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+    from msmd_tpu_torch.models.diffusion import MSMD
+
+    dev = _card()
+    with torch.device(dev):
+        model = MSMD(MSMDConfig(), audio_config=AudioEncoderConfig(), dtype=torch.bfloat16).eval()
+    audio = torch.randn(2, 64000, device=dev)
+    with torch.no_grad():
+        model.extract_audio_feature(audio)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.extract_audio_feature(audio)
+            torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    (s0, s1), = [(e.start_ns(), e.end_ns()) for e in host if e.name() == "msmd.audio_encoder"]
+    calls = {e.correlation_id(): e.start_ns() for e in host if e.name().startswith("cu")}
+    device = [(e.correlation_id(), e.start_ns()) for e in events
+              if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    assert len(device) > 10 and all(c in calls for c, _ in device)
+    assert all(s0 <= calls[c] < s1 and start >= s0 for c, start in device)
