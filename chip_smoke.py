@@ -27,11 +27,13 @@ Phases, each printing one JSON line:
      8 x 512 layers, bf16 pack; max |err| / max |plain| <= 2e-2; timed
      warm and with the L2 flushed before each call (``ms_l2_flushed``).
      Under ``products``: its four large products alone at R = 10656 rows
-     (QKV, self-out + LayerNorm, FFN1, FFN2 + LayerNorm) on the Hopper
-     GEMM that K1 runs, each gated the same way against the plain
-     product, with ms and TFLOP/s beside the wmma tile of earlier PRs and
-     ``torch.nn.functional.linear`` at the same shape (a yardstick the
-     port never calls).
+     (QKV, self-out + LayerNorm + the motion rows' cross step and
+     LayerNorm, FFN1, FFN2 + LayerNorm) on the warp-specialised Hopper
+     GEMM that K1 runs, each gated the same way against the plain product
+     and bit for bit against the 256-thread tile loop that K2 runs, with
+     ms and TFLOP/s beside its bound, the tile loop's ms, the wmma tile of
+     earlier PRs and ``torch.nn.functional.linear`` at the same shape (a
+     yardstick the port never calls).
    - batch-1 sampler scan (K3): two CFG entries, lq = 111, the same
      layers, 500 steps; gated at max |err| / max |plain| <= 2e-2 over all
      500 steps and over the last 10 (t = 10..1), and timed over all 500.
@@ -570,14 +572,18 @@ def _k8_f32_entries(dev):
 
 def _product_entries(dev, Be, lq, F, L, FF):
     """K1's four large products alone at its shapes, on the route K1 takes
-    (the Hopper GEMM at these rows) and on the wmma tile, each against the
-    plain product, timed beside ``torch.nn.functional.linear`` at the same
-    shape (bf16 in and out, cuBLAS; a yardstick the port never calls; it
-    does not take the LayerNorm of the two residual products)."""
+    (the warp-specialised Hopper GEMM at these rows), on the 256-thread
+    tile loop that K2 runs (K1's route before; ``loop_ms``, and
+    ``bit_equal_loop``, gated) and on the wmma tile (not for self-out's
+    cross epilogue, which only the Hopper GEMM takes), each against the
+    plain product, timed beside the product's bound (``bound_ms``,
+    ``bound_by``) and ``torch.nn.functional.linear`` at the same shape (bf16
+    in and out, cuBLAS; a yardstick the port never calls; it does not take
+    the LayerNorm of the residual products)."""
     import torch
     import torch.nn.functional as tf
 
-    from msmd_tpu_torch.measure import cuda_ms, decoder_products, gemm_case
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, decoder_products, gemm_case
     from msmd_tpu_torch.ops.kernels import gemm as kg
 
     out = {}
@@ -585,27 +591,34 @@ def _product_entries(dev, Be, lq, F, L, FF):
         M, N, K, epi = p["M"], p["N"], p["K"], p["epilogue"]
         if epi is None:  # the person rows (Be rows, gathered) stay on the wmma tile inside K1
             continue
-        args, kw = gemm_case(dev, M, N, K, epi)
+        args, kw = gemm_case(dev, M, N, K, epi, lq=lq)
         call = lambda route: kg.gemm(*args[:3], epi, *args[3:], route=route, **kw)
-        got, want = call("auto"), kg.gemm_plain(*args[:3], epi, *args[3:], **kw)
-        old = call("wmma")
+        got, want, loop = call("auto"), kg.gemm_plain(*args[:3], epi, *args[3:], **kw), call("sm90_loop")
+        ln = epi.startswith("resid_ln")
+        old = call("wmma") if epi != "resid_ln_cross" else None
         torch.cuda.synchronize()
-        if epi == "resid_ln":
+        if ln:
             rel = max(_rel(got[0], want[0]), _rel(got[1].float(), want[1].float()))
-            rel_wmma = _rel(old[0], want[0])
+            rel_wmma = _rel(old[0], want[0]) if old is not None else None
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, loop))
         else:
             rel, rel_wmma = _rel(got.float(), want.float()), _rel(old.float(), want.float())
+            bit_equal = torch.equal(got, loop)
         w_t = args[1].t().contiguous()
-        flops = 2 * M * N * K
-        ms, wmma_ms = cuda_ms(lambda: call("auto"), 20), cuda_ms(lambda: call("wmma"), 20)
+        flops, nbytes = kg.gemm_work(M, N, K, epi)
+        ms, loop_ms = cuda_ms(lambda: call("auto"), 20), cuda_ms(lambda: call("sm90_loop"), 20)
+        wmma_ms = cuda_ms(lambda: call("wmma"), 20) if old is not None else None
         linear_ms = cuda_ms(lambda: tf.linear(args[0], w_t, args[2]), 20)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
         plan = kg.gemm_plan(M, N, K, epi)
         out[name] = dict(M=M, N=N, K=K, epilogue=epi, calls_per_step=L, route=plan["route"], tile=plan["tile"],
-                         grid=plan["grid"], rel_err=rel, rel_err_wmma=rel_wmma, ms=ms, tflops=flops / ms / 1e9,
-                         wmma_ms=wmma_ms, wmma_tflops=flops / wmma_ms / 1e9, linear_ms=linear_ms,
+                         cluster=plan["cluster"], grid=plan["grid"], rel_err=rel, rel_err_wmma=rel_wmma, ms=ms,
+                         tflops=flops / ms / 1e9, bound_ms=bound_ms, bound_by=bound_by, loop_ms=loop_ms,
+                         bit_equal_loop=bit_equal, wmma_ms=wmma_ms,
+                         wmma_tflops=flops / wmma_ms / 1e9 if wmma_ms else None, linear_ms=linear_ms,
                          linear_tflops=flops / linear_ms / 1e9,
-                         ok=rel <= GATE and bool(torch.isfinite(got[0] if epi == "resid_ln" else got.float()).all()))
-        del args, got, want, old, w_t
+                         ok=rel <= GATE and bit_equal and bool(torch.isfinite(got[0] if ln else got.float()).all()))
+        del args, got, want, old, loop, w_t
     return out
 
 

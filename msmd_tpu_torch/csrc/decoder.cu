@@ -20,11 +20,12 @@
 // It is compute-bound.
 //
 // Design: at these shapes the four large products of each layer (QKV,
-// self-out, FFN1, FFN2) run on the Hopper GEMM of gemm_sm90.cuh (wgmma
-// m64n256k16 from 128-byte-swizzled shared memory, 128 x 256 tiles for QKV
-// and FFN1, 64 x 512 tiles for the two residual products, whose epilogue
-// takes the post-LayerNorm and writes x and its bf16 copy), so a layer is
-// nine launches. Products with fewer than SM90_MIN_ROWS rows (small
+// self-out, FFN1, FFN2) run on the warp-specialised Hopper GEMM of
+// gemm_sm90.cuh (wgmma m64n256k16 from 128-byte-swizzled shared memory,
+// 128 x 256 tiles for QKV and FFN1, two-CTA clusters of 128 x 256 tiles
+// over the 512 columns of the two residual products, whose epilogue takes
+// the post-LayerNorm and writes x and its bf16 copy), so a layer is nine
+// launches. Products with fewer than SM90_MIN_ROWS rows (small
 // batches; K4 shares this chain) and the person rows' products stay on the
 // wmma tile of decoder_common.cuh (bf16 16x16x16, BM x 128 x 32 tiles, a
 // 4-deep cp.async ring) with a separate LayerNorm pass. Every epilogue
@@ -408,65 +409,97 @@ extern "C" int msmd_decoder_forward_flat(const void* x_in, void* x_out, void* ws
 }
 
 // What msmd_gemm's route 0 (the decoder's choice) runs for one product:
-// out = {1 for the Hopper GEMM or 0 for the wmma tile, tile rows, tile
-// columns, tiles, grid blocks, dynamic shared-memory bytes}; all -1 for a
-// shape or epilogue that neither takes.
+// out = {1 for the Hopper GEMM (the warp-specialised pipeline) or 0 for
+// the wmma tile, tile rows, tile columns (of one CTA), CTAs per cluster,
+// clusters, tiles (of one CTA), grid blocks, dynamic shared-memory bytes};
+// all -1 for a shape or epilogue that neither takes (EPI_RESID_LN_CROSS
+// has no wmma route).
 extern "C" void msmd_gemm_plan(int M, int N, int K, int epi, long* out) {
-  for (int i = 0; i < 6; ++i) out[i] = -1;
-  const bool ln = epi == EPI_RESID_LN;
+  for (int i = 0; i < 8; ++i) out[i] = -1;
+  const bool cross = epi == EPI_RESID_LN_CROSS, ln = epi == EPI_RESID_LN || cross;
   if (M < 1 || N % BN || K % BK || (!ln && epi != EPI_BF16 && epi != EPI_GELU)) return;
   if (ln ? sm90_ln_ok(M, N, K) : sm90_wide_ok(M, N, K)) {
-    const int wgm = ln ? 1 : 2, tiles = sm90_tiles(M, N, wgm), sms = sm_count();
-    const long smem = ln ? Sm90Tile<1>::SMEM : Sm90Tile<2>::SMEM;
-    const long plan[6] = {1, 64 * wgm, 256 * (2 / wgm), tiles, tiles < sms ? tiles : sms, smem};
-    for (int i = 0; i < 6; ++i) out[i] = plan[i];
-  } else {
+    const int rb = (M + WS_BM - 1) / WS_BM, grid = ws_grid(ln, M, N, sm_count());
+    const int extra = cross ? Sm90Epi<EPI_RESID_LN_CROSS>::EXTRA : ln ? Sm90Epi<EPI_RESID_LN>::EXTRA : 0;
+    const long plan[8] = {1, WS_BM, WS_BN, ln ? 2 : 1, ln ? grid / 2 : grid, ln ? 2 * rb : (N / WS_BN) * rb, grid,
+                          static_cast<long>(WS_SMEM + extra)};
+    for (int i = 0; i < 8; ++i) out[i] = plan[i];
+  } else if (!cross) {
     const int bm = N > 512 ? 128 : 64, tiles = (N / BN) * ((M + bm - 1) / bm);
-    const long plan[6] = {0, bm, BN, tiles, tiles,
+    const long plan[8] = {0, bm, BN, 1, tiles, tiles, tiles,
                           static_cast<long>(N > 512 ? gemm_smem_bytes<128>() : gemm_smem_bytes<64>())};
-    for (int i = 0; i < 6; ++i) out[i] = plan[i];
+    for (int i = 0; i < 8; ++i) out[i] = plan[i];
   }
 }
 
+namespace {
+
+// One Hopper product of msmd_gemm: the warp-specialised pipeline, or with
+// `loop` the tile loop K2 runs (sm90_tiles_loop, the route K1 took before).
+template <int EPI>
+cudaError_t hopper_product(bool loop, cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b,
+                           const Sm90Args& g) {
+  return loop ? gemm_sm90_loop<EPI>(st, a, b, g) : gemm_sm90<EPI>(st, a, b, g);
+}
+
+}  // namespace
+
 // One product of the decoder alone, for the card tests and the per-product
 // timing: route 0 runs what the decoder runs at this shape, 1 the Hopper
-// GEMM (refused where the shape does not take it), 2 the wmma tile. A (M,
-// K) and B (K, N) bf16 row-major, bias (N) bf16. epi EPI_BF16 (columns <
-// scale_cols scaled) or EPI_GELU: C (M, N) bf16. EPI_RESID_LN: C (M, N)
-// f32 x and Cb its bf16 copy, LayerNorm(res + A B + bias) with ln_scale,
-// ln_bias (N) f32; y is an (M, N) f32 scratch for the wmma route. Launches
-// on `stream`; returns the first CUDA error or 0.
+// GEMM (refused where the shape does not take it), 2 the wmma tile, 3 the
+// Hopper GEMM's tile loop that K2 runs (refused as route 1). A (M, K) and B
+// (K, N) bf16 row-major, bias (N) bf16. epi EPI_BF16 (columns < scale_cols
+// scaled) or EPI_GELU: C (M, N) bf16. EPI_RESID_LN: C (M, N) f32 x and Cb
+// its bf16 copy, LayerNorm(res + A B + bias) with ln_scale, ln_bias (N)
+// f32; y is an (M, N) f32 scratch for the wmma route. EPI_RESID_LN_CROSS
+// (Hopper routes only): EPI_RESID_LN, then on each row that is not a
+// person row (aux[row / lq] == row; aux has a row for every lq rows) the
+// cross step with vmw (M, N) bf16 and bco (N) bf16 and the LayerNorm with
+// ln2_scale, ln2_bias (N) f32, as K1's self-out product. Launches on
+// `stream`; returns the first CUDA error or 0.
 extern "C" int msmd_gemm(int route, int epi, const void* A, const void* B, const void* bias, const void* res, void* C,
                          void* Cb, const void* ln_scale, const void* ln_bias, void* y, int M, int N, int K,
-                         float scale, int scale_cols, void* stream) {
-  long plan[6];
+                         float scale, int scale_cols, const void* vmw, const void* bco, const void* ln2_scale,
+                         const void* ln2_bias, const void* aux, int lq, void* stream) {
+  long plan[8];
   msmd_gemm_plan(M, N, K, epi, plan);
-  if (plan[0] < 0 || route < 0 || route > 2) return cudaErrorInvalidValue;
-  const bool ln = epi == EPI_RESID_LN;
-  const bool fits = ln ? sm90_ln_ok(M, N, K) : sm90_wide_ok(M, N, K);
-  if (route == 1 && !fits) return cudaErrorInvalidValue;
-  const bool hopper = route == 1 || (route == 0 && fits);
+  if (plan[0] < 0 || route < 0 || route > 3) return cudaErrorInvalidValue;
+  const bool cross = epi == EPI_RESID_LN_CROSS, ln = epi == EPI_RESID_LN || cross, fits = plan[0] == 1;
+  if ((route == 1 || route == 3) && !fits) return cudaErrorInvalidValue;
+  if (cross && (route == 2 || vmw == nullptr || bco == nullptr || ln2_scale == nullptr || ln2_bias == nullptr ||
+                aux == nullptr || lq < 1))
+    return cudaErrorInvalidValue;
+  const bool hopper = route == 1 || route == 3 || (route == 0 && fits), loop = route == 3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RETURN_IF_ERROR(set_kernel_attributes());
   const bf16 *a = static_cast<const bf16*>(A), *b = static_cast<const bf16*>(B), *bi = static_cast<const bf16*>(bias);
   const float *lns = static_cast<const float*>(ln_scale), *lnb = static_cast<const float*>(ln_bias);
-  CUtensorMap ma, mb;
+  Sm90Args g{nullptr, nullptr, 0, bi, static_cast<const float*>(res), C, static_cast<bf16*>(Cb), lns, lnb, M, N, K,
+             scale, scale_cols};
   if (hopper) {
+    CUtensorMap ma, mb;
     RETURN_IF_ERROR(make_a_map(&ma, a, K, M, K, ln ? 64 : 128));
     RETURN_IF_ERROR(make_b_map(&mb, b, K, N, 1));
+    if (cross) {
+      g.vmw = static_cast<const bf16*>(vmw);
+      g.bco = static_cast<const bf16*>(bco);
+      g.ln2_scale = static_cast<const float*>(ln2_scale);
+      g.ln2_bias = static_cast<const float*>(ln2_bias);
+      g.aux = static_cast<const int*>(aux);
+      g.lq = lq;
+      return hopper_product<EPI_RESID_LN_CROSS>(loop, st, ma, mb, g);
+    }
+    if (ln) return hopper_product<EPI_RESID_LN>(loop, st, ma, mb, g);
+    return epi == EPI_GELU ? hopper_product<EPI_GELU>(loop, st, ma, mb, g)
+                           : hopper_product<EPI_BF16>(loop, st, ma, mb, g);
   }
   if (ln) {
-    if (hopper)
-      return gemm_sm90<EPI_RESID_LN>(st, ma, mb, Sm90Args{nullptr, nullptr, 0, bi, static_cast<const float*>(res), C,
-                                                          static_cast<bf16*>(Cb), lns, lnb, M, N, K, 1.0f, 0});
     RETURN_IF_ERROR(gemm<EPI_RESID>(st, a, K, nullptr, b, bi, static_cast<const float*>(res), y, M, N, K));
     ln_kernel<false, bf16><<<(M * 32 + LN_THREADS - 1) / LN_THREADS, LN_THREADS, 0, st>>>(
         static_cast<const float*>(y), static_cast<float*>(C), static_cast<bf16*>(Cb), lns, lnb, M, N, nullptr,
         nullptr, nullptr, nullptr, 1);
     return cudaGetLastError();
   }
-  const Sm90Args g{nullptr, nullptr, 0, bi, nullptr, C, nullptr, nullptr, nullptr, M, N, K, scale, scale_cols};
-  if (hopper) return epi == EPI_GELU ? gemm_sm90<EPI_GELU>(st, ma, mb, g) : gemm_sm90<EPI_BF16>(st, ma, mb, g);
   return epi == EPI_GELU ? gemm<EPI_GELU>(st, a, K, nullptr, b, bi, nullptr, C, M, N, K)
                          : gemm<EPI_BF16>(st, a, K, nullptr, b, bi, nullptr, C, M, N, K, scale, scale_cols);
 }

@@ -24,12 +24,13 @@
 // (below SM90_MIN_ROWS rows the products are wmma tiles and the
 // LayerNorms phases of their own, as in K1's chain). The work items are
 // K1's own device functions, or K1's arithmetic in the same order
-// (decoder_common.cuh and gemm_sm90.cuh: the wgmma products and their
-// epilogues, self_attn_block, person_attn_block, ln_row, the wmma
-// gemm_tile), chosen by the same
+// (decoder_common.cuh and gemm_sm90.cuh: self_attn_block,
+// person_attn_block, ln_row, the wmma gemm_tile), chosen by the same
 // shape rules (sm90_wide_ok, sm90_ln_ok), so K2 computes the same bits as
 // K1 and differs only in scheduling: 1 launch per step instead of 1 + 9
-// per layer.
+// per layer. Its wgmma products run on the 256-thread tile loop of
+// gemm_sm90.cuh (sm90_tiles_loop), whose bits K1's warp-specialised
+// pipeline keeps.
 //
 // Design for the card (PERF.md):
 // - Registers by phase. Every phase but the Hopper GEMM's is an
@@ -81,7 +82,8 @@ struct ResidentArgs {
 // 64 x 512 LayerNorm tiles) and the kernel spilled 1516 bytes. The Hopper
 // GEMM's phases stay inline: ptxas serializes wgmma across a call.
 
-// Every tile of one product on the Hopper GEMM: K1's own tile loop.
+// Every tile of one product on the Hopper GEMM's 256-thread tile loop
+// (the bits of K1's products).
 template <int EPI>
 __device__ __forceinline__ void sm90_phase(const Sm90Args& g, unsigned char* smem) {
   sm90_tiles_loop<EPI>(g, smem);

@@ -1,49 +1,66 @@
-// The Hopper GEMM of the decoder's large products, hand-written for sm_90a:
-// wgmma.mma_async m64n256k16 (bf16 in, f32 accumulation in registers) on
-// operands in 128-byte-swizzled shared memory, with the decoder's fused
-// epilogues. Included by decoder_common.cuh after the wmma GEMM, whose
-// helpers (gelu_tanh, the EPI_* codes) it uses.
+// The Hopper GEMMs of the decoder's large products, hand-written for
+// sm_90a: wgmma.mma_async m64n256k16 (bf16 in, f32 accumulation in
+// registers) on operands that TMA copies into 128-byte-swizzled shared
+// memory, with the decoder's fused epilogues. Included by
+// decoder_common.cuh after the wmma GEMM, whose helpers (gelu_tanh_fast,
+// the EPI_* codes) it uses. Two pipelines:
+// - the warp-specialised one (ws_gemm_tiles): K1's four products
+//   (gemm_sm90_kernel, below) and, through gemm_ws.cuh, K6's and K9's;
+// - the 256-thread tile loop (sm90_tiles_loop) that K2 calls inside its
+//   cooperative grid, and that msmd_gemm keeps as a named route.
 //
-// It replaces the wmma tile (gemm_tile) for the four products of each
-// decoder layer at the per-entry batch-48 shapes (R = Be * lq = 10656
-// rows): QKV (N 1536, K 512, bf16 out with the q-column scale), FFN1
-// (N 2048, K 512, tanh GELU), and the two residual products self-out
-// (N 512, K 512) and FFN2 (N 512, K 2048), whose post-LayerNorm is folded
-// into the epilogue. What bounds them: ~537 GFLOP of bf16 products per
-// step against ~0.3 GB of operands, i.e. the tensor cores; only wgmma
-// reaches their rate on Hopper (wmma/mma.sync run per warp and top out
-// far lower).
+// K1's products at the batch-48 shapes (R = Be * lq = 10656 rows, F 512,
+// FFN 2048) and what bounds each on an H100 (989 TFLOP/s bf16, 3.35 TB/s):
+//   QKV (EPI_BF16: N 1536, K 512, the q columns scaled)  16.8 GFLOP  17.0 us (operations)
+//   FFN1 (EPI_GELU: N 2048, K 512, tanh GELU)             22.3 GFLOP  22.6 us (operations)
+//   FFN2 + residual + LN3 (EPI_RESID_LN: N 512, K 2048)   22.3 GFLOP  22.6 us (operations)
+//   self-out + residual + LN1, then on the motion rows the identity band's
+//   cross step and its LayerNorm (EPI_RESID_LN_CROSS: N 512, K 512): 5.6
+//   GFLOP against 77 MB (x f32 read and written, vmw, xb): 23 us (bytes).
+// Only wgmma reaches the tensor cores' rate on Hopper (wmma and mma.sync
+// run per warp and top out far lower).
 //
-// Design:
-// - 256 threads = two warpgroups, no producer warp (K2's 256-thread
-//   cooperative kernel calls the same tile function). One elected thread
-//   starts the copies: TMA (cp.async.bulk.tensor) fills a ring of STAGES
-//   k-tiles of 64 (one 128-byte row of bf16) in the 128-byte swizzle that
-//   wgmma's descriptors read, and completes on one mbarrier per stage: A
-//   (activations, K-major) as [BM][64], B (weights in the JAX (in, out)
-//   layout, so N-major: wgmma's transposed-B mode) as BN/64 boxes of
-//   [64 k][64 n]. TMA zero-fills rows past M. The tensor maps are built
-//   on the host once per decoder call (make_decoder_maps: the A buffers
-//   and each weight stack as (N, K, layers)) and reach the kernel as
-//   __grid_constant__ parameters.
-// - Two tile shapes, each warpgroup holding a 64 x 256 f32 accumulator
-//   (128 registers a thread):
-//     WGM = 2: 128 x 256, the warpgroups stacked in M (QKV, FFN1);
-//     WGM = 1: 64 x 512, the warpgroups side by side in N, so one block
-//       holds whole rows of an N = 512 product and can take the
-//       LayerNorm of y = res + acc + bias in its epilogue (row sums
-//       across the two warpgroups through shared memory): it writes x
-//       (f32) and its bf16 copy xb, as ln_row does, in place over res.
-// - Per k-tile: wait on its stage's mbarrier, four wgmma (k 16 each),
-//   commit, wait until the previous group is done (one group stays in
-//   flight), one block barrier, then the elected thread refills the
-//   stage the previous group read, STAGES - 1 k-tiles ahead. A persistent
-//   grid (min(tiles, SMs)) walks the tiles, and the ring runs on from one
-//   tile of a block to its next, so the next tile's first k-tiles load
-//   while the last one's epilogue runs.
-// Each element's sum runs over K in the same order whatever block or
-// launch computes it, so K1 and K2 (which call sm90_tiles_loop) agree bit for
-// bit. Rounding points are the wmma GEMM's (decoder_common.cuh:107-111).
+// The warp-specialised pipeline (ws_gemm_tiles has the details):
+// - 384 threads: a producer warpgroup, one of whose threads issues every
+//   TMA copy, and two consumer warpgroups, each holding a 64 x 256 f32
+//   accumulator (128 registers a thread; setmaxnreg moves registers from
+//   the producer to them), stacked in M for a 128 x 256 tile. A ring of 4
+//   stages of 64 k with full and empty mbarriers: no block barrier in the
+//   main loop, up to two wgmma groups in flight a warpgroup. A persistent
+//   grid, and the ring runs on from one tile of a block to its next.
+// - K1's B is the weight in the JAX (in, out) layout, N-major: four TMA
+//   boxes of 64 n x 64 k a stage, read in wgmma's transposed-B mode (no
+//   weight is copied). K6's and K9's are in the nn.Linear layout. The
+//   tensor maps are built on the host once per decoder call
+//   (make_decoder_maps) and reach the kernels as __grid_constant__
+//   parameters; TMA zero-fills rows past M.
+// - QKV and FFN1: 128 x 256 tiles over the whole of N.
+// - The two N = 512 LayerNorm products run as clusters of two CTAs, rank r
+//   taking columns [256 r, 256 r + 256) of the same 128 rows, so B is read
+//   once per 128 rows (85 operations a byte a stage copies, against 57
+//   for the tile loop's 64 x 512 tiles). Each row reduction of the epilogue crosses the
+//   pair through distributed shared memory: a quad's first lane st.async's
+//   its half's row sums into the peer's buffer, completing bytes on the
+//   peer's mbarrier (no fence).
+// - Epilogues with 16-byte global accesses (a 4 x 4 transpose across each
+//   quad), the residual and vmw rows prefetched into the L2 during the
+//   main loop, the per-column LayerNorm parameters in a shared-memory table
+//   filled once a CTA, and the person rows' output of EPI_RESID_LN_CROSS
+//   written as soon as it is known: the epilogue then holds one form of
+//   each row and does not spill.
+// What still bounds EPI_RESID_LN_CROSS is its epilogue, run after the
+// main loop of its tile (1.27 waves of 128-row blocks): PERF.md.
+//
+// The bits are the tile loop's, so K1 and K2 agree bit for bit and every
+// K1 output is what it was on the tile loop: each accumulator element is
+// the same m64n256k16 sequence over K in the same k16 order, on the same
+// A rows and B columns; the epilogue evaluates each element's expression
+// as sm90_epilogue does; each LayerNorm row sum is the thread's sum over
+// the same 64 columns in the same order, then the quad's shuffle, then
+// half 0 + half 1 (one addition, so which CTA holds which half does not
+// matter); the division by N = 512 is the multiplication by 2^-9, the same
+// correctly rounded real; the quad transpose moves bits only. Rounding
+// points are the wmma GEMM's (decoder_common.cuh:107-111).
 
 #pragma once
 
@@ -61,6 +78,11 @@ constexpr int EPI_RESID_LN = 6;      // x, xb = LayerNorm(res + (acc + bias)) * 
 // the first LayerNorm, for the person attention's q
 constexpr int EPI_RESID_LN_CROSS = 7;
 
+// The tile loop's tiles: 256 threads, two warpgroups each holding a
+// 64 x 256 f32 accumulator, stacked in M (WGM = 2: 128 x 256, QKV and
+// FFN1) or side by side in N (WGM = 1: 64 x 512, so one block holds whole
+// rows of an N = 512 product and takes its LayerNorm, with the row sums
+// crossing the warpgroups through shared memory).
 template <int WGM>
 struct Sm90Tile {
   static constexpr int WGN = 2 / WGM;
@@ -399,9 +421,11 @@ __device__ __forceinline__ void sm90_epilogue(const Sm90Args& g, float (&d)[128]
 // Every tile of one product by the blocks of the grid in turn (tile
 // blockIdx.x, then + gridDim.x, ...: the persistent launch below, or K2's
 // cooperative grid), all SM90_THREADS threads of the block, in `smem_raw`
-// (Sm90Tile::SMEM bytes, any 16-byte alignment). The ring runs on across
-// the block's tiles: the k-tiles of its next tile are in flight while
-// the epilogue of the last one runs.
+// (Sm90Tile::SMEM bytes, any 16-byte alignment). No producer warp: one
+// elected thread refills the stage the previous wgmma group read, after
+// each k-tile's wait and block barrier. The ring runs on across the
+// block's tiles: the k-tiles of its next tile are in flight while the
+// epilogue of the last one runs.
 template <int EPI>
 __device__ __forceinline__ void sm90_tiles_loop(const Sm90Args& g, unsigned char* smem_raw) {
   constexpr int WGM = Sm90Wgm<EPI>::value;
@@ -472,8 +496,12 @@ struct Sm90Maps {
   CUtensorMap a, b;
 };
 
+// The tile loop as a kernel of its own: msmd_gemm's route 3, against
+// which the card tests hold K1's products on the warp-specialised
+// pipeline bit for bit.
 template <int EPI>
-__global__ void __launch_bounds__(SM90_THREADS, 1) gemm_sm90_kernel(const __grid_constant__ Sm90Maps maps, Sm90Args g) {
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    gemm_sm90_loop_kernel(const __grid_constant__ Sm90Maps maps, Sm90Args g) {
   extern __shared__ __align__(128) unsigned char sm90_smem[];
   g.ta = &maps.a;
   g.tb = &maps.b;
@@ -491,22 +519,661 @@ inline int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// The persistent launch: min(tiles, SMs) blocks of SM90_THREADS, one per SM
-// (the ring takes most of an SM's shared memory), with the A and B tensor
-// maps as parameters (g.ta and g.tb are set in the kernel). The shape must
-// pass sm90_wide_ok (EPI_BF16, EPI_GELU) or sm90_ln_ok (EPI_RESID_LN).
+// The persistent launch of the loop: min(tiles, SMs) blocks of
+// SM90_THREADS, one per SM (the ring takes most of an SM's shared memory),
+// with the A and B tensor maps as parameters (g.ta and g.tb are set in the
+// kernel). The shape must pass sm90_wide_ok (EPI_BF16, EPI_GELU) or
+// sm90_ln_ok (EPI_RESID_LN, EPI_RESID_LN_CROSS).
 template <int EPI>
-cudaError_t gemm_sm90(cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b, const Sm90Args& g) {
+cudaError_t gemm_sm90_loop(cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b, const Sm90Args& g) {
   constexpr int WGM = Sm90Wgm<EPI>::value;
   static bool attr_set = false;
   if (!attr_set) {
-    RETURN_IF_ERROR(cudaFuncSetAttribute(gemm_sm90_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    RETURN_IF_ERROR(cudaFuncSetAttribute(gemm_sm90_loop_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Sm90Tile<WGM>::SMEM)));
     attr_set = true;
   }
   const int tiles = sm90_tiles(g.M, g.N, WGM), sms = sm_count();
-  gemm_sm90_kernel<EPI><<<tiles < sms ? tiles : sms, SM90_THREADS, Sm90Tile<WGM>::SMEM, st>>>(Sm90Maps{a, b}, g);
+  gemm_sm90_loop_kernel<EPI><<<tiles < sms ? tiles : sms, SM90_THREADS, Sm90Tile<WGM>::SMEM, st>>>(Sm90Maps{a, b}, g);
   return cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// the warp-specialised pipeline: K1's four products (gemm_sm90_kernel
+// below), K6's and K9's (gemm_ws.cuh)
+// --------------------------------------------------------------------------
+
+constexpr int WS_THREADS = 384;  // two consumer warpgroups, then the producer warpgroup
+constexpr int WS_BM = 128, WS_BN = 256, WS_BK = 64;
+constexpr int WS_STAGES = 4;
+constexpr int WS_A_BYTES = WS_BM * WS_BK * 2, WS_B_BYTES = WS_BN * WS_BK * 2, WS_STAGE = WS_A_BYTES + WS_B_BYTES;
+constexpr int WS_NB = 2;                                             // LayerNorm exchange buffers
+constexpr int WS_PART_BYTES = WS_NB * 2 * WS_BM * (int)sizeof(float);  // [buffer][quad] float4
+constexpr int WS_BARS = 2 * WS_STAGES + WS_NB;                       // full, empty, exchange
+// the ring, 1024 bytes of slack to align it to the swizzle atom, the
+// exchange buffers and the mbarriers
+constexpr size_t WS_SMEM = (size_t)WS_STAGES * WS_STAGE + 1024 + WS_PART_BYTES + WS_BARS * sizeof(uint64_t);
+
+// Blocks of the persistent launch: with `ln` min(row blocks, SMs / 2)
+// clusters of two, else min(tiles, SMs) blocks of 128 x 256 tiles.
+__host__ __device__ inline int ws_grid(bool ln, int M, int N, int sms) {
+  const int rb = (M + WS_BM - 1) / WS_BM, tiles = (N / WS_BN) * rb;
+  return ln ? 2 * (rb < sms / 2 ? rb : sms / 2) : (tiles < sms ? tiles : sms);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of `local` (a shared::cta address) in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// an arrival on an mbarrier of any CTA of the cluster, releasing this
+// thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_acquire_cluster(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_CL:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_CL;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A consumer warpgroup is done reading a stage: one arrival on its empty barrier.
+__device__ __forceinline__ void ws_release(uint64_t* empty_bar, int thread_in_wg) {
+  if (thread_in_wg == 0) mbar_arrive(empty_bar);
+}
+
+// The epilogues' global accesses go through the 4 lanes of a quad, which
+// hold the same rows: in the accumulator layout lane q has columns 8 j + 2 q
+// and 8 j + 2 q + 1 of 8-column group j; a 4 x 4 transpose over groups
+// 4 jg .. 4 jg + 3 gives lane q the whole group 4 jg + q (16 bytes of bf16,
+// 32 of f32), so each warp access is 8 rows x 64 contiguous bytes of 16-byte
+// vectors, not 8 rows x 16 bytes of 4-byte words. Only bits move, so the
+// values are those of the accumulator layout.
+
+// lane q's v[k] becomes lane k's v[q] (q = lane % 4); a transpose is its own inverse
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, (q & 1) ? v[k] : v[k + 1], 1);
+    if (q & 1) {
+      v[k] = r;
+    } else {
+      v[k + 1] = r;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, (q & 2) ? v[k] : v[k + 2], 2);
+    if (q & 2) {
+      v[k] = r;
+    } else {
+      v[k + 2] = r;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// Group 4 jg + q of a row, from p (the row's element of that group's first
+// column; ok false past the rows: nothing is stored, zeros are loaded):
+// bf16 stored from this lane's pairs v[k] of groups 4 jg + k, f32 from its
+// pairs (x[k], y[k]), and 16 bytes of bf16 or 32 of f32 loaded raw. Loads
+// are issued for several groups before any is used, so that their
+// latencies overlap.
+__device__ __forceinline__ void ws_store_bf16_at(bf16* p, bool ok, uint32_t (&v)[4], int q) {
+  quad_transpose(v, q);
+  if (ok) *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void ws_store_f32_at(float* p, bool ok, uint32_t (&x)[4], uint32_t (&y)[4], int q) {
+  quad_transpose(x, q);
+  quad_transpose(y, q);
+  if (ok) {
+    float4* o = reinterpret_cast<float4*>(p);
+    o[0] = make_float4(__uint_as_float(x[0]), __uint_as_float(y[0]), __uint_as_float(x[1]), __uint_as_float(y[1]));
+    o[1] = make_float4(__uint_as_float(x[2]), __uint_as_float(y[2]), __uint_as_float(x[3]), __uint_as_float(y[3]));
+  }
+}
+__device__ __forceinline__ void ws_load_f32_at(const float* p, bool ok, uint4 (&raw)[2]) {
+  raw[0] = raw[1] = make_uint4(0u, 0u, 0u, 0u);
+  if (!ok) return;
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+  raw[0] = v[0];
+  raw[1] = v[1];
+}
+__device__ __forceinline__ uint4 ws_load_bf16_at(const bf16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+}
+// the same by row r and column c of an (M x N) matrix
+__device__ __forceinline__ void ws_store_bf16(bf16* p, int M, int N, int r, int c, uint32_t (&v)[4], int q) {
+  ws_store_bf16_at(p + (long)r * N + c, r < M, v, q);
+}
+__device__ __forceinline__ void ws_store_f32(float* p, int M, int N, int r, int c, uint32_t (&x)[4], uint32_t (&y)[4],
+                                             int q) {
+  ws_store_f32_at(p + (long)r * N + c, r < M, x, y, q);
+}
+__device__ __forceinline__ void ws_load_f32(const float* p, int M, int N, int r, int c, uint4 (&raw)[2]) {
+  ws_load_f32_at(p + (long)r * N + c, r < M, raw);
+}
+__device__ __forceinline__ uint4 ws_load_bf16(const bf16* p, int M, int N, int r, int c) {
+  return ws_load_bf16_at(p + (long)r * N + c, r < M);
+}
+// this lane's pairs of groups 4 jg + k (v[k]) from the quad's raw loads
+__device__ __forceinline__ void ws_unpack_f32(const uint4 (&raw)[2], float2 (&v)[4], int q) {
+  uint32_t x[4] = {raw[0].x, raw[0].z, raw[1].x, raw[1].z}, y[4] = {raw[0].y, raw[0].w, raw[1].y, raw[1].w};
+  quad_transpose(x, q);
+  quad_transpose(y, q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = make_float2(__uint_as_float(x[k]), __uint_as_float(y[k]));
+}
+__device__ __forceinline__ void ws_unpack_bf16(uint4 raw, float2 (&v)[4], int q) {
+  uint32_t x[4] = {raw.x, raw.y, raw.z, raw.w};
+  quad_transpose(x, q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = unpack_bf16x2(x[k]);
+}
+
+// Rows r and r + 8 of 256 columns from n0 of an (M x N) matrix of
+// `es`-byte elements into the L2 while the tile's main loop runs, a quad's
+// 4 lanes taking a row's 128-byte lines in turn, so that the epilogue's
+// loads do not wait on device memory.
+__device__ __forceinline__ void ws_prefetch_rows(const void* p, int es, int M, int N, int r, int n0, int q) {
+  const int lines = WS_BN * es / 128;
+  const char* base = static_cast<const char*>(p);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (r + 8 * rr >= M) continue;
+    const char* row = base + ((long)(r + 8 * rr) * N + n0) * es;
+    for (int l = q; l < lines; l += 4) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + 128 * l));
+  }
+}
+
+// K7's exchange (gemm_train.cuh): this CTA's row statistics `own`, held
+// by every lane of the quad, into the peer's exchange buffer (a float4 per
+// quad), the quad's first lane storing them and arriving on the peer's
+// barrier (64 arrivals) with release at cluster scope; then the peer's
+// from this CTA's buffer, once the peer's 64 quads are in. WsPair below
+// does the same without the fence.
+__device__ __forceinline__ float4 ws_exchange(float4 own, float4* buf, uint64_t* bar, unsigned parity, uint32_t peer,
+                                              int quad, int lane) {
+  if (lane % 4 == 0) {
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(cluster_addr(smem_u32(buf + quad), peer)),
+                 "f"(own.x), "f"(own.y), "f"(own.z), "f"(own.w)
+                 : "memory");
+    mbar_arrive_cluster(cluster_addr(smem_u32(bar), peer));
+  }
+  mbar_wait_acquire_cluster(bar, parity);
+  return buf[quad];
+}
+
+// 16 bytes into the shared memory of a CTA of the cluster (dst, a
+// shared::cluster address), completing as transaction bytes on its
+// mbarrier (bar, the same): no fence, and no L1 invalidation on the
+// reader's side.
+__device__ __forceinline__ void st_async_f32x4(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// The exchanges of a two-CTA LayerNorm pair, which both CTAs make in the
+// same order, taking the WS_NB buffers in turn: each quad's first lane
+// sends its float4 into the peer's buffer by st.async, thread 0 arms this
+// CTA's barrier for the peer's 64 quads, and every thread waits for them.
+// Two buffers are enough: a CTA sends exchange e only after it got the
+// peer's e - 1, which the peer sent after reading e - 2 out of the buffer
+// that e takes (its values depend on what it read).
+struct WsPair {
+  float4* buf;    // WS_NB buffers of 64 quads
+  uint64_t* bar;  // one mbarrier a buffer: one arrival (thread 0's) and 64 x 16 bytes
+  uint32_t peer;  // the other CTA's rank
+  int n;          // exchanges so far
+  __device__ __forceinline__ float4 exchange(float4 own, int lane) {
+    const int nb = n % WS_NB, quad = threadIdx.x / 4;
+    const unsigned parity = (n / WS_NB) & 1;
+    ++n;
+    float4* b = buf + nb * 64;
+    if (threadIdx.x == 0) mbar_expect_tx(bar + nb, 64 * sizeof(float4));
+    if (lane % 4 == 0)
+      st_async_f32x4(cluster_addr(smem_u32(b + quad), peer), own, cluster_addr(smem_u32(bar + nb), peer));
+    mbar_wait(bar + nb, parity);
+    return b[quad];
+  }
+};
+
+// Every tile of one product on the warp-specialised pipeline, in a kernel
+// of WS_THREADS threads with WS_SMEM bytes of dynamic shared memory at
+// `smem_raw` (any 16-byte alignment):
+// - consumer warpgroups 0 and 1 (setmaxnreg.inc to 232 registers) each
+//   hold a 64 x 256 f32 accumulator, rows [64 wg, 64 wg + 64) of a
+//   128 x 256 tile; producer warpgroup 2 (setmaxnreg.dec to 40), one of
+//   whose threads issues every TMA copy;
+// - a ring of WS_STAGES stages of 64 k (A 128 x 64, B 256 x 64: 48 KB),
+//   each with a full mbarrier (the copies' bytes) and an empty one (an
+//   arrival a consumer warpgroup once its wgmma have read the stage): no
+//   block barrier in the main loop, and each warpgroup keeps up to two
+//   wgmma groups in flight. The grid is persistent and the ring runs on
+//   from one tile of a block to its next, so the next tile's loads overlap
+//   the last one's epilogue.
+// Epi gives the product:
+//   Args          its arguments (M, N, K and what the epilogue reads);
+//   LN            two-CTA clusters over N = 512, cluster c taking row
+//                 blocks c, c + clusters, ..., CTA rank r its columns
+//                 [256 r, 256 r + 256); else block b takes tiles b, b +
+//                 gridDim.x, ... of 128 x 256, row-major over the tiles;
+//   B_MN          B N-major, the JAX (in, out) layout (K1): four boxes of
+//                 64 n x 64 k a stage, `layer` the map's third coordinate,
+//                 read in wgmma's transposed-B mode; else K-major, the
+//                 nn.Linear (out, in) layout (K6, K9): one box of 64 k x
+//                 256 rows, read as A is;
+//   A_BOX         rows of A's box: 128, or 64 (two boxes a stage, the same
+//                 bytes in the same swizzled layout);
+//   EXTRA         bytes of shared memory past WS_SMEM that the consumers
+//                 fill once (setup(g, n0, cols), n0 the CTA's first column
+//                 with LN) and the epilogue reads (`cols`);
+//   prefetch(g, r, n0, q)   at the start of a tile, this thread's rows r
+//                 and r + 8 (q = lane % 4);
+//   epilogue(g, d, r0, n0, lane, pair, cols)   the tile from this thread's
+//                 accumulators: d[4j + {0, 1}] (row r0, columns n0 + 8 j +
+//                 2 q + {0, 1}), d[4j + {2, 3}] row r0 + 8; `pair` makes
+//                 the LayerNorm pair's exchanges.
+template <class Epi>
+__device__ __forceinline__ void ws_gemm_tiles(const CUtensorMap* ta, const CUtensorMap* tb, int layer,
+                                              const typename Epi::Args& g, unsigned char* smem_raw) {
+  constexpr bool LN = Epi::LN;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;  // the same in both CTAs of a pair
+  unsigned char* sm = smem_raw + pad;
+  const uint32_t s0 = raw + pad;
+  float4* part = reinterpret_cast<float4*>(sm + WS_STAGES * WS_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + WS_STAGES * WS_STAGE + WS_PART_BYTES);
+  uint64_t* empty = full + WS_STAGES;
+  uint64_t* xbar = empty + WS_STAGES;  // one per exchange buffer
+  float* cols = reinterpret_cast<float*>(xbar + WS_NB);  // Epi::EXTRA bytes
+  const int tid = threadIdx.x;
+  const uint32_t rank = LN ? cluster_rank() : 0;
+  const int first = LN ? blockIdx.x / 2 : blockIdx.x, stride = LN ? gridDim.x / 2 : gridDim.x;
+  const int tn = LN ? 1 : g.N / WS_BN, n_tiles = tn * ((g.M + WS_BM - 1) / WS_BM), KT = g.K / WS_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // each consumer warpgroup
+    }
+    if (LN)
+      for (int i = 0; i < WS_NB; ++i) mbar_init(&xbar[i], 1);  // thread 0's arrival (and the peer's bytes)
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (LN) {
+    cluster_sync();  // the peer's barriers exist before any of its bytes reach them
+  } else {
+    __syncthreads();
+  }
+
+  if (tid >= 256) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      int it = 0;  // this block's k-iterations so far
+      for (int t = first; t < n_tiles; t += stride) {
+        const int m0 = (t / tn) * WS_BM, n0 = LN ? (int)rank * WS_BN : (t % tn) * WS_BN;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % WS_STAGES;
+          if (it >= WS_STAGES) mbar_wait(&empty[s], ((it / WS_STAGES) - 1) & 1);
+          unsigned char* st = sm + s * WS_STAGE;
+          mbar_expect_tx(&full[s], WS_STAGE);
+          tma_load(st, ta, &full[s], kt * WS_BK, m0, 0);
+          if constexpr (Epi::A_BOX < WS_BM) tma_load(st + WS_A_BYTES / 2, ta, &full[s], kt * WS_BK, m0 + 64, 0);
+          if constexpr (Epi::B_MN) {
+#pragma unroll
+            for (int j = 0; j < WS_BN / 64; ++j)
+              tma_load(st + WS_A_BYTES + j * (WS_BK * 128), tb, &full[s], n0 + 64 * j, kt * WS_BK, layer);
+          } else {
+            tma_load(st + WS_A_BYTES, tb, &full[s], kt * WS_BK, n0, 0);
+          }
+        }
+      }
+      // every stage released: no copy or arrival is still on its way to
+      // this CTA's barriers when it exits
+      for (int j = 0; j < WS_STAGES; ++j, ++it)
+        if (it >= WS_STAGES) mbar_wait(&empty[it % WS_STAGES], ((it / WS_STAGES) - 1) & 1);
+    }
+  } else {
+    // consumer warpgroups 0 and 1: rows [64 wg, 64 wg + 64) of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = tid / 128, lt = tid % 128, lane = tid % 32;
+    const int rt = wg * 64 + (lt / 32) * 16 + lane / 4;  // this thread's first row in the tile
+    WsPair pair{part, xbar, rank ^ 1u, 0};
+    if constexpr (Epi::EXTRA > 0) {
+      Epi::setup(g, (int)rank * WS_BN, cols);
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the two consumer warpgroups
+    }
+    int it = 0;
+    for (int t = first; t < n_tiles; t += stride) {
+      const int m0 = (t / tn) * WS_BM, n0 = LN ? (int)rank * WS_BN : (t % tn) * WS_BN;
+      Epi::prefetch(g, m0 + rt, n0, lane % 4);
+      float d[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % WS_STAGES;
+        mbar_wait(&full[s], (it / WS_STAGES) & 1);
+        const uint32_t a = s0 + s * WS_STAGE + wg * (WS_A_BYTES / 2), b = s0 + s * WS_STAGE + WS_A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WS_BK / 16; ++kk) {
+          // A K-major: 8-row groups 1024 bytes apart, k advanced 32 bytes
+          // inside the swizzled row. B N-major: 64-column boxes WS_BK * 128
+          // bytes apart, 8-k groups 1024 apart, k advanced 16 rows; B
+          // K-major: as A.
+          if constexpr (Epi::B_MN) {
+            wgmma_m64n256k16<1>(d, sm90_desc(a + kk * 32, 16, 1024), sm90_desc(b + kk * 2048, WS_BK * 128, 1024));
+          } else {
+            wgmma_m64n256k16<0>(d, sm90_desc(a + kk * 32, 16, 1024), sm90_desc(b + kk * 32, 16, 1024));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the group of the previous k-tile is done
+        if (kt > 0) ws_release(&empty[(it - 1) % WS_STAGES], lt);
+      }
+      wgmma_wait<0>();
+      ws_release(&empty[(it - 1) % WS_STAGES], lt);
+      Epi::epilogue(g, d, m0 + rt, n0, lane, pair, cols);
+    }
+  }
+}
+
+// The persistent launch of a warp-specialised kernel (ws_grid's blocks,
+// in clusters of two with `ln`, `smem` bytes of dynamic shared memory),
+// its shared-memory limit raised at the first call.
+template <class Maps, class Args>
+cudaError_t ws_launch(void (*kernel)(Maps, Args), bool* attr_set, bool ln, size_t smem, cudaStream_t st,
+                      const Maps& maps, const Args& g) {
+  if (!*attr_set) {
+    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    *attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(ws_grid(ln, g.M, g.N, sm_count()));
+  cfg.blockDim = dim3(WS_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  if (ln) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, kernel, maps, g));
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// K1's products on the warp-specialised pipeline
+// --------------------------------------------------------------------------
+
+// The sums (s_lo, s_hi) of this thread's rows r0 and r0 + 8 over a
+// 128 x 512 row block, in sm90_row_sum's order: the thread's, over the
+// quad, then the two 256-column halves, which here the pair's two CTAs
+// hold (own + peer is half 0 + half 1: one addition, the same bits).
+__device__ __forceinline__ float2 sm90_pair_sum(float s_lo, float s_hi, WsPair& pair, int lane) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s_lo += __shfl_xor_sync(0xffffffffu, s_lo, o);
+    s_hi += __shfl_xor_sync(0xffffffffu, s_hi, o);
+  }
+  const float4 p = pair.exchange(make_float4(s_lo, s_hi, 0.0f, 0.0f), lane);
+  return make_float2(s_lo + p.x, s_hi + p.y);
+}
+
+// K1's epilogues (sm90_epilogue's arithmetic, element for element and in
+// its order) on a CTA's 128 x 256 tile, with 16-byte global accesses
+// through the quad transpose and the rows they read prefetched into the
+// L2 during the main loop. The LayerNorm products take their per-column
+// parameters from a table in shared memory, filled once: the CTA's
+// columns never change, and read from global memory in the epilogue the
+// compiler hoisted them so far ahead that it spilled.
+template <int EPI>
+struct Sm90Epi {
+  using Args = Sm90Args;
+  static constexpr bool LN = EPI == EPI_RESID_LN || EPI == EPI_RESID_LN_CROSS, CROSS = EPI == EPI_RESID_LN_CROSS;
+  static constexpr bool B_MN = true;
+  static constexpr int A_BOX = LN ? 64 : WS_BM;  // sa and h are read through the 64-row maps K2 also reads
+  // the column table: bias, ln_scale, ln_bias (and bco, ln2_scale, ln2_bias), f32 [param][256]
+  enum { BIAS, LN_SCALE, LN_BIAS, BCO, LN2_SCALE, LN2_BIAS };
+  static constexpr int EXTRA = LN ? (CROSS ? 6 : 3) * WS_BN * (int)sizeof(float) : 0;
+  // 1 / N of the LayerNorm rows (N = 512, sm90_ln_ok): x * 2^-9 and x / 512
+  // are the same correctly rounded real, so the same bits as
+  // sm90_epilogue's division, without its slow path (a call, around which
+  // the epilogue spilled); __fmul_rn keeps it out of an FMA
+  static constexpr float INV_N = 1.0f / (2 * WS_BN);
+
+  static __device__ __forceinline__ void setup(const Sm90Args& g, int n0, float* cols) {
+    if constexpr (LN) {
+      const int t = threadIdx.x, c = n0 + t;  // a consumer thread a column
+      cols[BIAS * WS_BN + t] = g.bias ? __bfloat162float(g.bias[c]) : 0.0f;
+      cols[LN_SCALE * WS_BN + t] = g.ln_scale[c];
+      cols[LN_BIAS * WS_BN + t] = g.ln_bias[c];
+      if constexpr (CROSS) {
+        cols[BCO * WS_BN + t] = __bfloat162float(g.bco[c]);
+        cols[LN2_SCALE * WS_BN + t] = g.ln2_scale[c];
+        cols[LN2_BIAS * WS_BN + t] = g.ln2_bias[c];
+      }
+    }
+  }
+  // columns k, k + 1 (from the CTA's first) of parameter i
+  static __device__ __forceinline__ float2 col2(const float* cols, int i, int k) {
+    return *reinterpret_cast<const float2*>(cols + i * WS_BN + k);
+  }
+
+  static __device__ __forceinline__ void prefetch(const Sm90Args& g, int r, int n0, int q) {
+    if constexpr (LN) ws_prefetch_rows(g.res, 4, g.M, g.N, r, n0, q);
+    if constexpr (CROSS) ws_prefetch_rows(g.vmw, 2, g.M, g.N, r, n0, q);
+  }
+
+  // x and its bf16 copy xb (g.C, g.Cb) of this thread's rows (at element
+  // offsets o0, o1 of the group 4 jg + q at jg = 0; written where w0, w1):
+  // with NORM (y - m) * rs * scale + bias, y in d and scale, bias the column
+  // table's parameters si, bi; else y itself
+  template <bool NORM>
+  static __device__ __forceinline__ void store_ln(const Sm90Args& g, const float (&d)[128], long o0, long o1,
+                                                  bool w0, bool w1, int q, float m_lo, float rs_lo, float m_hi,
+                                                  float rs_hi, const float* cols, int si, int bi) {
+    float* x = static_cast<float*>(g.C);
+#pragma unroll
+    for (int jg = 0; jg < 8; ++jg) {
+      uint32_t lo[4], hi[4], xl[4], yl[4], xh[4], yh[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * jg + k;
+        float2 v0 = make_float2(d[4 * j], d[4 * j + 1]), v1 = make_float2(d[4 * j + 2], d[4 * j + 3]);
+        if constexpr (NORM) {
+          const float2 gs = col2(cols, si, 8 * j + 2 * q), gb = col2(cols, bi, 8 * j + 2 * q);
+          v0 = make_float2((d[4 * j] - m_lo) * rs_lo * gs.x + gb.x, (d[4 * j + 1] - m_lo) * rs_lo * gs.y + gb.y);
+          v1 = make_float2((d[4 * j + 2] - m_hi) * rs_hi * gs.x + gb.x,
+                           (d[4 * j + 3] - m_hi) * rs_hi * gs.y + gb.y);
+        }
+        lo[k] = pack_bf16x2(v0.x, v0.y);
+        hi[k] = pack_bf16x2(v1.x, v1.y);
+        xl[k] = __float_as_uint(v0.x), yl[k] = __float_as_uint(v0.y);
+        xh[k] = __float_as_uint(v1.x), yh[k] = __float_as_uint(v1.y);
+      }
+      ws_store_f32_at(x + o0 + 32 * jg, w0, xl, yl, q);
+      ws_store_f32_at(x + o1 + 32 * jg, w1, xh, yh, q);
+      ws_store_bf16_at(g.Cb + o0 + 32 * jg, w0, lo, q);
+      ws_store_bf16_at(g.Cb + o1 + 32 * jg, w1, hi, q);
+    }
+  }
+
+  static __device__ __forceinline__ void epilogue(const Sm90Args& g, float (&d)[128], int r0, int n0, int lane,
+                                                  WsPair& pair, const float* cols) {
+    const int q = lane % 4, r1 = r0 + 8;
+    if constexpr (!LN) {
+      bf16* C = static_cast<bf16*>(g.C);
+#pragma unroll
+      for (int jg = 0; jg < 8; ++jg) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * jg + k, c = n0 + 8 * j + 2 * q;
+          float2 bj = make_float2(0.0f, 0.0f);
+          if (g.bias) bj = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
+          float v[4] = {d[4 * j] + bj.x, d[4 * j + 1] + bj.y, d[4 * j + 2] + bj.x, d[4 * j + 3] + bj.y};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            if (EPI == EPI_BF16 && c + (t & 1) < g.scale_cols) v[t] *= g.scale;
+            if (EPI == EPI_GELU) v[t] = gelu_tanh_fast(v[t]);
+          }
+          lo[k] = pack_bf16x2(v[0], v[1]);
+          hi[k] = pack_bf16x2(v[2], v[3]);
+        }
+        const int cg = n0 + 8 * (4 * jg + q);
+        ws_store_bf16(C, g.M, g.N, r0, cg, lo, q);
+        ws_store_bf16(C, g.M, g.N, r1, cg, hi, q);
+      }
+    } else {
+      // element offsets of this thread's rows at its first group, which
+      // advance by 32 a group of four (an immediate in every access)
+      const long o0 = (long)r0 * g.N + n0 + 8 * q, o1 = o0 + 8L * g.N;
+      const bool ok0 = r0 < g.M, ok1 = r1 < g.M;
+      // y = res + (acc + bias) in d, and its row statistics
+      float s_lo = 0.0f, s_hi = 0.0f;
+#pragma unroll
+      for (int jb = 0; jb < 8; jb += 4) {  // two batches of four groups' residual loads
+        uint4 raw0[4][2], raw1[4][2];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          ws_load_f32_at(g.res + o0 + 32 * (jb + jj), ok0, raw0[jj]);
+          ws_load_f32_at(g.res + o1 + 32 * (jb + jj), ok1, raw1[jj]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float2 x0[4], x1[4];
+          ws_unpack_f32(raw0[jj], x0, q);
+          ws_unpack_f32(raw1[jj], x1, q);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int j = 4 * (jb + jj) + k;
+            const float2 bj = col2(cols, BIAS, 8 * j + 2 * q);
+            d[4 * j] = x0[k].x + (d[4 * j] + bj.x);
+            d[4 * j + 1] = x0[k].y + (d[4 * j + 1] + bj.y);
+            d[4 * j + 2] = x1[k].x + (d[4 * j + 2] + bj.x);
+            d[4 * j + 3] = x1[k].y + (d[4 * j + 3] + bj.y);
+            s_lo += d[4 * j] + d[4 * j + 1];
+            s_hi += d[4 * j + 2] + d[4 * j + 3];
+          }
+        }
+      }
+      float2 t = sm90_pair_sum(s_lo, s_hi, pair, lane);
+      const float mu_lo = __fmul_rn(t.x, INV_N), mu_hi = __fmul_rn(t.y, INV_N);
+      float q_lo = 0.0f, q_hi = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        q_lo += (d[4 * j] - mu_lo) * (d[4 * j] - mu_lo) + (d[4 * j + 1] - mu_lo) * (d[4 * j + 1] - mu_lo);
+        q_hi += (d[4 * j + 2] - mu_hi) * (d[4 * j + 2] - mu_hi) + (d[4 * j + 3] - mu_hi) * (d[4 * j + 3] - mu_hi);
+      }
+      t = sm90_pair_sum(q_lo, q_hi, pair, lane);
+      const float rs_lo = rsqrtf(__fmul_rn(t.x, INV_N) + 1e-5f), rs_hi = rsqrtf(__fmul_rn(t.y, INV_N) + 1e-5f);
+      if constexpr (!CROSS) {
+        store_ln<true>(g, d, o0, o1, ok0, ok1, q, mu_lo, rs_lo, mu_hi, rs_hi, cols, LN_SCALE, LN_BIAS);
+      } else {
+        // The rows' cross values, in place of y in d: the first
+        // LayerNorm's output o, and on a motion row o + ((0 + vmw) + bco);
+        // person rows (aux[row / lq] == row) keep o.
+        const bool p0 = ok0 && g.aux[r0 / g.lq] == r0, p1 = ok1 && g.aux[r1 / g.lq] == r1;
+        s_lo = s_hi = 0.0f;
+#pragma unroll
+        for (int jb = 0; jb < 8; jb += 2) {  // four batches of two groups' vmw loads
+          uint4 raw0[2], raw1[2];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            raw0[jj] = ws_load_bf16_at(g.vmw + o0 + 32 * (jb + jj), ok0);
+            raw1[jj] = ws_load_bf16_at(g.vmw + o1 + 32 * (jb + jj), ok1);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float2 w0[4], w1[4];
+            ws_unpack_bf16(raw0[jj], w0, q);
+            ws_unpack_bf16(raw1[jj], w1, q);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int j = 4 * (jb + jj) + k, cc = 8 * j + 2 * q;
+              const float2 gs = col2(cols, LN_SCALE, cc), gb = col2(cols, LN_BIAS, cc), bc = col2(cols, BCO, cc);
+              const float o[4] = {(d[4 * j] - mu_lo) * rs_lo * gs.x + gb.x,
+                                  (d[4 * j + 1] - mu_lo) * rs_lo * gs.y + gb.y,
+                                  (d[4 * j + 2] - mu_hi) * rs_hi * gs.x + gb.x,
+                                  (d[4 * j + 3] - mu_hi) * rs_hi * gs.y + gb.y};
+              d[4 * j] = p0 ? o[0] : o[0] + ((0.0f + w0[k].x) + bc.x);
+              d[4 * j + 1] = p0 ? o[1] : o[1] + ((0.0f + w0[k].y) + bc.y);
+              d[4 * j + 2] = p1 ? o[2] : o[2] + ((0.0f + w1[k].x) + bc.x);
+              d[4 * j + 3] = p1 ? o[3] : o[3] + ((0.0f + w1[k].y) + bc.y);
+              s_lo += d[4 * j] + d[4 * j + 1];
+              s_hi += d[4 * j + 2] + d[4 * j + 3];
+            }
+          }
+        }
+        // A person row's output is its first LayerNorm's (d now): written
+        // here, so that no row needs both d and d - m2 below (keeping both
+        // spilled). One row in lq; a warp holds 16 rows.
+        if (__any_sync(0xffffffffu, p0 || p1))
+          store_ln<false>(g, d, o0, o1, ok0 && p0, ok1 && p1, q, 0.0f, 0.0f, 0.0f, 0.0f, cols, 0, 0);
+        t = sm90_pair_sum(s_lo, s_hi, pair, lane);
+        const float m2_lo = __fmul_rn(t.x, INV_N), m2_hi = __fmul_rn(t.y, INV_N);
+        q_lo = q_hi = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          q_lo += (d[4 * j] - m2_lo) * (d[4 * j] - m2_lo) + (d[4 * j + 1] - m2_lo) * (d[4 * j + 1] - m2_lo);
+          q_hi += (d[4 * j + 2] - m2_hi) * (d[4 * j + 2] - m2_hi) + (d[4 * j + 3] - m2_hi) * (d[4 * j + 3] - m2_hi);
+        }
+        t = sm90_pair_sum(q_lo, q_hi, pair, lane);
+        const float r2_lo = rsqrtf(__fmul_rn(t.x, INV_N) + 1e-5f), r2_hi = rsqrtf(__fmul_rn(t.y, INV_N) + 1e-5f);
+        store_ln<true>(g, d, o0, o1, ok0 && !p0, ok1 && !p1, q, m2_lo, r2_lo, m2_hi, r2_hi, cols, LN2_SCALE, LN2_BIAS);
+      }
+    }
+  }
+};
+
+// K1's products: the warp-specialised pipeline with K1's weight layout
+// and epilogues.
+template <int EPI>
+__global__ void __launch_bounds__(WS_THREADS, 1) gemm_sm90_kernel(const __grid_constant__ Sm90Maps maps, Sm90Args g) {
+  extern __shared__ __align__(128) unsigned char sm90_ws_smem[];
+  ws_gemm_tiles<Sm90Epi<EPI>>(&maps.a, &maps.b, g.layer, g, sm90_ws_smem);
+}
+
+// One of K1's products on the warp-specialised pipeline: A's map with
+// boxes of 128 rows (EPI_BF16, EPI_GELU; the shape passes sm90_wide_ok) or
+// 64 (EPI_RESID_LN, EPI_RESID_LN_CROSS, as two-CTA clusters; sm90_ln_ok),
+// B's (make_b_map) with g.layer its layer.
+template <int EPI>
+cudaError_t gemm_sm90(cudaStream_t st, const CUtensorMap& a, const CUtensorMap& b, const Sm90Args& g) {
+  static bool attr_set = false;
+  return ws_launch(gemm_sm90_kernel<EPI>, &attr_set, Sm90Epi<EPI>::LN, WS_SMEM + Sm90Epi<EPI>::EXTRA, st,
+                   Sm90Maps{a, b}, g);
 }
 
 // --------------------------------------------------------------------------

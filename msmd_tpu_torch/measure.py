@@ -190,22 +190,32 @@ def decoder_products(Be: int, lq: int, F: int, L: int, FF: int) -> dict:
     on the wmma tile), and its operations over all L layers. Their sum is
     ``decoder_work``'s operations less the attention's."""
     R = Be * lq
-    shapes = {"qkv": (R, 3 * F, F, "bf16"), "self_out": (R, F, F, "resid_ln"), "ffn1": (R, FF, F, "gelu"),
+    shapes = {"qkv": (R, 3 * F, F, "bf16"), "self_out": (R, F, F, "resid_ln_cross"), "ffn1": (R, FF, F, "gelu"),
               "ffn2": (R, F, FF, "resid_ln"), "person_q": (Be, F, F, None), "person_out": (Be, F, F, None)}
     return {name: {"M": M, "N": N, "K": K, "epilogue": epi, "flops": L * 2 * M * N * K}
             for name, (M, N, K, epi) in shapes.items()}
 
 
-def gemm_case(dev, M: int, N: int, K: int, epilogue: str, seed=SEED):
+def gemm_case(dev, M: int, N: int, K: int, epilogue: str, seed=SEED, lq: int = 111):
     """Seeded operands of one decoder product for ``ops/kernels/gemm.gemm``:
-    (a, b, bias) and, for "resid_ln", (res, ln_scale, ln_bias); a keyword
-    dict for the call (the q-column scale for "bf16", as QKV takes it)."""
+    (a, b, bias) and, for the LayerNorm epilogues, (res, ln_scale,
+    ln_bias); a keyword dict for the call (the q-column scale for "bf16",
+    as QKV takes it; for "resid_ln_cross" vmw, zero on the person rows
+    e * lq as ``build_vmw`` makes it, bco, the second LayerNorm's
+    parameters and the person rows)."""
     rn = _seeded(seed + 50)
     bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
     f32 = lambda t: t.to(dev, torch.float32).contiguous()
     args = (bf(rn(M, K)), bf(rn(K, N) / K ** 0.5), bf(rn(N) * 0.1))
     if epilogue == "resid_ln":
         return args + (f32(rn(M, N)), f32(1.0 + 0.1 * rn(N)), f32(0.1 * rn(N))), {}
+    if epilogue == "resid_ln_cross":
+        args += (f32(rn(M, N)), f32(1.0 + 0.1 * rn(N)), f32(0.1 * rn(N)))
+        aux = torch.arange(0, M, lq, dtype=torch.int32)
+        vmw = rn(M, N)
+        vmw[aux.long()] = 0.0
+        return args, {"vmw": bf(vmw), "bco": bf(rn(N) * 0.1), "ln2_scale": f32(1.0 + 0.1 * rn(N)),
+                      "ln2_bias": f32(0.1 * rn(N)), "aux": aux.to(dev).contiguous(), "lq": lq}
     return args, ({"scale": 0.125, "scale_cols": N // 3} if epilogue == "bf16" else {})
 
 

@@ -43,6 +43,7 @@ four large products run on the Hopper GEMM as K1 per-entry's do.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from msmd_tpu_torch import _build
+from msmd_tpu_torch.utils.profiling import count
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +296,22 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def cluster_products(Be: int, lq: int, F: int, FF: int, L: int, full_cross: bool = False) -> int:
+    """How many products of one K1 call run on the warp-specialised Hopper
+    GEMM (``csrc/gemm_sm90.cuh``, two-CTA clusters for the LayerNorm
+    ones): of QKV, self-out, FFN1 and FFN2 (and the full masked cross's q
+    and out products with ``full_cross``) those it takes, times L. 4 L at
+    the batch-48 rows, 0 below ``gemm.MIN_ROWS``."""
+    from msmd_tpu_torch.ops.kernels.gemm import hopper_takes
+
+    R = Be * lq
+    shapes = [(R, 3 * F, F, "bf16"), (R, F, F, "resid_ln"), (R, FF, F, "gelu"), (R, F, FF, "resid_ln")]
+    if full_cross:
+        shapes += [(R, F, F, "bf16"), (R, F, F, "resid_ln")]
+    return L * sum(hopper_takes(*shape) for shape in shapes)
+
+
 def check_decoder_inputs(name: str, pack, kmem, vmem, x, n_heads, **extra):
     """Raise unless the pack, the memory K/V and x have the shapes, types
     and layout the decoder kernels take (bf16 pack, head dim 64, F and
@@ -356,6 +374,7 @@ def fused_decoder_forward(pack: dict, kmem: torch.Tensor, vmem: torch.Tensor, x:
                                   _build.stream(x.device))
     _build.check(lib, rc, "fused_decoder_forward")
     fused_decoder_forward.launches += 1
+    count("msmd.k1.cluster_products", cluster_products(Be, lq, F, FF, L))
     return out
 
 
@@ -394,6 +413,9 @@ def fused_decoder_forward_flat(pack: dict, kmem: torch.Tensor, vmem: torch.Tenso
                                            tile_entries)
     out = _launch_flat(pack, kmem, vmem, x, aux, n_heads, vmw, self_mask, cross_mask, tile_entries)
     fused_decoder_forward_flat.launches += 1
+    Be, lq, F = x.shape
+    count("msmd.k1.cluster_products",
+          cluster_products(Be, lq, F, pack["wf1"].shape[-1], pack["wqkv"].shape[0], full_cross=vmw is None))
     return out
 
 

@@ -15,7 +15,9 @@ batch-1 sampler kernels, the training FFN block K7 (forward, and each
 of its seven gradients) and the guided window's layer kernels K6, K8 and
 K9 and each product of their warp-specialized GEMM at bf16, max |err| /
 max |plain| <= 2e-2 (the same bf16 rounding points, other f32 summation
-orders); K7's mask bits exactly; the FLAME decode in f32, atol 1e-4, and
+orders); the decoder's Hopper GEMM on its warp-specialised pipeline also
+bit for bit against the tile loop that K2 runs; K7's mask bits exactly;
+the FLAME decode in f32, atol 1e-4, and
 its backward (K5 bwd, and the gradients through ``flame_vertices``) within
 1e-4 of max |plain|.
 """
@@ -138,13 +140,18 @@ def test_decoder_flat_wrapper_refuses_what_the_kernel_does_not_take():
 def test_decoder_kernel_on_the_hopper_gemm(Be, lq):
     """K1 where its four large products run on the Hopper GEMM with the
     LayerNorm fold: R = 1887 rows, a multiple of no tile height (64, 128),
-    and the batch-48 shape."""
+    and the batch-48 shape. Each call counts its 4 L products on the
+    clustered pipeline (``msmd.k1.cluster_products``); a call below 1024
+    rows (Be = 6) counts none."""
     from msmd_tpu_torch.measure import decoder_case
     from msmd_tpu_torch.ops.kernels import decoder as kd
     from msmd_tpu_torch.ops.kernels import gemm as kg
+    from msmd_tpu_torch.utils.profiling import counters
 
     args = decoder_case(_card(), Be=Be, lq=lq, L=2, seed=11)
     assert kg.gemm_plan(Be * lq, 512, 2048, "resid_ln")["route"] == "wgmma"
+    counted = lambda: counters().get("msmd.k1.cluster_products", 0)
+    before = counted()
     with torch.no_grad():
         got = kd.fused_decoder_forward(*args)
         want = kd.fused_decoder_forward_plain(*args)
@@ -152,6 +159,37 @@ def test_decoder_kernel_on_the_hopper_gemm(Be, lq):
     print(f"K1 Be={Be} lq={lq} rel_err={_rel(got, want):.3e}")
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert _rel(got, want) <= 2e-2
+    assert counted() - before == 4 * 2
+    small = decoder_case(_card(), Be=6, lq=lq, L=2, seed=11)
+    before = counted()
+    with torch.no_grad():
+        kd.fused_decoder_forward(*small)
+    assert counted() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [10656, 1776, 1024])
+@pytest.mark.parametrize("N,K,epilogue", [(1536, 512, "bf16"), (2048, 512, "gelu"), (512, 2048, "resid_ln"),
+                                          (512, 512, "resid_ln_cross")])
+def test_gemm_pipeline_matches_the_tile_loop_bit_for_bit(M, N, K, epilogue):
+    """K1's four products (QKV, FFN1, FFN2 + LayerNorm, self-out + LayerNorm
+    + the cross step on the motion rows, person rows e * 111 included) on
+    the warp-specialised pipeline equal the 256-thread tile loop that K2
+    runs (and K1 ran before), bit for bit, at Be 96 (10656 rows), Be 16
+    (1776) and 1024 rows; two calls give the same bits."""
+    from msmd_tpu_torch.measure import gemm_case
+    from msmd_tpu_torch.ops.kernels import gemm as kg
+
+    args, kw = gemm_case(_card(), M, N, K, epilogue, seed=13)
+    call = lambda route: kg.gemm(*args[:3], epilogue, *args[3:], route=route, **kw)
+    got, again, loop = call("wgmma"), call("wgmma"), call("sm90_loop")
+    torch.cuda.synchronize()
+    if epilogue.startswith("resid_ln"):
+        assert all(torch.equal(a, b) for a, b in zip(got, loop)) and all(torch.equal(a, b) for a, b in zip(got, again))
+        got = got[0]
+    else:
+        assert torch.equal(got, loop) and torch.equal(got, again)
+    assert bool(torch.isfinite(got.float()).all())
 
 
 @pytest.mark.cuda
@@ -184,7 +222,8 @@ def test_gemm_matches_f32_reference(M, N, K, epilogue):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,N,K,epilogue", [(10656, 1536, 512, "bf16"), (10656, 512, 2048, "resid_ln"),
                                             (1887, 2048, 512, "gelu"), (1023, 512, 512, "resid_ln"),
-                                            (222, 1536, 512, "bf16"), (10656, 384, 512, "resid_ln")])
+                                            (222, 1536, 512, "bf16"), (10656, 384, 512, "resid_ln"),
+                                            (10656, 512, 512, "resid_ln_cross"), (1776, 512, 512, "resid_ln_cross")])
 def test_gemm_plan_matches_the_library(M, N, K, epilogue):
     """The pure-Python launch plan equals what the library launches on this
     card (route, tile, tiles, grid, shared memory)."""

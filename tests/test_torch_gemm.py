@@ -28,38 +28,63 @@ from msmd_tpu_torch.ops.kernels.decoder import gelu_tanh
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 
 
-@pytest.mark.parametrize("M,N,K,epilogue,route,tile,tiles,grid,smem", [
-    # K1's four products at batch 48 (R = Be * lq = 96 * 111)
-    (10656, 1536, 512, "bf16", "wgmma", (128, 256), 84 * 6, 132, 4 * (128 + 256) * 128 + 2048 + 32),
-    (10656, 512, 512, "resid_ln", "wgmma", (64, 512), 167, 132, 3 * (64 + 512) * 128 + 2048 + 24),
-    (10656, 2048, 512, "gelu", "wgmma", (128, 256), 84 * 8, 132, 4 * (128 + 256) * 128 + 2048 + 32),
-    (10656, 512, 2048, "resid_ln", "wgmma", (64, 512), 167, 132, 3 * (64 + 512) * 128 + 2048 + 24),
-    # a ragged R (Be = 17): fewer tiles than SMs
-    (1887, 512, 2048, "resid_ln", "wgmma", (64, 512), 30, 30, 3 * (64 + 512) * 128 + 2048 + 24),
+WS_SMEM = 4 * (128 + 256) * 128 + 1024 + 2 * 2 * 128 * 4 + 10 * 8  # the ring, alignment, exchanges, mbarriers
+LN_SMEM, CROSS_SMEM = WS_SMEM + 3 * 256 * 4, WS_SMEM + 6 * 256 * 4  # and the LayerNorm products' column tables
+
+
+@pytest.mark.parametrize("M,N,K,epilogue,route,tile,cluster,clusters,tiles,grid,smem", [
+    # K1's four products at batch 48 (R = Be * lq = 96 * 111): 84 row blocks of 128
+    (10656, 1536, 512, "bf16", "wgmma", (128, 256), 1, 132, 84 * 6, 132, WS_SMEM),
+    (10656, 512, 512, "resid_ln_cross", "wgmma", (128, 256), 2, 66, 2 * 84, 132, CROSS_SMEM),
+    (10656, 2048, 512, "gelu", "wgmma", (128, 256), 1, 132, 84 * 8, 132, WS_SMEM),
+    (10656, 512, 2048, "resid_ln", "wgmma", (128, 256), 2, 66, 2 * 84, 132, LN_SMEM),
+    # the flat chain's self-out and FFN2 (plain LayerNorm) at the same rows
+    (10656, 512, 512, "resid_ln", "wgmma", (128, 256), 2, 66, 2 * 84, 132, LN_SMEM),
+    # a ragged R (Be = 17): fewer row blocks than cluster slots
+    (1887, 512, 2048, "resid_ln", "wgmma", (128, 256), 2, 15, 30, 30, LN_SMEM),
     # below MIN_ROWS (K3 and K4 at 222 rows, K1 flat at 444): the wmma tile
-    (1023, 512, 512, "resid_ln", "wmma", (64, 128), 4 * 16, 64, 65536),
-    (222, 1536, 512, "bf16", "wmma", (128, 128), 12 * 2, 24, 86016),
-    (444, 2048, 512, "gelu", "wmma", (128, 128), 16 * 4, 64, 86016),
+    (1023, 512, 512, "resid_ln", "wmma", (64, 128), 1, 64, 4 * 16, 64, 65536),
+    (222, 1536, 512, "bf16", "wmma", (128, 128), 1, 24, 12 * 2, 24, 86016),
+    (444, 2048, 512, "gelu", "wmma", (128, 128), 1, 64, 16 * 4, 64, 86016),
     # N that the Hopper tiles do not cover: 384 for the LayerNorm fold, 640
-    (10656, 384, 512, "resid_ln", "wmma", (64, 128), 3 * 167, 501, 65536),
-    (10656, 640, 512, "bf16", "wmma", (128, 128), 5 * 84, 420, 86016),
+    (10656, 384, 512, "resid_ln", "wmma", (64, 128), 1, 3 * 167, 3 * 167, 501, 65536),
+    (10656, 640, 512, "bf16", "wmma", (128, 128), 1, 5 * 84, 5 * 84, 420, 86016),
 ])
-def test_gemm_plan(M, N, K, epilogue, route, tile, tiles, grid, smem):
+def test_gemm_plan(M, N, K, epilogue, route, tile, cluster, clusters, tiles, grid, smem):
     plan = kg.gemm_plan(M, N, K, epilogue)
-    assert plan == {"route": route, "tile": tile, "tiles": tiles, "grid": grid, "smem": smem}
-    assert plan["smem"] <= SMEM_LIMIT
+    assert plan == {"route": route, "tile": tile, "cluster": cluster, "clusters": clusters, "tiles": tiles,
+                    "grid": grid, "smem": smem}
+    assert plan["smem"] <= SMEM_LIMIT and plan["grid"] == clusters * cluster
     row_tiles = plan["tiles"] // (N // tile[1])
     assert row_tiles * tile[0] >= M > (row_tiles - 1) * tile[0]
 
 
 def test_gemm_plan_grid_follows_the_card():
     assert kg.gemm_plan(10656, 512, 512, "resid_ln", sms=114)["grid"] == 114
-    assert kg.gemm_plan(10656, 512, 512, "resid_ln", sms=200)["grid"] == 167
+    assert kg.gemm_plan(10656, 512, 512, "resid_ln", sms=200)["grid"] == 168
+    assert kg.gemm_plan(10656, 512, 512, "resid_ln", sms=131)["clusters"] == 65
+
+
+def test_gemm_plan_at_batch_48_runs_layernorm_pairs_over_the_card():
+    """At 10656 rows the two LayerNorm products run as 66 clusters of two
+    CTAs, each a 256-column half of the same 128 rows, over 84 row blocks
+    (1.27 waves). A 64-deep stage of a CTA then copies 48 KB (A 128 x 64,
+    B 256 x 64) for the operations that took 72 KB on the tile loop's
+    64 x 512 tiles (A 64 x 64, B 512 x 64)."""
+    for K, epilogue in ((512, "resid_ln_cross"), (2048, "resid_ln")):
+        plan = kg.gemm_plan(10656, 512, K, epilogue)
+        assert (plan["cluster"], plan["clusters"], plan["grid"]) == (2, 66, 132)
+        assert plan["tiles"] // plan["cluster"] == -(-10656 // 128) == 84
+        bm, bn = plan["tile"]
+        assert bm * bn == 64 * 512 and (bm + bn) * 64 * 2 == 48 * 1024 < (64 + 512) * 64 * 2 == 72 * 1024
+        assert plan["smem"] - kg.WS_SMEM == kg.WS_COLUMN_PARAMS[epilogue] * 256 * 4
+    assert kg.WS_SMEM == WS_SMEM
 
 
 @pytest.mark.parametrize("M,N,K,epilogue,match", [
     (0, 512, 512, "bf16", "M=0"), (10656, 100, 512, "bf16", "multiple of 128"),
     (10656, 512, 48, "gelu", "multiple of 32"), (10656, 512, 512, "resid", "unknown epilogue"),
+    (1023, 512, 512, "resid_ln_cross", "only on the Hopper GEMM"),
 ])
 def test_gemm_plan_refuses(M, N, K, epilogue, match):
     with pytest.raises(ValueError, match=match):
@@ -136,3 +161,38 @@ def test_gemm_on_cpu_tensors_takes_its_plain_version():
     y = res + acc
     want = (y - y.mean(-1, keepdim=True)) / torch.sqrt(y.var(-1, unbiased=False, keepdim=True) + 1e-5)
     torch.testing.assert_close(x, want, rtol=0, atol=1e-5)
+
+
+def test_gemm_cross_epilogue_keeps_the_person_rows():
+    """"resid_ln_cross" (K1's self-out): the person rows e * lq keep the
+    first LayerNorm; every other row takes the identity band's cross step
+    and the second LayerNorm, as the decoder's plain version does."""
+    from msmd_tpu_torch.ops.kernels.decoder import _layernorm
+
+    args, kw = measure.gemm_case(torch.device("cpu"), 250, 512, 64, "resid_ln_cross", lq=111)
+    x, xb = kg.gemm(*args[:3], "resid_ln_cross", *args[3:], **kw)
+    first, _ = kg.gemm(*args[:3], "resid_ln", *args[3:])
+    person = torch.zeros(250, dtype=torch.bool)
+    person[kw["aux"].long()] = True
+    assert kw["aux"].tolist() == [0, 111, 222]
+    torch.testing.assert_close(x[person], first[person], rtol=0, atol=0)
+    cross = _layernorm(first + (kw["vmw"].float() + kw["bco"].float()), kw["ln2_scale"], kw["ln2_bias"])
+    torch.testing.assert_close(x[~person], cross[~person], rtol=0, atol=0)
+    torch.testing.assert_close(xb, x.bfloat16(), rtol=0, atol=0)
+
+
+def test_k1_counts_the_products_on_the_clustered_gemm():
+    """``msmd.k1.cluster_products``: a K1 call adds the products that took
+    the warp-specialised Hopper GEMM, 4 L at batch 48 and 0 below its 1024
+    rows (6 L in the flat mode's full cross); the plain version on the CPU
+    adds nothing."""
+    from msmd_tpu_torch.ops.kernels import decoder as kd
+    from msmd_tpu_torch.utils.profiling import counters
+
+    assert kd.cluster_products(96, 111, 512, 2048, 8) == 32
+    assert kd.cluster_products(9, 111, 512, 2048, 8) == 0
+    assert kd.cluster_products(10, 111, 512, 2048, 8, full_cross=True) == 48
+    args = measure.decoder_case(torch.device("cpu"), Be=2, lq=5, F=128, H=2, L=1, FF=256)
+    before = counters().get("msmd.k1.cluster_products", 0)
+    kd.fused_decoder_forward(*args)
+    assert counters().get("msmd.k1.cluster_products", 0) == before
