@@ -135,6 +135,19 @@ Phases, each printing one JSON line:
      bound (three TF32 products a product at 495 TFLOP/s, or the bytes)
      and ``scaled_dot_product_attention`` at f32 on the same tensors
      (``library_ms``; a yardstick the port never calls).
+   - K10 (``ops/kernels/relpos_attn.py``, ``csrc/relpos_attn.cu``; WavLM's
+     gated relative-position attention) at the WavLM-Large cell's shapes,
+     B 32 clips of L 200 tokens, 16 heads of 64: forward and backward
+     against the plain twin at the card tests' tolerances (out, dq, dk,
+     dv within 2e-2 of max |plain|, the log-sum-exp within 1e-5, dg and
+     dr within 1e-3), two calls bit-equal, the device kernels of one call
+     in torch.profiler (1 forward, 4 backward), registers and spills;
+     timed warm, with the L2 flushed and by device time alone beside its
+     bound (``relpos_work``: bytes), the plain twin and
+     ``scaled_dot_product_attention`` with the gated bias as a bf16 float
+     mask (forward; forward and backward, the mask's gradient included,
+     which the layer would need). Its launches come from phase
+     train_wavlm.
 12. library (``phase_library``, after phase 11; listed here beside the
    kernels it checks): the model library off the main paths,
    f32 unless named. The flagship-width VAE and VAE2 style encoders (512
@@ -230,6 +243,18 @@ Phases, each printing one JSON line:
    backward's atomics move the second), the remat peak memory lower, K7's
    forward 16 a step under remat (each layer's recompute). It prints
    steps/s, the device-busy share of one profiled step and both peaks.
+
+10b. train_wavlm (``phase_train_wavlm``): phase 10's step with
+   WavLM-Large as the speech encoder (``audio_model="wavlm"`` at
+   ``config.WAVLM_LARGE``'s published widths, only its convolutions
+   frozen), one warm-up step and ``WAVLM_STEPS`` timed steps with the
+   counters reset just before them: every loss finite; K10 24 forward
+   launches an encoder call (one table an encoder call,
+   ``msmd.wavlm.bias_tables``: the trained call of the two clips, and
+   clip 0's no-grad forward where it is cut) and 24 backward a step, 2B
+   x 200 query rows a backward, ``msmd.k10.calls`` their sum, no call on
+   the plain route (``msmd.k10.plain_calls``). It prints steps/s and the
+   peak memory.
 
 11. parallel (``phase_parallel``), at phase 10's width with
    ``fused_ffn_train`` (``measure.build_trainer``): a HuBERT-base HF
@@ -751,6 +776,7 @@ def phase_kernels(dev, logs):
         out.update(_k7_entries(dev))
         out.update(_guided_entries(dev))
         out.update(_k8_f32_entries(dev))
+        out.update(_k10_entries(dev, logs))
     from msmd_tpu_torch.measure import profiled
 
     emit({"phase": "kernels", **out, "profiler_sessions_lost": profiled.lost})
@@ -1038,6 +1064,86 @@ def _k7_entries(dev):
     return entries
 
 
+K10_GATE = {"out": 2e-2, "lse": 1e-5, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2, "dg": 1e-3, "dr": 1e-3}  # the card tests'
+K10_SHAPE = (32, 200, 16)  # the WavLM-Large cell: 32 clips of 200 tokens, 16 heads of 64
+
+
+def _k10_entries(dev, logs):
+    """K10 forward and backward at ``K10_SHAPE`` against the plain twin,
+    two calls bit-equal, the device kernels of a call, and their times
+    beside the bound, the twin and SDPA with the gated bias as a mask."""
+    import torch
+    import torch.nn.functional as tf
+
+    from msmd_tpu_torch.measure import BF16_PEAK, bound, cuda_ms, cuda_ms_flushed
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+
+    B, L, H = K10_SHAPE
+    gen = torch.Generator().manual_seed(10)
+    q, k, v, dout = (torch.randn(B, L, H, ra.HEAD_DIM, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+    g = (1 + 2 * torch.rand(B, H, L, generator=gen)).to(dev)  # the gate's range, (1, 3)
+    r = torch.randn(H, 2 * L - 1, generator=gen).to(dev)
+    fwd = lambda: ra.relpos_attention_cuda(q, k, v, g, r)
+    out, lse = fwd()
+    bwd = lambda: ra.relpos_attention_bwd_cuda(q, k, v, g, r, out, lse, dout)
+    got = (out, lse) + tuple(bwd())
+    again = fwd() + tuple(bwd())
+    want = ra.relpos_attention_fwd_plain(q, k, v, g, r) + tuple(ra.relpos_attention_bwd_plain(q, k, v, g, r, out,
+                                                                                                lse, dout))
+    torch.cuda.synchronize()
+    names = tuple(K10_GATE)
+    rel = {n: _rel(a.float(), w.float()) for n, a, w in zip(names, got, want)}
+    err = {n: float((a.float() - w.float()).abs().max()) for n, a, w in zip(names, got, want)}
+    equal = {n: bool(torch.equal(a, c)) for n, a, c in zip(names, got, again)}
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    del again, want
+    plan = ra.relpos_plan(B, L, H)
+    usage = {n: ptxas_usage(logs.get("relpos_attn", ""), n) for n in ("k10_relpos_fwd", "k10_relpos_bwd_pre",
+                                                                        "k10_relpos_bwd_dkdv", "k10_relpos_bwd_dq",
+                                                                        "k10_relpos_bwd_dr")}
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, dout))
+    bias = ra.bias_plain(g, r).to(torch.bfloat16)
+    sdpa = lambda: tf.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    leaves = [t.detach().requires_grad_() for t in (qh, kh, vh, bias)]
+
+    def sdpa_fwd_bwd():
+        with torch.enable_grad():  # phase kernels runs under no_grad
+            o = tf.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+            return torch.autograd.grad(o, leaves, doh)
+
+    entries = {}
+    for key, fn, back in (("relpos_fwd", fwd, False), ("relpos_bwd", bwd, True)):
+        gated = names[2:] if back else names[:2]
+        flops, nbytes = ra.relpos_work(B, L, H, ra.HEAD_DIM, back)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        launched = _device_launches(fn, "k10_relpos_")
+        if back:
+            plain = lambda: ra.relpos_attention_bwd_plain(q, k, v, g, r, out, lse, dout)
+            library, library_ms = ("scaled_dot_product_attention forward + backward, the gated bias as a bf16 float "
+                                   "mask with its gradient"), cuda_ms(sdpa_fwd_bwd, 20, 5)
+        else:
+            plain = lambda: ra.relpos_attention_fwd_plain(q, k, v, g, r)
+            library, library_ms = "scaled_dot_product_attention, the gated bias as a bf16 float mask", \
+                cuda_ms(sdpa, 50, 10)
+        checks = dict(finite=finite, within_gate=all(rel[n] <= K10_GATE[n] for n in gated),
+                      bit_equal=all(equal[n] for n in gated),
+                      planned_launches=launched["kernel"] == (4 if back else 1))
+        entries[key] = dict(
+            name="relpos_attention " + ("backward" if back else "forward"), route="cuda",
+            source="msmd_tpu_torch/csrc/relpos_attn.cu", replaces="none: the JAX package has no WavLM",
+            B=B, L=L, heads=H, rel_err={n: rel[n] for n in gated}, max_abs_err=max(err[n] for n in gated),
+            tolerance="max|err|/max|plain| <= " + ", ".join(f"{n} {K10_GATE[n]}" for n in gated)
+                      + "; two calls bit-equal",
+            bit_equal_across_calls={n: equal[n] for n in gated}, device_kernels_per_call=launched, plan=plan,
+            ptxas={n: u for n, u in usage.items() if (n == "k10_relpos_fwd") != back},
+            ms=cuda_ms(fn, 50, 10), device_ms=_device_ms_per_call(fn), ms_l2_flushed=cuda_ms_flushed(fn, 20),
+            plain_ms=cuda_ms(plain, 3, warmup=1), bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            library=library, library_device_ms=_device_ms_per_call(sdpa_fwd_bwd if back else sdpa, 10),
+            flops=flops, bytes=nbytes, checks=checks, ok=all(checks.values()))
+    del q, k, v, dout, g, r, out, lse, got, bias, leaves
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main paths, audio -> guided DDPM -> FLAME vertices
 # ---------------------------------------------------------------------------
@@ -1050,6 +1156,7 @@ def _counted():
     from msmd_tpu_torch.ops.kernels import ffn_train as k7
     from msmd_tpu_torch.ops.kernels import layer_tail as k9
     from msmd_tpu_torch.ops.kernels import lbs as kl
+    from msmd_tpu_torch.ops.kernels import relpos_attn as k10
     from msmd_tpu_torch.ops.kernels import sampler as ks
 
     return {"decoder": kd.fused_decoder_forward, "decoder_flat": kd.fused_decoder_forward_flat,
@@ -1057,7 +1164,8 @@ def _counted():
             "step": ks.fused_sampler_step, "lbs": kl.flame_vertices, "lbs_bwd": kl.skin_backward,
             "ffn_train_fwd": k7.ffn_train_forward,
             "ffn_train_bwd": k7.ffn_train_backward, "ffn": k6.fused_ffn_ln, "attn": k8.attention_middle,
-            "attn_f32": k8.attention_middle_f32, "tail": k9.fused_layer_tail}
+            "attn_f32": k8.attention_middle_f32, "tail": k9.fused_layer_tail,
+            "relpos_fwd": k10.relpos_attention_cuda, "relpos_bwd": k10.relpos_attention_bwd_cuda}
 
 
 def _reset_counts():
@@ -2149,6 +2257,58 @@ def _flatten(tree, pre=()) -> dict:
 TRACE_SESSIONS = 8  # traced fits taken before phase parallel gives up (see measure.profiled)
 
 
+WAVLM_STEPS = 3
+
+
+def phase_train_wavlm(dev, smi):
+    import dataclasses
+
+    import torch
+
+    from msmd_tpu_torch.config import WAVLM_LARGE
+    from msmd_tpu_torch.measure import build_train_path, train_batch
+    from msmd_tpu_torch.utils.profiling import counters
+
+    path = build_train_path(dev, vertex=True, cfg_kw={"audio_model": "wavlm"},
+                            audio_kw=dataclasses.asdict(WAVLM_LARGE))
+    cfg = path["cfg"]
+    batch = train_batch(cfg, dev)
+    B = batch["motion_0"].shape[0]
+    _vertex_steps(path, batch, 1)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    before = counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _vertex_steps(path, batch, WAVLM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after, launches = counters(), _counts()
+    d = {n: after.get(n, 0) - before.get(n, 0) for n in ("msmd.wavlm.bias_tables", "msmd.k10.calls",
+                                                          "msmd.k10.fwd_rows", "msmd.k10.bwd_rows",
+                                                          "msmd.k10.plain_calls")}
+    layers, T, tokens = WAVLM_LARGE.num_layers, WAVLM_STEPS, 2 * cfg.n_motions
+    tables = d["msmd.wavlm.bias_tables"]
+    losses = [float(l) for l, _ in out]
+    checks = {
+        "finite_losses": all(math.isfinite(l) for l in losses),
+        "one_trained_encoder_call_a_step": T <= tables <= 2 * T,
+        "k10_fwd_launches": launches["relpos_fwd"] == layers * tables,
+        "k10_bwd_launches": launches["relpos_bwd"] == layers * T,
+        "k10_bwd_rows": d["msmd.k10.bwd_rows"] == layers * T * 2 * B * tokens,
+        "k10_calls_counter": d["msmd.k10.calls"] == launches["relpos_fwd"] + launches["relpos_bwd"],
+        "no_plain_route": d["msmd.k10.plain_calls"] == 0,
+        "no_sampling_kernels": all(launches[k] == 0 for k in ("decoder", "scan", "step")),
+    }
+    emit({"phase": "train_wavlm", "batch": B, "clips": 2, "tokens_a_clip": tokens, "layers": layers, "steps": T,
+          "losses": losses, "wall_s": wall, "steps_per_s": T / wall,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches, "counters": d,
+          "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: train_wavlm checks failed: {checks}")
+    return {k: launches[k] / T for k in ("relpos_fwd", "relpos_bwd")}
+
+
 def phase_parallel(dev, smi):
     import tempfile
     from pathlib import Path
@@ -2258,6 +2418,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     vertex_launches = phase_train_vertex(dev, smi)
     torch.cuda.empty_cache()
+    wavlm_launches = phase_train_wavlm(dev, smi)
+    torch.cuda.empty_cache()
     phase_parallel(dev, smi)
     library_launches = phase_library(dev, smi)
     kernels["decoder"]["launches"] = main_launches["decoder"]
@@ -2267,6 +2429,8 @@ def main() -> int:
     for k in ("ffn_train_fwd", "ffn_train_bwd"):
         kernels[k]["launches"] = train_launches[k]
     kernels["lbs_bwd"]["launches"] = vertex_launches["lbs_bwd"]
+    for k in ("relpos_fwd", "relpos_bwd"):
+        kernels[k]["launches"] = wavlm_launches[k]  # a step
     kernels["ffn"]["launches"] = guided_launches["default"]["ffn"]
     kernels["attn"]["launches"] = guided_launches["attn_kernel"]["attn"]
     for k, B in K8_F32_BATCHES.items():
@@ -2277,7 +2441,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     order = ("decoder", "decoder_flat", "resident", "scan", "step", "lbs", "lbs_bwd", "ffn_train_fwd",
-             "ffn_train_bwd", "ffn", "attn", *K8_F32_BATCHES, "tail")
+             "ffn_train_bwd", "ffn", "attn", *K8_F32_BATCHES, "tail", "relpos_fwd", "relpos_bwd")
     emit({"kernels": [{key: kernels[k][key] for key in keys} for k in order]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,7 @@ class MSMDConfig:
     style_enc_model_style: str = "vae2"
     training_loss_style: str = "MSMD"
     dataset_type: str = "ravdess+celebv-text-medium"
-    audio_model: str = "hubert"  # 'hubert' | 'wav2vec2'
+    audio_model: str = "hubert"  # 'hubert' | 'wav2vec2' | 'wavlm'
     d_style: int = 256
 
     # ---- feature options (reference: training_script.py:475-480) ----
@@ -219,7 +219,20 @@ def is_hdtf(dataset_type: str) -> bool:
 @dataclass(frozen=True)
 class AudioEncoderConfig:
     """wav2vec2 / HuBERT base architecture (facebook/hubert-base-ls960);
-    the same fields and defaults as the JAX package's config."""
+    the same fields and defaults as the JAX package's config, and the
+    port's own five layout fields after them, whose defaults are that
+    base layout:
+
+    - ``feat_extract_norm``: "group" (a per-channel GroupNorm after the
+      first convolution) or "layer" (a LayerNorm over channels after every
+      convolution);
+    - ``conv_bias``: the convolutions carry a bias;
+    - ``do_stable_layer_norm``: pre-LN encoder layers, a final LayerNorm
+      after the last one and none before the first;
+    - ``num_buckets`` / ``max_bucket_distance``: WavLM's gated
+      relative-position attention over that many buckets (0: none).
+
+    ``WAVLM_LARGE`` is microsoft/wavlm-large."""
 
     hidden_size: int = 768
     num_layers: int = 12
@@ -237,3 +250,55 @@ class AudioEncoderConfig:
     mask_time_length: int = 10
     mask_feature_prob: float = 0.0
     mask_feature_length: int = 10
+    # the port's layouts (defaults: the base layout above)
+    feat_extract_norm: str = "group"
+    conv_bias: bool = False
+    do_stable_layer_norm: bool = False
+    num_buckets: int = 0
+    max_bucket_distance: int = 800
+
+    def __post_init__(self):
+        if self.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm must be 'group' or 'layer', got {self.feat_extract_norm!r}")
+        if self.num_buckets < 0 or self.num_buckets % 2:
+            raise ValueError(f"num_buckets must be 0 or a positive even number, got {self.num_buckets}")
+
+    @property
+    def relative_position(self) -> bool:
+        """WavLM's gated relative-position attention."""
+        return self.num_buckets > 0
+
+
+_LAYOUT_FIELDS = ("feat_extract_norm", "conv_bias", "do_stable_layer_norm", "num_buckets", "max_bucket_distance")
+
+# microsoft/wavlm-large (config.json; Chen et al., arXiv:2110.13900)
+WAVLM_LARGE = AudioEncoderConfig(
+    hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096, feat_extract_norm="layer",
+    conv_bias=False, do_stable_layer_norm=True, num_buckets=320, max_bucket_distance=800)
+
+AUDIO_MODELS = ("hubert", "wav2vec2", "wavlm")
+
+
+def default_audio_config(audio_model: str) -> AudioEncoderConfig:
+    """The encoder ``audio_model`` names at its published widths: the base
+    layout for hubert and wav2vec2, ``WAVLM_LARGE`` for wavlm."""
+    if audio_model not in AUDIO_MODELS:
+        raise ValueError(f"audio_model must be one of {AUDIO_MODELS}, got {audio_model!r}")
+    return WAVLM_LARGE if audio_model == "wavlm" else AudioEncoderConfig()
+
+
+def audio_config_to_dict(c: AudioEncoderConfig) -> Dict[str, Any]:
+    """``c`` as ``args.json``'s ``audio_encoder_config``: the layout fields
+    only where they leave the base layout, so a base-layout config still
+    reads in the JAX package, which has none of them."""
+    d = dataclasses.asdict(c)
+    base = AudioEncoderConfig()
+    for k in _LAYOUT_FIELDS:
+        if d[k] == getattr(base, k):
+            del d[k]
+    return d
+
+
+def audio_config_from_dict(d: Dict[str, Any]) -> AudioEncoderConfig:
+    """The inverse of ``audio_config_to_dict`` (lists back to tuples)."""
+    return AudioEncoderConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})

@@ -1,4 +1,4 @@
-"""Pretrained wav2vec2 / HuBERT weights from local Hugging Face files, into
+"""Pretrained wav2vec2 / HuBERT / WavLM weights from local Hugging Face files, into
 the port's audio encoder (the port of ``msmd_tpu/interop/hf_loader.py``).
 
 The reference calls ``from_pretrained('facebook/hubert-base-ls960')`` with
@@ -7,7 +7,9 @@ on disk: a model directory (``config.json`` with ``model.safetensors`` or
 ``pytorch_model.bin``) or an HF cache root holding
 ``models--org--name/snapshots/<rev>/``. The state dict goes through the
 port's copy of the name mapping (``interop._hf_audio_encoder``; the
-``wav2vec2.`` / ``hubert.`` prefix of a task model is stripped).
+``wav2vec2.`` / ``hubert.`` / ``wavlm.`` prefix of a task model is
+stripped). A file whose layout (its conv front's norms and biases, WavLM's
+gated attention) is not the encoder's is refused before anything loads.
 
 The port reads ``.safetensors`` itself (an 8-byte little-endian header
 length, a JSON header of dtype / shape / byte range per tensor, then the
@@ -118,11 +120,22 @@ def load_state_dict_file(path) -> Dict[str, np.ndarray]:
 def load_hf_audio_encoder_params(path_or_name: str, cache_dir: Optional[str] = None) -> dict:
     """-> the audio encoder's Flax-named tree (NumPy)."""
     sd = load_state_dict_file(_find_weight_file(resolve_model_dir(path_or_name, cache_dir)))
-    for prefix in ("wav2vec2.", "hubert."):  # a task model's checkpoint
+    for prefix in ("wav2vec2.", "hubert.", "wavlm."):  # a task model's checkpoint
         if any(k.startswith(prefix) for k in sd):
             sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
             break
     return _hf_audio_encoder(sd)
+
+
+def tree_layout(tree: Mapping) -> dict:
+    """The layout fields an encoder tree implies: its conv front's norm
+    ("layer" with a LayerNorm on every convolution) and biases, and
+    whether its layers have WavLM's gated relative-position attention."""
+    fe = tree["feature_extractor"]
+    layers = [v for k, v in tree["encoder"].items() if k.startswith("layers_")]
+    return {"feat_extract_norm": "layer" if "layer_norm_0" in fe else "group",
+            "conv_bias": "bias" in fe["conv_0"],
+            "relative_position": any("gru_rel_pos_linear" in lp for lp in layers)}
 
 
 @torch.no_grad()
@@ -130,7 +143,9 @@ def inject_pretrained_audio(model: nn.Module, path_or_name: str, cache_dir: Opti
     """Copy pretrained weights into ``model.audio_encoder`` in place: every
     parameter the file has, shape-checked against the module's own (a
     mismatch raises with the parameter's name); the others keep their
-    values, as the JAX loader keeps the init's leaves. Returns ``model``."""
+    values, as the JAX loader keeps the init's leaves. A file of another
+    layout than the encoder's config (``tree_layout``) raises; nothing is
+    copied until every check has passed. Returns ``model``."""
     params = dict(model.audio_encoder.named_parameters())
     new = {}
 
@@ -143,7 +158,16 @@ def inject_pretrained_audio(model: nn.Module, path_or_name: str, cache_dir: Opti
             else:
                 new[prefix + {"kernel": "weight", "scale": "weight"}.get(key, key)] = (key, np.asarray(value))
 
-    walk(load_hf_audio_encoder_params(path_or_name, cache_dir), "")
+    tree = load_hf_audio_encoder_params(path_or_name, cache_dir)
+    c = model.audio_encoder.config
+    have = {"feat_extract_norm": c.feat_extract_norm, "conv_bias": c.conv_bias,
+            "relative_position": c.relative_position}
+    got = tree_layout(tree)
+    if got != have:
+        raise ValueError(f"the pretrained weights at {path_or_name} have the layout {got}, the audio encoder "
+                         f"{have}: set audio_model / audio_encoder_config to the file's encoder")
+    walk(tree, "")
+    staged = []
     for name, (key, value) in new.items():
         p = params.get(name)
         if p is None:
@@ -152,5 +176,7 @@ def inject_pretrained_audio(model: nn.Module, path_or_name: str, cache_dir: Opti
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"shape mismatch at audio_encoder.{name}: the model has {tuple(p.shape)}, "
                              f"the pretrained weights {tuple(arr.shape)}")
+        staged.append((p, arr))
+    for p, arr in staged:
         p.copy_(torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)))
     return model

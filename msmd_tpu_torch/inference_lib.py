@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, audio_config_from_dict
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.diffusion import MSMD, get_diffusion_model, sample
 from msmd_tpu_torch.models.layers import SampleRows
@@ -155,8 +155,7 @@ def load_model(model_root, model_name: str, iter_num: str, audio_config: Optiona
         exp_dir = Path(model_root) / model_name
     cfg = MSMDConfig.load_args_json(exp_dir)
     if audio_config is None and cfg.audio_encoder_config is not None:
-        audio_config = AudioEncoderConfig(
-            **{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.audio_encoder_config.items()})
+        audio_config = audio_config_from_dict(cfg.audio_encoder_config)
     ckpt_path = exp_dir / "checkpoints" / f"iter_{iter_num}.pt"
     if not ckpt_path.exists():
         available = sorted(p.name for p in (exp_dir / "checkpoints").glob("iter_*.pt"))

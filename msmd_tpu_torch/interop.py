@@ -177,9 +177,13 @@ def _strip_prefix(sd: StateDict, prefix: str) -> StateDict:
 
 
 def _hf_audio_encoder(sd: StateDict, n_layers: Optional[int] = None, n_convs: Optional[int] = None) -> dict:
-    """A Hugging Face Wav2Vec2Model / HubertModel state dict -> the audio
-    encoder's tree, with the weight-normed positional convolution folded
-    ('g'/'v' or the parametrizations layout)."""
+    """A Hugging Face Wav2Vec2Model / HubertModel / WavLMModel state dict ->
+    the audio encoder's tree, with the weight-normed positional
+    convolution folded ('g'/'v' or the parametrizations layout). The
+    "layer" conv front (a LayerNorm on every convolution) is told from the
+    base one's single GroupNorm by ``conv_layers.1.layer_norm``; WavLM's
+    gate (``gru_rel_pos_linear``, ``gru_rel_pos_const`` as (heads,)) and
+    layer 0's bucket table (``rel_attn_embed``) are read where present."""
     if n_convs is None:
         n_convs = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("feature_extractor.conv_layers."))
     if n_layers is None:
@@ -187,7 +191,10 @@ def _hf_audio_encoder(sd: StateDict, n_layers: Optional[int] = None, n_convs: Op
     p: dict = {"feature_extractor": {}, "feature_projection": {}, "encoder": {}}
     for i in range(n_convs):
         p["feature_extractor"][f"conv_{i}"] = _conv1d(sd, f"feature_extractor.conv_layers.{i}.conv")
-    if "feature_extractor.conv_layers.0.layer_norm.weight" in sd:
+    if "feature_extractor.conv_layers.1.layer_norm.weight" in sd:
+        for i in range(n_convs):
+            p["feature_extractor"][f"layer_norm_{i}"] = _norm(sd, f"feature_extractor.conv_layers.{i}.layer_norm")
+    elif "feature_extractor.conv_layers.0.layer_norm.weight" in sd:
         p["feature_extractor"]["group_norm"] = _norm(sd, "feature_extractor.conv_layers.0.layer_norm")
     p["feature_projection"]["layer_norm"] = _norm(sd, "feature_projection.layer_norm")
     p["feature_projection"]["projection"] = _linear(sd, "feature_projection.projection")
@@ -213,6 +220,12 @@ def _hf_audio_encoder(sd: StateDict, n_layers: Optional[int] = None, n_convs: Op
             "output_dense": _linear(sd, f"{layer}.feed_forward.output_dense"),
             "final_layer_norm": _norm(sd, f"{layer}.final_layer_norm"),
         }
+        lp, attn = p["encoder"][f"layers_{i}"], f"{layer}.attention"
+        if f"{attn}.gru_rel_pos_linear.weight" in sd:
+            lp["gru_rel_pos_linear"] = _linear(sd, f"{attn}.gru_rel_pos_linear")
+            lp["gru_rel_pos_const"] = sd[f"{attn}.gru_rel_pos_const"].reshape(-1)
+        if f"{attn}.rel_attn_embed.weight" in sd:
+            lp["rel_attn_embed"] = sd[f"{attn}.rel_attn_embed.weight"]
     if "masked_spec_embed" in sd:
         p["masked_spec_embed"] = sd["masked_spec_embed"]
     return p
@@ -356,6 +369,10 @@ def _hf_audio_out(sd: StateDict, prefix: str, p: dict) -> None:
         i += 1
     if "group_norm" in fe:
         _norm_out(sd, f"{prefix}.feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+    j = 0
+    while f"layer_norm_{j}" in fe:
+        _norm_out(sd, f"{prefix}.feature_extractor.conv_layers.{j}.layer_norm", fe[f"layer_norm_{j}"])
+        j += 1
     _norm_out(sd, f"{prefix}.feature_projection.layer_norm", p["feature_projection"]["layer_norm"])
     _lin_out(sd, f"{prefix}.feature_projection.projection", p["feature_projection"]["projection"])
     # the positional conv re-emitted as a weight-norm pair with v = w, g = |w|
@@ -373,6 +390,11 @@ def _hf_audio_out(sd: StateDict, prefix: str, p: dict) -> None:
         _lin_out(sd, f"{base}.feed_forward.intermediate_dense", lp["intermediate_dense"])
         _lin_out(sd, f"{base}.feed_forward.output_dense", lp["output_dense"])
         _norm_out(sd, f"{base}.final_layer_norm", lp["final_layer_norm"])
+        if "gru_rel_pos_linear" in lp:
+            _lin_out(sd, f"{base}.attention.gru_rel_pos_linear", lp["gru_rel_pos_linear"])
+            sd[f"{base}.attention.gru_rel_pos_const"] = np.asarray(lp["gru_rel_pos_const"]).reshape(1, -1, 1, 1)
+        if "rel_attn_embed" in lp:
+            sd[f"{base}.attention.rel_attn_embed.weight"] = np.asarray(lp["rel_attn_embed"])
         li += 1
     if "masked_spec_embed" in p:
         sd[f"{prefix}.masked_spec_embed"] = np.asarray(p["masked_spec_embed"])

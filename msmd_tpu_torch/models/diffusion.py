@@ -81,7 +81,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, default_audio_config
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.models.audio import AudioEncoder
 from msmd_tpu_torch.models.denoiser import DenoisingNetwork
@@ -100,7 +100,7 @@ class MSMD(nn.Module):
                  audio_config: Optional[AudioEncoderConfig] = None, dtype=torch.float32):
         super().__init__()
         self.cfg, self.use_head_alpha, self.dtype = cfg, use_head_alpha, dtype
-        audio_config = audio_config or AudioEncoderConfig()
+        audio_config = audio_config or default_audio_config(cfg.audio_model)
         self.audio_encoder = AudioEncoder(audio_config, dtype)
         self.audio_feature_map = Dense(audio_config.hidden_size, cfg.feature_dim, dtype=dtype)
         self.start_motion_feat = nn.Parameter(torch.zeros(1, cfg.n_prev_motions, cfg.motion_feat_dim))

@@ -11,6 +11,7 @@ one guided batch-48 window and one train step.
     python -m msmd_tpu_torch.profile --lbs       # lbs only (also from an older checkout)
     python -m msmd_tpu_torch.profile --attn-f32  # attn_f32 only (also from an older checkout)
     python -m msmd_tpu_torch.profile --profiler-sessions [SECONDS]  # profiler_sessions only
+    python -m msmd_tpu_torch.profile --relpos    # relpos only: K10 beside its bound, plain twin and SDPA
 
 Prints JSON lines:
 
@@ -630,6 +631,57 @@ def attn_f32_split(dev, calls: int = 50) -> None:
 FLAT_ROWS_ENTRIES = (2, 4, 8, 10, 12, 16, 24, 48, 96)
 
 
+def relpos_split(dev, calls: int = 20) -> None:
+    """K10 (``ops/kernels/relpos_attn.py``) at the WavLM-Large cell's shapes
+    (B 32, L 200) and at B 1, L 400: forward and backward ms (CUDA events,
+    warm and L2-flushed), each kernel's device time a call, the bound
+    (``relpos_work`` at the published peaks), the plain twin's ms (the bias
+    and P materialised) and the library's: ``scaled_dot_product_attention``
+    with the gated bias as a bf16 float mask, forward and forward + backward
+    (its gradient to the mask included, which the layer needs)."""
+    import torch.nn.functional as F
+
+    from msmd_tpu_torch.measure import cuda_ms, cuda_ms_flushed
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+
+    peak, hbm = 989e12, 3.35e12
+    for B, L in ((32, 200), (1, 400)):
+        H, D = 16, ra.HEAD_DIM
+        gen = torch.Generator().manual_seed(B * L)
+        q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+        g = (1 + 2 * torch.rand(B, H, L, generator=gen)).to(dev)
+        r = torch.randn(H, 2 * L - 1, generator=gen).to(dev)
+        out, lse = ra.relpos_attention_cuda(q, k, v, g, r)
+        fwd = lambda: ra.relpos_attention_cuda(q, k, v, g, r)
+        bwd = lambda: ra.relpos_attention_bwd_cuda(q, k, v, g, r, out, lse, dout)
+        row = {"phase": "relpos", "B": B, "L": L, "heads": H}
+        for name, fn, back in (("forward", fwd, False), ("backward", bwd, True)):
+            events = _device_events(fn, calls)
+            per = len(events) // calls
+            flops, nbytes = ra.relpos_work(B, L, H, D, back)
+            bound_ms = max(flops / peak, nbytes / hbm) * 1e3
+            dev_ms = sum(us for _, us in events) / calls / 1e3
+            row[name] = {"launches_per_call": per,
+                         "kernels": [[events[i][0], sum(events[c * per + i][1] for c in range(calls)) / calls]
+                                     for i in range(per)],
+                         "device_ms": dev_ms, "ms": cuda_ms(fn, calls), "ms_l2_flushed": cuda_ms_flushed(fn, calls),
+                         "bound_ms": bound_ms, "roofline_pct": 100.0 * bound_ms / dev_ms if dev_ms else None,
+                         "bound_by": "bytes" if nbytes / hbm > flops / peak else "flops"}
+        row["plain_forward_ms"] = cuda_ms(lambda: ra.relpos_attention_fwd_plain(q, k, v, g, r), 5)
+        row["plain_backward_ms"] = cuda_ms(lambda: ra.relpos_attention_bwd_plain(q, k, v, g, r, out, lse, dout), 5)
+        qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, dout))
+        bias = ra.bias_plain(g, r).to(torch.bfloat16)
+        row["library_forward_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias), calls)
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh, bias)]
+
+        def library_step():
+            o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+            torch.autograd.grad(o, leaves, doh)
+
+        row["library_forward_backward_ms"] = cuda_ms(library_step, calls)
+        print(json.dumps(row), flush=True)
+
+
 def flat_rows(dev) -> None:
     """K1's flat-mask mode with the full masked cross (width 0) at lq = 111
     for each Be of ``FLAT_ROWS_ENTRIES``, in the tiles the denoiser picks
@@ -677,6 +729,9 @@ def main(argv=None) -> int:
         return 0
     if "--attn-f32" in argv:
         attn_f32_split(torch.device("cuda", 0))
+        return 0
+    if "--relpos" in argv:
+        relpos_split(torch.device("cuda", 0))
         return 0
     if "--profiler-sessions" in argv:
         rest = argv[argv.index("--profiler-sessions") + 1:]

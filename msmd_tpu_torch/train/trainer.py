@@ -15,7 +15,6 @@ inference CLIs, and a native checkpoint resumes on any layout.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import time
 from collections import defaultdict, deque
@@ -25,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig
+from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, audio_config_from_dict, audio_config_to_dict
 from msmd_tpu_torch.device import resolve_device
 from msmd_tpu_torch.interop import load_flax_params, load_reference_pt, reference_msmd_to_flax, \
     reference_style_enc_to_flax
@@ -62,10 +61,9 @@ class Trainer:
         if cfg.batch_size % layout.dp:
             raise ValueError(f"batch_size={cfg.batch_size} is not divisible by the {layout.dp} data-parallel ranks")
         if audio_config is not None and cfg.audio_encoder_config is None:
-            cfg = cfg.replace(audio_encoder_config=dataclasses.asdict(audio_config))
+            cfg = cfg.replace(audio_encoder_config=audio_config_to_dict(audio_config))
         elif audio_config is None and cfg.audio_encoder_config is not None:
-            audio_config = AudioEncoderConfig(
-                **{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.audio_encoder_config.items()})
+            audio_config = audio_config_from_dict(cfg.audio_encoder_config)
         self.cfg = cfg
         self.exp_dir = Path(exp_dir)
         self.device = resolve_device(device)

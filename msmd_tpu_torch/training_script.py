@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--style_enc_model_style", type=str, default="vae2")
     p.add_argument("--training_loss_style", type=str, default="MSMD")
     p.add_argument("--dataset_type", type=str, default="ravdess+celebv-text-medium")
-    p.add_argument("--audio_model", type=str, default="hubert")
+    p.add_argument("--audio_model", type=str, default="hubert", choices=["hubert", "wav2vec2", "wavlm"])
     p.add_argument("--d_style", type=int, default=256)
     p.add_argument("--use_indicator", action="store_true")
     p.add_argument("--use_cross_style", action="store_true")
@@ -129,6 +129,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 TINY_AUDIO = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
                   conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3), conv_stride=(5, 4, 4))
+# WavLM's layout at the tiny widths (--audio_model wavlm --tiny_audio_encoder)
+TINY_WAVLM = dict(TINY_AUDIO, feat_extract_norm="layer", do_stable_layer_norm=True, num_buckets=32,
+                  max_bucket_distance=64)
+
+
+def audio_config_of(args):
+    """The audio encoder the flags ask for: the tiny one, else WavLM-Large
+    for wavlm, so that args.json records its widths (None: the model's
+    default, HuBERT-base)."""
+    from msmd_tpu_torch.config import AudioEncoderConfig, default_audio_config
+
+    if args.tiny_audio_encoder:
+        return AudioEncoderConfig(**(TINY_WAVLM if args.audio_model == "wavlm" else TINY_AUDIO))
+    return default_audio_config(args.audio_model) if args.audio_model == "wavlm" else None
 
 
 def _load_stats(path) -> dict:
@@ -142,7 +156,7 @@ def _load_stats(path) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
 
-    from msmd_tpu_torch.config import AudioEncoderConfig, MSMDConfig, is_hdtf
+    from msmd_tpu_torch.config import MSMDConfig, is_hdtf
     from msmd_tpu_torch.data.pickle_dataset import get_dataset
     from msmd_tpu_torch.device import resolve_device
     from msmd_tpu_torch.parallel.mesh import make_layout
@@ -152,8 +166,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     layout = make_layout(args.tp_size, backend="nccl" if dev.type == "cuda" else "gloo")
     if layout.distributed and dev.type == "cuda":
         dev = torch.device("cuda", layout.local_rank)
+    audio_config = audio_config_of(args)
     cfg = MSMDConfig.from_dict(vars(args))
-    audio_config = AudioEncoderConfig(**TINY_AUDIO) if args.tiny_audio_encoder else None
     if args.continue_from:
         exp_dir = Path(args.continue_from)
     else:  # rank 0 names the experiment

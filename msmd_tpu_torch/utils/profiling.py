@@ -20,7 +20,11 @@ reference has none but ad-hoc GPU-memory prints, training_script.py:33-40).
 The spans and what each covers:
 
 - ``msmd.audio_encoder``: ``MSMD.extract_audio_feature`` (HuBERT, the
-  resampling, the projection), for every caller;
+  resampling, the projection), for every caller; with WavLM inside it
+  ``msmd.audio_encoder.features`` (the conv front),
+  ``msmd.audio_encoder.rel_bias`` (the heads' table of offsets, once a
+  call, and each layer's gate, inside ``.layers``) and
+  ``msmd.audio_encoder.layers`` (the encoder's layers);
 - ``msmd.sample.setup``: ``sample`` from its entry to the first denoiser
   launch (the CFG stacks, the bf16 copy of the denoiser, the memory K/V,
   the kernels' packed arguments, the tables);
@@ -37,7 +41,12 @@ The spans and what each covers:
 The counters: ``msmd.frames.sampled``, the rows times ``n_motions`` of
 every window ``infer_coeffs`` and ``StreamingBatcher.step`` sample (every
 one of a round's ``max_slots`` rows); ``msmd.frames.kept``, the frames
-they hand back, the padding trimmed and the unserved slots left out.
+they hand back, the padding trimmed and the unserved slots left out;
+``msmd.k10.calls`` (K10's forward and backward calls on the card),
+``msmd.k10.fwd_rows`` / ``msmd.k10.bwd_rows`` (their query rows, entries
+times L, summed), ``msmd.k10.plain_calls`` (WavLM attentions on the card
+longer than K10 takes, run by its plain twin); ``msmd.wavlm.bias_tables`` (WavLM's tables of offsets
+built: one an encoder call).
 """
 
 from __future__ import annotations

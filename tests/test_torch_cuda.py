@@ -1085,3 +1085,186 @@ def test_audio_encoder_span_holds_its_launches_on_the_kernels_clock():
               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
     assert len(device) > 10 and all(c in calls for c, _ in device)
     assert all(s0 <= calls[c] < s1 and start >= s0 for c, start in device)
+
+
+def _k10_case(dev, B, L, H=16, D=64, seed=10):
+    """K10's inputs: q, k, v, dout bf16 N(0, 1), the gate in (1, 3), the
+    table N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+    g = (1 + 2 * torch.rand(B, H, L, generator=gen)).to(dev)
+    r = torch.randn(H, 2 * L - 1, generator=gen).to(dev)
+    return q, k, v, g, r, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(32, 200), (1, 400), (3, 1), (2, 65), (1, 2048)])
+def test_relpos_kernel_matches_plain_and_repeats_bit_for_bit(B, L):
+    """K10 (forward, and backward from the forward's out and log-sum-exp)
+    against its plain twin on the same inputs: the output, dq, dk and dv
+    within 2e-2 of max |plain| (bf16 P and dS in the products, as the
+    kernel rounds them), the log-sum-exp within 1e-5 of max |plain|, dg and
+    dr within 1e-3 (f32 sums of the same f32 dS in other orders); two calls
+    bit-equal (no atomics); one launch counted a call each way."""
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+
+    q, k, v, g, r, dout = _k10_case(_card(), B, L)
+    fwd0, bwd0 = ra.relpos_attention_cuda.launches, ra.relpos_attention_bwd_cuda.launches
+    out, lse = ra.relpos_attention_cuda(q, k, v, g, r)
+    want_out, want_lse = ra.relpos_attention_fwd_plain(q, k, v, g, r)
+    grads = ra.relpos_attention_bwd_cuda(q, k, v, g, r, out, lse, dout)
+    want = ra.relpos_attention_bwd_plain(q, k, v, g, r, out, lse, dout)
+    again = (ra.relpos_attention_cuda(q, k, v, g, r), ra.relpos_attention_bwd_cuda(q, k, v, g, r, out, lse, dout))
+    torch.cuda.synchronize()
+    tol = {"out": 2e-2, "lse": 1e-5, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2, "dg": 1e-3, "dr": 1e-3}
+    got_all = (out, lse) + tuple(grads)
+    want_all = (want_out, want_lse) + tuple(want)
+    # dq, dk, dg and dr are nought at L = 1 (one key: dS is round-off), so there both sides hold round-off:
+    # measured against what dS's size would give, dv's (times r's for dg, g's and B for dr)
+    dv = float(want[2].float().abs().max())
+    floor = {"dq": 1e-3 * dv, "dk": 1e-3 * dv, "dg": 1e-3 * dv * float(r.abs().max()),
+             "dr": 1e-3 * dv * float(g.abs().max()) * B}
+    for name, a, w in zip(tol, got_all, want_all):
+        err = float((a.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), floor.get(name, 1e-30))
+        print(f"B {B} L {L} {name} max|err|/max|plain| {err:.3g}")
+        assert a.shape == w.shape and a.dtype == w.dtype and bool(torch.isfinite(a).all()), name
+        assert err <= tol[name], name
+    for a, c in zip(got_all, again[0] + tuple(again[1])):
+        assert torch.equal(a, c)
+    assert ra.relpos_attention_cuda.launches - fwd0 == 2 and ra.relpos_attention_bwd_cuda.launches - bwd0 == 2
+
+
+@pytest.mark.cuda
+def test_relpos_wrapper_refuses_what_its_gate_refuses():
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+
+    dev = _card()
+    q, k, v, g, r, _ = _k10_case(dev, 1, 8)
+    with pytest.raises(ValueError):
+        ra.relpos_attention_cuda(q.float(), k.float(), v.float(), g, r)
+    narrow = q[..., :32].contiguous()
+    with pytest.raises(ValueError):
+        ra.relpos_attention_cuda(narrow, narrow, narrow, g, r)
+    L = ra.MAX_L + 1
+    long = torch.zeros(1, L, 1, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        ra.relpos_attention_cuda(long, long, long, torch.zeros(1, 1, L, device=dev), torch.zeros(1, 2 * L - 1,
+                                                                                               device=dev))
+    with pytest.raises(ValueError):
+        ra.relpos_attention_cuda(q, k, v, g, r[:, 1:].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H", [(32, 200, 16), (1, 1, 1), (3, 2048, 2)])
+def test_relpos_plan_matches_the_library(B, L, H):
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+
+    _card()
+    assert ra.relpos_plan_cuda(B, L, H) == ra.relpos_plan(B, L, H)
+
+
+@pytest.mark.cuda
+def test_relpos_layer_entry_routes_long_rows_to_the_twin_and_raises_for_the_rest():
+    """``relpos_attention`` on the card: past ``MAX_L`` rows the plain twin,
+    counted as ``msmd.k10.plain_calls`` and launching no K10; f32 or a head
+    width other than 64 raises."""
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+    from msmd_tpu_torch.utils.profiling import counters
+
+    dev = _card()
+    L = ra.MAX_L + 1
+    q = torch.randn(1, L, 1, 64, device=dev).to(torch.bfloat16)
+    g, r = torch.ones(1, 1, L, device=dev), torch.randn(1, 2 * L - 1, device=dev)
+    before, launches = counters(), ra.relpos_attention_cuda.launches
+    out = ra.relpos_attention(q, q, q, g, r)
+    after = counters()
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+    assert after.get("msmd.k10.plain_calls", 0) - before.get("msmd.k10.plain_calls", 0) == 1
+    assert ra.relpos_attention_cuda.launches == launches
+    q, k, v, g, r, _ = _k10_case(dev, 1, 8)
+    with pytest.raises(ValueError):
+        ra.relpos_attention(q.float(), k.float(), v.float(), g, r)
+    narrow = q[..., :32].contiguous()
+    with pytest.raises(ValueError):
+        ra.relpos_attention(narrow, narrow, narrow, g, r)
+
+
+@pytest.mark.cuda
+def test_wavlm_encoder_runs_k10_once_a_layer_each_way():
+    """A bf16 WavLM encoder of head width 64 on the card: one K10 forward a
+    layer a call, one backward a layer in training, one table a call
+    (``msmd.k10.calls``, ``msmd.wavlm.bias_tables``); its output against
+    the same encoder with the plain twin in K10's place."""
+    from msmd_tpu_torch.config import AudioEncoderConfig
+    from msmd_tpu_torch.models import audio as ma
+    from msmd_tpu_torch.ops.kernels import relpos_attn as ra
+    from msmd_tpu_torch.utils.profiling import counters
+
+    dev = _card()
+    c = AudioEncoderConfig(hidden_size=256, num_layers=3, num_heads=4, intermediate_size=512,
+                           feat_extract_norm="layer", do_stable_layer_norm=True, num_buckets=320)
+    torch.manual_seed(0)
+    enc = ma.AudioEncoder(c, dtype=torch.bfloat16).to(dev)
+    audio = torch.randn(2, 64000, device=dev)
+    before = counters()
+    out = enc(audio, 25, 200, rng=torch.Generator(device=dev).manual_seed(1))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    after = counters()
+    delta = lambda n: after.get(n, 0) - before.get(n, 0)
+    assert delta("msmd.k10.calls") == 2 * c.num_layers and delta("msmd.wavlm.bias_tables") == 1
+    assert delta("msmd.k10.fwd_rows") == delta("msmd.k10.bwd_rows") == 2 * 200 * c.num_layers
+    assert enc.encoder.layers[0].rel_attn_embed.grad is not None
+    with torch.no_grad():
+        got = enc(audio, 25, 200)
+        orig = ma.relpos_attention
+        ma.relpos_attention = ra.relpos_attention_plain
+        try:
+            want = enc(audio, 25, 200)
+        finally:
+            ma.relpos_attention = orig
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    print(f"wavlm encoder K10 vs plain max|err|/max|plain| {err:.3g}")
+    assert err <= 5e-2
+
+
+@pytest.mark.cuda
+def test_wavlm_large_msmd_serves_through_k10():
+    """MSMD with ``audio_model="wavlm"`` at WavLM-Large's widths (bf16, seeded
+    weights) through ``infer_coeffs`` (a 4 s clip, two takes) and
+    ``StreamingBatcher`` (two streams of two windows over two slots): every
+    encoder call runs K10 once a layer (24 forward calls, no backward) and
+    builds one table; the motion is finite."""
+    import numpy as np
+
+    from msmd_tpu_torch.config import MSMDConfig
+    from msmd_tpu_torch.inference_lib import infer_coeffs
+    from msmd_tpu_torch.models.diffusion import get_diffusion_model
+    from msmd_tpu_torch.serving import StreamingBatcher
+    from msmd_tpu_torch.utils.profiling import counters
+
+    dev = _card()
+    cfg = MSMDConfig(audio_model="wavlm")
+    model = get_diffusion_model(cfg, dtype=torch.bfloat16, device=dev, seed=3)
+    assert model.audio_encoder.config.num_layers == 24 and model.audio_encoder.config.relative_position
+    rng = np.random.default_rng(4)
+    before = counters()
+    with torch.no_grad():
+        out = infer_coeffs(model, rng.standard_normal(64000).astype(np.float32), torch.zeros(1, 100),
+                           style_feats=torch.zeros(1, cfg.d_style), n_repetitions=2, device=dev)
+    torch.cuda.synchronize()
+    mid = counters()
+    bat = StreamingBatcher(model, max_slots=2, device=dev)
+    for j in range(2):
+        bat.add_stream(f"s{j}", seed=j, style=np.zeros(cfg.d_style, np.float32))
+        bat.push_audio(f"s{j}", rng.standard_normal(2 * 64000).astype(np.float32), final=True)
+    with torch.no_grad():
+        bat.run_until_drained()
+    after = counters()
+    d1 = lambda n: mid.get(n, 0) - before.get(n, 0)
+    d2 = lambda n: after.get(n, 0) - mid.get(n, 0)
+    assert bool(torch.isfinite(torch.as_tensor(out)).all())
+    assert all(np.isfinite(np.asarray(bat.output(f"s{j}"))).all() for j in range(2))
+    for d in (d1, d2):
+        tables = d("msmd.wavlm.bias_tables")
+        assert tables >= 1 and d("msmd.k10.calls") == 24 * tables and d("msmd.k10.bwd_rows") == 0
